@@ -7,7 +7,10 @@ which ``torch.from_numpy`` rejects, so it crosses as 16-bit integers and is
 reinterpreted as ``torch.bfloat16``. Every leaf arrives bit for bit.
 
 Callers turn the JAX tree into numpy arrays first (``np.asarray`` per leaf),
-so this module never imports JAX.
+so this module never imports JAX. :func:`train_state_from_numpy` carries a
+JAX train state (params, optax's Adam ``mu``/``nu``/``count``, ``step``)
+across the same way, into the state of
+:func:`ray_tpu_torch.models.transformer.make_train_step`.
 """
 
 from __future__ import annotations
@@ -33,3 +36,19 @@ def params_from_numpy(tree: Any, device=None) -> Any:
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, device) for k, v in tree.items()}
     return tensor_from_numpy(np.asarray(tree), device)
+
+
+def train_state_from_numpy(params: Any, mu: Any, nu: Any, count, step, device=None) -> dict:
+    """A JAX train state, as numpy, -> the port's train state. ``mu``, ``nu``
+    and ``count`` are the fields of optax's ``ScaleByAdamState`` (the first
+    entry of ``optax.adamw``'s state tuple); ``step`` is the JAX state's
+    step. The port's state then takes the next step as the JAX one would."""
+    def scalar(x):
+        return torch.tensor(int(np.asarray(x)), dtype=torch.int32, device=device)
+
+    return {
+        "params": params_from_numpy(params, device),
+        "opt": {"mu": params_from_numpy(mu, device), "nu": params_from_numpy(nu, device),
+                "count": scalar(count)},
+        "step": scalar(step),
+    }

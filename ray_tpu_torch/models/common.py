@@ -12,3 +12,17 @@ def dense_init(generator: torch.Generator, shape, fan_in, dtype=torch.float32) -
     Drawn on ``generator``'s device."""
     x = torch.randn(shape, generator=generator, device=generator.device, dtype=torch.float32)
     return (x / math.sqrt(fan_in)).to(dtype)
+
+
+def default_device(device, what: str) -> torch.device:
+    """``device``, or ``cuda`` when it is None. No silent CPU fallback: with
+    no device named and no CUDA device present this raises, so a run meant
+    for the GPU never quietly runs on the host."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{what} runs on CUDA by default and no CUDA device is available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")

@@ -59,6 +59,7 @@ from ray_tpu_torch.models.generation import (
     paged_decode_step,
     paged_forward_with_cache,
 )
+from ray_tpu_torch.models.common import default_device
 from ray_tpu_torch.models.transformer import TransformerConfig
 from ray_tpu_torch.runtime import admission
 from ray_tpu_torch.serve.kv_blocks import BlockAllocator
@@ -135,20 +136,6 @@ def _bucket(n: int, lo: int = 16, cap: Optional[int] = None) -> int:
     return b if cap is None else min(b, cap)
 
 
-def _default_device(device) -> torch.device:
-    """The engine's device: ``cuda`` unless the caller names one. No silent
-    CPU fallback — a run meant for the GPU must not quietly serve on the
-    host."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError(
-            "LLMEngine runs on CUDA by default and no CUDA device is available; "
-            "pass device='cpu' to serve on the CPU"
-        )
-    return torch.device("cuda")
-
-
 class LLMEngine:
     """Continuous-batching decode engine for one model on one device.
 
@@ -185,7 +172,7 @@ class LLMEngine:
             raise NotImplementedError("multi-device (mesh) serving is not ported yet")
         if cache_kind not in ("dense", "paged"):
             raise ValueError(f"cache_kind must be 'dense' or 'paged', got {cache_kind!r}")
-        self.device = _default_device(device)
+        self.device = default_device(device, "LLMEngine")
         self.cfg = cfg
         self.B = max_batch_size
         self.S = max_seq_len

@@ -1,6 +1,6 @@
 """Boundaries of the PyTorch port: it imports nothing of JAX or of the JAX
-package, serves on the GPU unless asked for the CPU, and a tensor that is
-not on the CPU never reaches a kernel's plain version."""
+package, serves and trains on the GPU unless asked for the CPU, and a tensor
+that is not on the CPU never reaches a kernel's plain version."""
 
 import ast
 import os
@@ -42,15 +42,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         (os.path.relpath(p, REPO), m)
         for p in files
         for m in _imported_modules(p)
-        if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "flax", "optax")
+        if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu", "flax", "optax", "orbax")
     ]
     assert bad == []
 
 
-def test_importing_the_engine_loads_no_jax():
+def test_importing_the_engine_and_trainer_loads_no_jax():
     code = (
-        "import sys, ray_tpu_torch.serve.llm, ray_tpu_torch.convert\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'ray_tpu'))\n"
+        "import sys, ray_tpu_torch.serve.llm, ray_tpu_torch.convert, ray_tpu_torch.models, "
+        "ray_tpu_torch.train\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'ray_tpu', 'optax', 'orbax'))\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -79,7 +81,7 @@ def _no_plain(*a, **k):
     raise AssertionError("a non-CPU tensor reached the plain version")
 
 
-@pytest.mark.parametrize("op", ["paged", "dense", "flash"])
+@pytest.mark.parametrize("op", ["paged", "dense", "flash", "flash_backward"])
 def test_device_tensors_never_reach_the_plain_version(monkeypatch, op):
     """A tensor off the CPU goes to the kernel or raises; here the kernel
     library cannot load (no nvcc), and the plain version must not be run
@@ -87,6 +89,8 @@ def test_device_tensors_never_reach_the_plain_version(monkeypatch, op):
     monkeypatch.setattr(tdec, "_paged_decode_plain", _no_plain)
     monkeypatch.setattr(tdec, "_decode_plain", _no_plain)
     monkeypatch.setattr(tattn, "_flash_forward_plain", _no_plain)
+    for name in ("_flash_backward_plain", "_bwd_dq_plain", "_bwd_dkv_plain"):
+        monkeypatch.setattr(tattn, name, _no_plain)
 
     def no_library(*a, **k):
         raise RuntimeError("kernel library unavailable")
@@ -95,8 +99,15 @@ def test_device_tensors_never_reach_the_plain_version(monkeypatch, op):
     dev = torch.device("meta")
     q = torch.empty(2, 4, 64, device=dev)
     lengths = torch.ones(2, dtype=torch.int32, device=dev)
-    counters = (tdec.paged_decode_attention, tdec.decode_attention, tattn.flash_attention_with_lse)
+    counters = (tdec.paged_decode_attention, tdec.decode_attention, tattn.flash_attention_with_lse,
+                tattn.flash_attention_backward_dq, tattn.flash_attention_backward_dkv)
     before = [c.launches for c in counters]
+    if op == "flash_backward":
+        # a forward that "ran" on the device, so the backward is reached
+        monkeypatch.setattr(tattn, "_flash_forward_kernel", lambda q, k, v, *a: (
+            torch.empty_like(q), torch.empty(q.shape[:3], device=q.device)))
+        x = torch.empty(1, 2, 8, 64, device=dev, requires_grad=True)
+        out, lse = tattn.flash_attention_with_lse(x, x, x)
     with pytest.raises(RuntimeError):
         if op == "paged":
             pages = torch.empty(5, 16, 2, 64, device=dev)
@@ -105,9 +116,11 @@ def test_device_tensors_never_reach_the_plain_version(monkeypatch, op):
         elif op == "dense":
             cache = torch.empty(2, 2, 32, 64, device=dev)
             tdec.decode_attention(q, cache, cache, lengths)
-        else:
+        elif op == "flash":
             x = torch.empty(1, 2, 8, 64, device=dev)
             tattn.flash_attention(x, x, x)
+        else:
+            torch.autograd.grad((out, lse), x, (torch.ones_like(out), torch.ones_like(lse)))
     assert [c.launches for c in counters] == before
 
 
@@ -115,5 +128,6 @@ def test_kernel_sources_build_into_a_gitignored_directory():
     with open(os.path.join(REPO, ".gitignore")) as f:
         ignored = f.read().split()
     assert os.path.relpath(_build.BUILD, REPO) + "/" in ignored
-    assert {"attention.cu", "decode_attention.cu"} <= set(os.listdir(_build.CSRC))
+    assert {"attention.cu", "attention_bwd.cu", "decode_attention.cu"} <= set(
+        os.listdir(_build.CSRC))
     assert "arch=compute_90a,code=sm_90a" in _build.FLAGS

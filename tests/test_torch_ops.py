@@ -3,7 +3,8 @@
 On the CPU the port's wrappers run their plain PyTorch versions (the CUDA
 kernels' oracles); the JAX side runs its Pallas kernels in interpret mode
 and its XLA paths, as its own tests do. Same numpy inputs on both sides,
-f32, atol 1e-5 (only the summation order differs). The CUDA kernels
+f32, atol 1e-5 (only the summation order differs; 2e-5 on gradients,
+which take one more product). The CUDA kernels
 themselves are held against these plain versions on a GPU by
 tests/test_torch_cuda.py and by chip_smoke.py.
 """
@@ -140,24 +141,77 @@ def test_mha_matches_jax(causal):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
 
 
-def test_flash_backward_is_refused():
-    q = torch.randn(1, 1, 4, 8, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tattn.flash_attention(q, q, q)
+@pytest.mark.parametrize(
+    "Tq,Tk,causal,window",
+    [
+        (37, 37, True, None),   # ragged T: not a block multiple
+        (20, 45, False, None),  # Tq != Tk
+        (37, 37, True, 8),      # sliding window, causal
+        (40, 40, False, 12),    # sliding window bounds only the past
+        (45, 20, False, 8),     # rows i >= 27 see no key: lse -1e30, zero grads
+    ],
+)
+def test_flash_attention_with_lse_vjp_matches_jax(Tq, Tk, causal, window):
+    """Value and VJP (K4/K5's plain versions) against ``jax.vjp`` of the JAX
+    function (Pallas backward kernels in interpret mode), with random
+    cotangents for both out and lse; atol 2e-5 on the gradients."""
+    import jax
+
+    rng = np.random.default_rng(100 + Tq + Tk)
+    B, H, D = 2, 2, 16
+    q = rng.normal(size=(B, H, Tq, D)).astype(np.float32)
+    k = rng.normal(size=(B, H, Tk, D)).astype(np.float32)
+    v = rng.normal(size=(B, H, Tk, D)).astype(np.float32)
+    g_out = rng.normal(size=(B, H, Tq, D)).astype(np.float32)
+    g_lse = rng.normal(size=(B, H, Tq)).astype(np.float32)
+    (ref_o, ref_lse), vjp = jax.vjp(
+        lambda a, b, c: jattn.flash_attention_with_lse(a, b, c, None, causal, 16, 16, window),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+    )
+    ref_grads = vjp((jnp.asarray(g_out), jnp.asarray(g_lse)))
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    o, lse = tattn.flash_attention_with_lse(tq, tk, tv, None, causal, window)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(ref_o), atol=ATOL)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(ref_lse), atol=ATOL)
+    grads = torch.autograd.grad((o, lse), (tq, tk, tv), (_t(g_out), _t(g_lse)))
+    for name, got, want in zip("qkv", grads, ref_grads):
+        assert torch.isfinite(got).all(), name
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, err_msg=f"d{name}")
+    if window is not None and not causal and Tq > Tk + window - 1:
+        assert not grads[0][:, :, Tk + window - 1:].any()  # rows that see no key
+
+
+def test_unused_lse_folds_away_and_gqa_sums_group_grads():
+    """``flash_attention`` (lse unused: its cotangent is None) gives the same
+    grads as a zero lse cotangent; K/V repeated to full heads with
+    expand().reshape() get the group's dk/dv summed by autograd."""
+    rng = np.random.default_rng(9)
+    q = _t(rng.normal(size=(1, 4, 19, 16)).astype(np.float32)).requires_grad_()
+    kv = _t(rng.normal(size=(1, 2, 19, 16)).astype(np.float32)).requires_grad_()
+    rep = kv[:, :, None].expand(1, 2, 2, 19, 16).reshape(1, 4, 19, 16)
+    g = _t(rng.normal(size=(1, 4, 19, 16)).astype(np.float32))
+    a = torch.autograd.grad(tattn.flash_attention(q, rep, rep), (q, kv), g)
+    o, lse = tattn.flash_attention_with_lse(q, rep, rep)
+    b = torch.autograd.grad((o, lse), (q, kv), (g, torch.zeros_like(lse)))
+    for x, y in zip(a, b):
+        torch.testing.assert_close(x, y, rtol=0, atol=0)
+    ref = torch.autograd.grad(tattn.mha(q, rep, rep), (q, kv), g)
+    for x, y in zip(a, ref):
+        torch.testing.assert_close(x, y, rtol=0, atol=ATOL)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     q, kp, vp, bt, lengths = _paged_case(1, 2)
-    before = (tdec.paged_decode_attention.launches, tdec.decode_attention.launches,
-              tattn.flash_attention_with_lse.launches)
+    counters = (tdec.paged_decode_attention, tdec.decode_attention,
+                tattn.flash_attention_with_lse, tattn.flash_attention_backward_dq,
+                tattn.flash_attention_backward_dkv)
+    before = [c.launches for c in counters]
     forced = tdec.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt), _t(lengths),
                                          use_kernel=True)
     plain = tdec.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt), _t(lengths),
                                         use_kernel=False)
     torch.testing.assert_close(forced, plain, rtol=0, atol=0)
-    x = torch.randn(1, 2, 8, 16)
-    tattn.flash_attention(x, x, x, use_kernel=True)
+    x = torch.randn(1, 2, 8, 16, requires_grad=True)
+    tattn.flash_attention(x, x, x, use_kernel=True).sum().backward()
     tdec.decode_attention(x[:, :, 0], x, x, torch.tensor([3]))
-    after = (tdec.paged_decode_attention.launches, tdec.decode_attention.launches,
-             tattn.flash_attention_with_lse.launches)
-    assert after == before
+    assert [c.launches for c in counters] == before
