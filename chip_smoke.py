@@ -11,21 +11,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. ``build``   — nvcc builds every kernel from ``ray_tpu_torch/ops/csrc``.
 2. ``kernel``  — one line per kernel: the kernel against its plain PyTorch
    version on the card, at the main paths' shapes plus edge cases, in f32
-   (atol 1e-4: only the summation order differs) and bf16 (atol and rtol
-   2e-2: bf16 keeps about 3 digits); the backward kernels also run twice and
-   must give the same bits; device times of the kernel, the plain version
-   and (where one PyTorch call computes the same function) that call, and
-   the least time the card could take (``bound_ms``).
+   (atol 1e-4: only the summation order differs; the int8 matmul, whose
+   K-term sums grow with K, atol 1e-5 x max|plain|) and bf16 (atol and rtol
+   2e-2: bf16 keeps about 3 digits); the backward kernels and the int8
+   matmul also run twice and must give the same bits; device times of the
+   kernel, the plain version and (where one PyTorch call computes the same
+   function) that call, and the least time the card could take
+   (``bound_ms``). The int8 matmul is timed on weight copies that together
+   exceed the 50 MB L2, as a decode step finds each layer's weights.
 3. ``forward_parity`` — the 284M serving decoder (``llm_bench`` config:
    vocab 32000, d_model 1024, 16 layers, 16 heads / 8 kv heads, d_ff 4096)
    in f32 activations from a seeded generator: a paged prefill + 4 paged
    decode steps and a dense prefill + decode steps, through the kernels and
    through the plain path; logits within atol 1e-3, greedy tokens identical,
-   and ``generate()`` equal to the plain greedy tokens.
+   and ``generate()`` equal to the plain greedy tokens. Then the same with
+   the layers quantized (``quantize_layers``, min_size 4096): through the
+   kernels with ``layer_scales`` (K1/K2/K3 + the int8 matmul, 6 launches a
+   layer per forward) against the plain path on the dequantized weights.
 4. ``engine``  — the paged ``LLMEngine`` at full width in bf16 serving 8
    concurrent requests (prompt 64, 32 tokens, greedy), then the dense
-   engine; launch counters are zeroed just before each run and read just
-   after, and every kernel of the run must have launched.
+   engine, then both again with ``quantize=True`` (int8 layer linears);
+   launch counters are zeroed just before each run and read just after, and
+   every kernel of the run must have launched.
 5. ``train_parity`` — the 602M train-step decoder of ``bench.py`` (vocab
    32000, d_model 2048, 8 layers, 16 heads, d_ff 8192, T 2048) in f32
    activations, batch 1: loss and every gradient leaf through the flash
@@ -52,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -388,12 +396,132 @@ def kernel_flash_backward(torch, g):
     ]
 
 
+# the int8 products of the llm_bench decoder, (M, K, N) at a decode step of
+# 8 rows: wv has wk's shape, w3 has w1's; wo is dequantized, not a K6 product
+K6_DECODE = {"wq": (8, 1024, 1024), "wk": (8, 1024, 512), "w1": (8, 1024, 4096),
+             "w2": (8, 4096, 1024)}
+K6_PER_LAYER = {"wq": 1, "wk": 2, "w1": 2, "w2": 1}
+L2_BYTES = 50 * 2**20
+
+
+def kernel_int8_matmul(torch, g, n_layers: int = 16):
+    from ray_tpu_torch.ops.quantization import (
+        _int8_matmul_plain,
+        dequantize_int8,
+        int8_matmul,
+        quantize_int8,
+    )
+
+    def mk(M, K, N, dtype, zero_col=None):
+        x = torch.randn(M, K, generator=g, device="cuda").to(dtype)
+        w = torch.randn(K, N, generator=g, device="cuda")
+        if zero_col is not None:
+            w[:, zero_col] = 0  # quantizes to scale 1 and int8 zeros
+        w_q, s = quantize_int8(w, axis=0)
+        return x, w_q, s
+
+    cases = {**{f"decode_{k}": v for k, v in K6_DECODE.items()},
+             "prefill_w1": (64, 1024, 4096), "ragged": (100, 300, 50), "m1": (1, 1024, 1024),
+             "zero_column": (8, 1024, 512)}
+    errs = {}
+    for dt in ("float32", "bfloat16"):
+        for name, (M, K, N) in cases.items():
+            x, w_q, s = mk(M, K, N, getattr(torch, dt), 5 if name == "zero_column" else None)
+            got = int8_matmul(x, w_q, s)
+            want = _int8_matmul_plain(x, w_q, s, x.dtype)
+            atol, rtol = TOLS[dt]
+            if dt == "float32":
+                # f32 sums over K terms in another order: the error grows
+                # like sqrt(K) * 2^-24 * |partial sums|, i.e. with the output
+                atol = 1e-5 * float(want.abs().max())
+            errs[f"{name}/{dt}"] = max_err(got, want, atol, rtol, f"int8_matmul {name} {dt}")
+            if name == "zero_column" and got[:, 5].any():
+                raise AssertionError(f"int8_matmul {dt}: the zero column is not zero")
+            if not torch.equal(got, int8_matmul(x, w_q, s)):
+                raise AssertionError(f"int8_matmul {name} {dt}: two launches gave different bits")
+    torch.cuda.synchronize()
+
+    def measure(M, K, N, library: bool):
+        """Device ms at one bf16 shape, each call on the next of several
+        weight copies that together exceed the L2 (a decode step reads
+        every layer's weights once, cold)."""
+        x = torch.randn(M, K, generator=g, device="cuda").to(torch.bfloat16)
+        n = max(2, -(-2 * L2_BYTES // (K * N)))
+        ws = [quantize_int8(torch.randn(K, N, generator=g, device="cuda"), axis=0)
+              for _ in range(n)]
+        nxt = itertools.cycle(ws).__next__
+        nbytes = K * N + M * K * 2 + N * 4 + M * N * 2
+        out = dict(kernel_ms=device_ms(lambda: int8_matmul(x, *nxt())),
+                   bound=bound(nbytes, 2 * M * K * N, "bfloat16"))
+        if not library:
+            return out
+        out["warm_kernel_ms"] = device_ms(lambda: int8_matmul(x, *ws[0]))  # weights in L2
+        out["plain_ms"] = device_ms(lambda: _int8_matmul_plain(x, *nxt(), torch.bfloat16))
+        # the JAX package's route: dequantize to param_dtype, cast, matmul
+        out["jax_route_ms"] = device_ms(
+            lambda: x @ dequantize_int8(*nxt(), torch.float32).to(torch.bfloat16))
+        # the yardstick: one bf16 matmul on weights dequantized ahead of
+        # time (the same product; it reads 2x the weight bytes)
+        deq = [dequantize_int8(w_q, s, torch.bfloat16)
+               for w_q, s in ws[: max(2, -(-2 * L2_BYTES // (2 * K * N)))]]
+        nxt_deq = itertools.cycle(deq).__next__
+        out["library_ms"] = device_ms(lambda: torch.matmul(x, nxt_deq()))
+        del deq
+        # PyTorch's own int8-weight product, where this build has it on CUDA
+        w_q, s = ws[0]
+        try:
+            packed = [(w_q.t().contiguous(), s.reshape(-1).to(torch.bfloat16)) for w_q, s in ws]
+            nxt_pk = itertools.cycle(packed).__next__
+            y = torch._weight_int8pack_mm(x, *packed[0])
+            out["int8pack_max_abs_err"] = float(
+                (y.float() - _int8_matmul_plain(x, w_q, s, torch.float32)).abs().max())
+            out["int8pack_ms"] = device_ms(lambda: torch._weight_int8pack_mm(x, *nxt_pk()))
+        except Exception as exc:  # noqa: BLE001 — reported, never on the path
+            out["int8pack_ms"] = None
+            out["int8pack_error"] = f"{type(exc).__name__}: {str(exc)[:160]}"
+        return out
+
+    main = measure(*K6_DECODE["w1"], library=True)
+    prefill = measure(*cases["prefill_w1"], library=True)
+    per_shape = {k: measure(*v, library=False) for k, v in K6_DECODE.items()}
+    # the weight-streaming rate on 128 MB of int8 weights (decode rows), and
+    # the event-timed floor of a trivial kernel under device_ms
+    stream = measure(8, 4096, 32768, library=False)
+    z = torch.zeros(1, device="cuda")
+    floor_ms = device_ms(lambda: z.add_(1))
+    step_ms = n_layers * sum(c * per_shape[k]["kernel_ms"] for k, c in K6_PER_LAYER.items())
+    step_bound = n_layers * sum(c * per_shape[k]["bound"][0] for k, c in K6_PER_LAYER.items())
+    M, K, N = K6_DECODE["w1"]
+    return dict(
+        name="int8_matmul",
+        source="ray_tpu_torch/ops/csrc/int8_matmul.cu",
+        replaces="ray_tpu/ops/quantization.py:49 _int8_matmul_kernel (pallas_call at :105)",
+        shapes=f"x[{M},{K}] bf16 @ int8 w[{K},{N}] * f32 scales[{N}] (w1 at decode)",
+        errs=errs, max_abs_err=errs["decode_w1/bfloat16"],
+        library_call="torch.matmul(x, w dequantized to bf16 ahead of time): the same "
+                     "product, reading 2x the weight bytes",
+        **main,
+        prefill_shape="x[64,1024] bf16 @ int8 w[1024,4096] (w1 at a prompt-64 prefill)",
+        **{f"prefill_{k}": v for k, v in prefill.items() if k != "bound"},
+        prefill_bound_ms=prefill["bound"][0], prefill_bound_by=prefill["bound"][1],
+        decode_shapes_ms={k: v["kernel_ms"] for k, v in per_shape.items()},
+        decode_shapes_bound_ms={k: v["bound"][0] for k, v in per_shape.items()},
+        decode_step_launches=n_layers * sum(K6_PER_LAYER.values()),
+        decode_step_kernel_ms=step_ms, decode_step_bound_ms=step_bound,
+        stream_shape="x[8,4096] bf16 @ int8 w[4096,32768]", stream_kernel_ms=stream["kernel_ms"],
+        stream_bound_ms=stream["bound"][0],
+        stream_weight_tb_s=4096 * 32768 / (stream["kernel_ms"] * 1e-3) / 1e12,
+        event_floor_ms=floor_ms,
+    )
+
+
 # each returns the entries of the kernels line it checks
 KERNEL_CHECKS = (
     lambda torch, g: [kernel_paged_decode(torch, g)],
     lambda torch, g: [kernel_dense_decode(torch, g)],
     lambda torch, g: [kernel_flash_forward(torch, g)],
     kernel_flash_backward,
+    lambda torch, g: [kernel_int8_matmul(torch, g)],
 )
 
 
@@ -412,6 +540,7 @@ def serving_config(torch):
 
 def forward_parity(torch, cfg, params):
     from ray_tpu_torch.models import generation as gen
+    from ray_tpu_torch.ops.quantization import dequantize_int8, int8_matmul, quantize_layers
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -427,43 +556,45 @@ def forward_parity(torch, cfg, params):
     valid = positions < lengths[:, None]
     report = {}
 
-    def paged(kernel: bool):
+    def paged(p, kernel: bool, **kw):
         cache = gen.init_paged_cache(cfg, B * M + 1, bs, device=dev)
         logits, _ = gen.paged_forward_with_cache(
-            cfg, params, cache, tables, prompt, positions, valid=valid,
-            use_decode_kernel=False,
+            cfg, p, cache, tables, prompt, positions, valid=valid,
+            use_decode_kernel=False, **kw,
         )
         out = [logits[torch.arange(B), lengths - 1]]
         for t in range(steps):
             tok = out[-1].argmax(-1)
             lg, _ = gen.paged_decode_step(
-                cfg, params, cache, tok, lengths + t, tables, use_decode_kernel=kernel
+                cfg, p, cache, tok, lengths + t, tables, use_decode_kernel=kernel, **kw
             )
             out.append(lg)
         return out
 
-    def dense(kernel: bool):
+    def dense(p, kernel: bool, **kw):
         cache = gen.init_cache(cfg, B, Tp + steps + 1, device=dev)
-        last, _ = gen.prefill(cfg, params, cache, prompt, lengths,
-                              use_prefill_kernel=kernel, use_decode_kernel=kernel)
+        last, _ = gen.prefill(cfg, p, cache, prompt, lengths,
+                              use_prefill_kernel=kernel, use_decode_kernel=kernel, **kw)
         out = [last]
         for t in range(steps):
             tok = out[-1].argmax(-1)
-            lg, _ = gen.decode_step(cfg, params, cache, tok, lengths + t,
-                                    use_decode_kernel=kernel)
+            lg, _ = gen.decode_step(cfg, p, cache, tok, lengths + t,
+                                    use_decode_kernel=kernel, **kw)
             out.append(lg)
         return out
 
+    def compare(name, got, want):
+        errs = [max_err(a, b, 1e-3, 0.0, f"{name} logits step {i}")
+                for i, (a, b) in enumerate(zip(got, want))]
+        t_got = [x.argmax(-1).tolist() for x in got]
+        t_want = [x.argmax(-1).tolist() for x in want]
+        if t_got != t_want:
+            raise AssertionError(f"{name}: greedy tokens differ {t_got} vs {t_want}")
+        report[name] = {"max_abs_err_per_step": errs, "tokens": t_got}
+
     with torch.inference_mode():
         for name, fn in (("paged", paged), ("dense", dense)):
-            got, want = fn(True), fn(False)
-            errs = [max_err(a, b, 1e-3, 0.0, f"{name} logits step {i}")
-                    for i, (a, b) in enumerate(zip(got, want))]
-            t_got = [x.argmax(-1).tolist() for x in got]
-            t_want = [x.argmax(-1).tolist() for x in want]
-            if t_got != t_want:
-                raise AssertionError(f"{name}: greedy tokens differ {t_got} vs {t_want}")
-            report[name] = {"max_abs_err_per_step": errs, "tokens": t_got}
+            compare(name, fn(params, True), fn(params, False))
         out, lens = gen.generate(cfg, params, prompt, lengths, max_new_tokens=steps + 1,
                                  temperature=0)
         want = [[report["dense"]["tokens"][s][b] for s in range(steps + 1)] for b in range(B)]
@@ -471,18 +602,46 @@ def forward_parity(torch, cfg, params):
         if got != want:
             raise AssertionError(f"generate(): {got} vs plain greedy {want}")
         report["generate_tokens"] = got
+
+        # int8 layers: the kernels (K6 in six products a layer) against the
+        # plain path on the dequantized weights (the JAX test's oracle)
+        q_layers, scales = quantize_layers(params["layers"], min_size=4096)
+        qparams = {**params, "layers": q_layers}
+        deq = {**params, "layers": {k: dequantize_int8(w, scales[k]) if w.dtype == torch.int8
+                                    else w for k, w in q_layers.items()}}
+        per_forward = 6 * cfg.n_layers
+        for name, fn in (("paged_int8", paged), ("dense_int8", dense)):
+            int8_matmul.launches = 0
+            got = fn(qparams, True, layer_scales=scales)
+            torch.cuda.synchronize()
+            n = int8_matmul.launches
+            if n != per_forward * (steps + 1):
+                raise AssertionError(f"{name}: int8_matmul launched {n} times in {steps + 1} "
+                                     f"forwards, want {per_forward} a forward")
+            compare(name, got, fn(deq, False))
+            report[name]["int8_matmul_launches"] = n
+        report["int8_matmul_launches_per_forward"] = per_forward
+        report["int8_layers"] = sorted(k for k, w in q_layers.items() if w.dtype == torch.int8)
     return report
 
 
 def run_engine(torch, cfg, params, cache_kind: str, n_req: int, prompt_len: int,
-               max_tokens: int, counters: dict):
+               max_tokens: int, counters: dict, quantize: bool = False):
     """Serve ``n_req`` concurrent streaming requests; ``counters`` ({kernel
     name: wrapper}) are zeroed just before the burst and read just after."""
     from ray_tpu_torch.serve.llm import LLMEngine
 
     eng = LLMEngine(cfg, params, device="cuda", max_batch_size=8,
-                    max_seq_len=cfg.max_seq_len, kv_block_size=16, cache_kind=cache_kind)
+                    max_seq_len=cfg.max_seq_len, kv_block_size=16, cache_kind=cache_kind,
+                    quantize=quantize)
     try:
+        layers = eng.params["layers"]
+        weight_bytes = {  # what the engine holds for the layers, against f32
+            "layer_weight_bytes": sum(t.numel() * t.element_size() for t in layers.values()),
+            "layer_scale_bytes": sum(t.numel() * t.element_size()
+                                     for t in (eng._layer_scales or {}).values()),
+            "layer_weight_bytes_f32": sum(t.numel() * 4 for t in layers.values()),
+        }
         eng.generate([5] * prompt_len, max_tokens=2)  # warm-up: cuBLAS handles, kernel load
         torch.cuda.synchronize()
         prompts = [[(7 * i + j) % (cfg.vocab_size - 2) + 1 for j in range(prompt_len)]
@@ -519,11 +678,11 @@ def run_engine(torch, cfg, params, cache_kind: str, n_req: int, prompt_len: int,
             raise AssertionError(f"{cache_kind} request {i}: token out of range")
     n_tok = sum(len(r) for r in results)
     return {
-        "cache_kind": cache_kind, "requests": n_req, "prompt_len": prompt_len,
-        "max_tokens": max_tokens, "tokens": n_tok, "wall_s": wall,
+        "cache_kind": cache_kind, "quantize": quantize, "requests": n_req,
+        "prompt_len": prompt_len, "max_tokens": max_tokens, "tokens": n_tok, "wall_s": wall,
         "tokens_per_s": n_tok / wall,
         "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
-        "launches": launches,
+        "launches": launches, **weight_bytes,
     }
 
 
@@ -716,6 +875,7 @@ def main(argv=None) -> int:
         flash_attention_with_lse,
     )
     from ray_tpu_torch.ops.decode_attention import decode_attention, paged_decode_attention
+    from ray_tpu_torch.ops.quantization import int8_matmul
 
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -759,13 +919,32 @@ def main(argv=None) -> int:
                 raise AssertionError(f"paged decode kernel launched "
                                      f"{paged['launches']} < {need} times")
             emit({"phase": "engine", "ok": True, "card": card, "params": n_params, **paged})
-            dense = run_engine(torch, cfg, params, "dense", 2, 64, 32,
-                               {"decode_attention": decode_attention,
-                                "flash_attention_forward": flash_attention_with_lse})
+            dense_kernels = {"decode_attention": decode_attention,
+                             "flash_attention_forward": flash_attention_with_lse}
+            dense = run_engine(torch, cfg, params, "dense", 2, 64, 32, dense_kernels)
             if min(dense["launches"].values()) < 1:
                 raise AssertionError(f"dense engine skipped a kernel: {dense['launches']}")
             emit({"phase": "engine", "ok": True, "card": card, **dense})
-            launches = {**paged["launches"], **dense["launches"]}
+            # int8 weight-only serving: six int8_matmul launches a layer
+            # per forward, 31 decode steps after the prefill's first token
+            paged_q = run_engine(torch, cfg, params, "paged", 8, 64, 32,
+                                 {"paged_decode_attention": paged_decode_attention,
+                                  "int8_matmul": int8_matmul}, quantize=True)
+            n = paged_q["launches"]
+            if (n["int8_matmul"] < 6 * need
+                    or n["paged_decode_attention"] < need):
+                raise AssertionError(f"quantized paged engine launched {n}: want int8_matmul "
+                                     f">= {6 * need}, paged_decode_attention >= {need}")
+            emit({"phase": "engine", "ok": True, "card": card, **paged_q})
+            dense_q = run_engine(torch, cfg, params, "dense", 2, 64, 32,
+                                 {**dense_kernels, "int8_matmul": int8_matmul}, quantize=True)
+            if min(dense_q["launches"].values()) < 1:
+                raise AssertionError(f"quantized dense engine skipped a kernel: "
+                                     f"{dense_q['launches']}")
+            emit({"phase": "engine", "ok": True, "card": card, **dense_q})
+            for run in (paged, dense, paged_q, dense_q):
+                for name, n in run["launches"].items():
+                    launches[name] = launches.get(name, 0) + n
         del params
         torch.cuda.empty_cache()
     if phases & {"train_parity", "train", "profile"}:
@@ -794,13 +973,15 @@ def main(argv=None) -> int:
         del params
     if kernels:
         # the K3 entry's ms/bound are its serving prefill shape; train_* keys
-        # hold the same numbers at the train step's shape
+        # hold the same numbers at the train step's shape. K6's are its w1
+        # decode shape, with prefill_* at a prompt-64 prefill beside them.
         emit({"kernels": [
             {"name": n, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
              "launches": launches.get(n), "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "library_ms": r["library_ms"],
-             **{k: x for k, x in r.items() if k.startswith("train_") and k != "train_shape"}}
+             **{k: x for k, x in r.items()
+                if k.startswith(("train_", "prefill_")) and not k.endswith("_shape")}}
             for n, r in kernels.items()
         ]})
     print(card, flush=True)

@@ -11,7 +11,9 @@ Kernel choice keys on the tensors' device, as the JAX code keys on the TPU
 backend: on a CUDA device single-token steps go through the decode kernels
 and :func:`prefill` through the flash kernel; elsewhere the grouped einsum
 runs. ``use_decode_kernel=`` / ``use_prefill_kernel=`` keep their JAX
-meaning, so a caller can pick the plain path on purpose.
+meaning, so a caller can pick the plain path on purpose. With
+``layer_scales=`` (int8 weight-only serving) the layer linears go through
+``int8_matmul``, the int8 matmul kernel on a CUDA device.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ import torch
 
 from ray_tpu_torch.models.transformer import (
     TransformerConfig,
+    _dequantized,
     _ffn,
+    _product,
     _rms_norm,
     _rope,
     embed_tokens,
@@ -92,18 +96,21 @@ def _grouped_attention(cfg, q, kc, vc, vis, scale):
     return o.reshape(B, T, cfg.n_heads, cfg.head_dim)
 
 
-def _qkv(cfg, layer, x, positions):
-    h = _rms_norm(x, layer["attn_norm"])
-    q = torch.einsum("btd,dhk->bthk", h, layer["wq"].to(h.dtype))
-    k = torch.einsum("btd,dhk->bthk", h, layer["wk"].to(h.dtype))
-    v = torch.einsum("btd,dhk->bthk", h, layer["wv"].to(h.dtype))
+def _layer_scales(layer_scales, i):
+    """Layer ``i``'s int8-serving scales, or None for float layers."""
+    return None if layer_scales is None else {k: s[i] for k, s in layer_scales.items()}
+
+
+def _qkv(cfg, layer, x, positions, scales=None):
+    h = _rms_norm(x, _dequantized(cfg, layer, scales, "attn_norm"))
+    q, k, v = (_product(cfg, layer, scales, name, h) for name in ("wq", "wk", "wv"))
     return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
 
 
-def _finish_layer(cfg, layer, x, o):
-    x = x + torch.einsum("bthk,hkd->btd", o, layer["wo"].to(o.dtype))
-    h = _rms_norm(x, layer["ffn_norm"])
-    return x + _ffn(cfg, layer, h)
+def _finish_layer(cfg, layer, x, o, scales=None):
+    x = x + _product(cfg, layer, scales, "wo", o, n_contract=2)
+    h = _rms_norm(x, _dequantized(cfg, layer, scales, "ffn_norm"))
+    return x + _ffn(cfg, layer, h, scales)
 
 
 def _logits(params, x):
@@ -120,6 +127,7 @@ def forward_with_cache(
     *,
     use_decode_kernel: Optional[bool] = None,
     use_prefill_kernel: Optional[bool] = None,
+    layer_scales: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One cached forward pass: writes this call's K/V into ``cache`` (in
     place) at ``positions`` and attends over everything up to them. Returns
@@ -129,7 +137,13 @@ def forward_with_cache(
     default on for CUDA tensors. ``use_prefill_kernel``: ONLY valid when
     every row's positions start at 0 (the :func:`prefill` contract) —
     attention then sees just this call's K/V, which is causal flash
-    attention over T tokens. Default off here."""
+    attention over T tokens. Default off here.
+
+    ``layer_scales``: int8 weight-only serving — the scales of
+    ``params['layers']`` as :func:`ray_tpu_torch.ops.quantization.quantize_layers`
+    returns them (leading dim L; ones for unquantized leaves). Each layer's
+    int8 linears then run the int8 matmul (K6) where their scales allow it
+    and are dequantized one layer at a time otherwise (``_product``)."""
     B, T = tokens.shape
     S = cache["k"].shape[3]
     n_rep = cfg.n_heads // cfg.kv_heads
@@ -147,9 +161,9 @@ def forward_with_cache(
         vis = kv_pos[None, None, None, :] <= positions[:, None, :, None]  # [B,1,T,S]
 
     for i in range(cfg.n_layers):
-        layer = layer_params(params, i)
+        layer, sc = layer_params(params, i), _layer_scales(layer_scales, i)
         kc, vc = cache["k"][i], cache["v"][i]
-        q, k, v = _qkv(cfg, layer, x, positions)
+        q, k, v = _qkv(cfg, layer, x, positions, sc)
         _write_kv(kc, k, starts)
         _write_kv(vc, v, starts)
         if decode_kernel:
@@ -163,7 +177,7 @@ def forward_with_cache(
             ).permute(0, 2, 1, 3)
         else:
             o = _grouped_attention(cfg, q, kc, vc, vis, scale)
-        x = _finish_layer(cfg, layer, x, o.to(x.dtype))
+        x = _finish_layer(cfg, layer, x, o.to(x.dtype), sc)
     return _logits(params, x), cache
 
 
@@ -177,6 +191,7 @@ def paged_forward_with_cache(
     *,
     valid: Optional[torch.Tensor] = None,  # [B, T] bool: False = pad, don't cache
     use_decode_kernel: Optional[bool] = None,
+    layer_scales: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """:func:`forward_with_cache` over a paged pool: writes this call's K/V
     through the block tables (in place) and attends over every cached
@@ -185,7 +200,7 @@ def paged_forward_with_cache(
     attention is the dense path's. ``valid`` routes bucket-padded tail
     tokens to the garbage page 0 (their logits compute and are never read).
     Chunked prefill is this function with ``positions`` starting
-    mid-sequence."""
+    mid-sequence. ``layer_scales`` as in :func:`forward_with_cache`."""
     B, T = tokens.shape
     M = block_tables.shape[1]
     bs = cache["k"].shape[2]
@@ -201,9 +216,9 @@ def paged_forward_with_cache(
         vis = kv_pos[None, None, None, :] <= positions[:, None, :, None]  # [B,1,T,cap]
 
     for i in range(cfg.n_layers):
-        layer = layer_params(params, i)
+        layer, sc = layer_params(params, i), _layer_scales(layer_scales, i)
         kc, vc = cache["k"][i], cache["v"][i]
-        q, k, v = _qkv(cfg, layer, x, positions)
+        q, k, v = _qkv(cfg, layer, x, positions, sc)
         scatter_paged_kv(kc, k, block_tables, positions, valid)
         scatter_paged_kv(vc, v, block_tables, positions, valid)
         if decode_kernel:
@@ -216,7 +231,7 @@ def paged_forward_with_cache(
             kd = gather_paged_kv(kc, block_tables)
             vd = gather_paged_kv(vc, block_tables)
             o = _grouped_attention(cfg, q, kd, vd, vis, scale)
-        x = _finish_layer(cfg, layer, x, o.to(x.dtype))
+        x = _finish_layer(cfg, layer, x, o.to(x.dtype), sc)
     return _logits(params, x), cache
 
 

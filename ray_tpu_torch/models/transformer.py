@@ -8,7 +8,10 @@ keep ``param_dtype`` and are cast to the activation dtype where they are
 used, at the same points as the JAX code, so both sides round alike.
 
 Attention: the flash kernels (:mod:`ray_tpu_torch.ops.attention`, forward
-and backward) on CUDA tensors, the grouped einsum elsewhere. Training:
+and backward) on CUDA tensors, the grouped einsum elsewhere. The FFN's
+products (and, in cached generation, every layer product) go through
+``_product``, which also takes int8 leaves with their scales (int8
+weight-only serving: the int8 matmul kernel, or dequantization). Training:
 :func:`loss_fn` and :func:`make_train_step` (AdamW as ``optax.adamw``), with
 per-layer rematerialisation. Not in this package yet: ring attention, MoE
 FFNs (``num_experts > 0``) and the sharding rules (one device only).
@@ -31,6 +34,7 @@ from torch.utils.checkpoint import (
 
 from ray_tpu_torch.models.common import default_device
 from ray_tpu_torch.ops.attention import NEG_INF, flash_attention
+from ray_tpu_torch.ops.quantization import dequantize_int8, int8_matmul
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,15 +231,46 @@ def _attention(cfg: TransformerConfig, q, k, v, use_flash: bool):
     return o.permute(0, 2, 1, 3)
 
 
-def _dense_ffn(layer, x):
-    h = F.silu(x @ layer["w3"].to(x.dtype)) * (x @ layer["w1"].to(x.dtype))
-    return h @ layer["w2"].to(x.dtype)
+def _dequantized(cfg: TransformerConfig, layer, scales, name: str) -> torch.Tensor:
+    """Leaf ``name`` as the layer math takes it: an int8 leaf is dequantized
+    as the JAX code does it (``w * s`` in f32, rounded to ``param_dtype``); a
+    float leaf is used as it is (int8 serving gives it ones scales)."""
+    w = layer[name]
+    if w.dtype != torch.int8:
+        return w
+    return dequantize_int8(w, scales[name], cfg.param_dtype)
 
 
-def _ffn(cfg: TransformerConfig, layer, x):
+def _product(cfg: TransformerConfig, layer, scales, name: str, x, n_contract: int = 1):
+    """``x``'s last ``n_contract`` axes contracted with the first
+    ``n_contract`` axes of leaf ``name``, in ``x``'s dtype. ``scales`` are
+    the layer's int8-serving scales (None for a float layer).
+
+    An int8 leaf whose scales are constant along the contracted axes gives
+    x @ (w_q * s) = (x @ w_q) * s, one f32 scale per output column: that is
+    ``int8_matmul`` (K6) on x as ``[rows, K]`` and the leaf viewed as
+    ``[K, N]``. Any other int8 leaf — ``wo`` [H, Dh, d] is quantized along H,
+    so its scales vary along Dh, which its product contracts — and every
+    float leaf are contracted as the JAX code does it, after
+    :func:`_dequantized`."""
+    w = layer[name]
+    if w.dtype == torch.int8 and all(n == 1 for n in scales[name].shape[:n_contract]):
+        K = math.prod(w.shape[:n_contract])
+        y = int8_matmul(x.reshape(-1, K), w.reshape(K, -1), scales[name].reshape(-1))
+        return y.reshape(*x.shape[: x.ndim - n_contract], *w.shape[n_contract:])
+    w = _dequantized(cfg, layer, scales, name)
+    return torch.tensordot(x, w.to(x.dtype), dims=n_contract)
+
+
+def _dense_ffn(cfg: TransformerConfig, layer, x, scales=None):
+    h = F.silu(_product(cfg, layer, scales, "w3", x)) * _product(cfg, layer, scales, "w1", x)
+    return _product(cfg, layer, scales, "w2", h)
+
+
+def _ffn(cfg: TransformerConfig, layer, x, scales=None):
     if cfg.num_experts > 0:
         raise NotImplementedError("MoE FFNs (num_experts > 0) are not ported yet")
-    return _dense_ffn(layer, x)
+    return _dense_ffn(cfg, layer, x, scales)
 
 
 def _layer(cfg: TransformerConfig, use_flash: bool, positions, x, layer):

@@ -30,11 +30,20 @@ one ``torch.Generator`` per engine. On a CUDA device every decode token runs
 the decode kernel (paged or dense) and a dense engine's prefill runs the
 flash kernel.
 
-Not in this engine yet (ROADMAP): ``quantize=`` and ``mesh=`` (raise
-``NotImplementedError``), disaggregated prefill/decode, metrics, latency
-sketches, request traces and the flight recorder, tenant and deadline read
-from the request context (pass ``tenant=``/``deadline_ts=``), and the Serve
-deployment wrappers.
+Int8 weight-only serving (``quantize=True``): the stacked layer linears of
+at least ``quantize_min_size`` elements are stored int8 with per-channel f32
+scales (``quantize_layers``, on the engine's device; norm gains and the
+embedding stay float). Every forward of the engine passes the scales as
+``layer_scales=``, so on a CUDA device the six linears of each layer whose
+scales are per output column (``wq``, ``wk``, ``wv``, ``w1``, ``w3``,
+``w2``) run the int8 matmul kernel, and ``wo`` is dequantized one layer at
+a time, as the JAX engine does every leaf.
+
+Not in this engine yet (ROADMAP): ``mesh=`` and MoE configs
+(``num_experts > 0``) raise ``NotImplementedError``; disaggregated
+prefill/decode, metrics, latency sketches, request traces and the flight
+recorder, tenant and deadline read from the request context (pass
+``tenant=``/``deadline_ts=``), and the Serve deployment wrappers.
 """
 
 from __future__ import annotations
@@ -61,6 +70,7 @@ from ray_tpu_torch.models.generation import (
 )
 from ray_tpu_torch.models.common import default_device
 from ray_tpu_torch.models.transformer import TransformerConfig
+from ray_tpu_torch.ops.quantization import quantize_layers
 from ray_tpu_torch.runtime import admission
 from ray_tpu_torch.serve.kv_blocks import BlockAllocator
 from ray_tpu_torch.serve.prefix_cache import PrefixCache
@@ -154,6 +164,7 @@ class LLMEngine:
         top_k: Optional[int] = None,
         top_p: Optional[float] = None,
         quantize: bool = False,
+        quantize_min_size: int = 4096,
         mesh: Optional[Any] = None,
         decode_chunk: int = 1,
         max_queued_requests: int = 256,
@@ -166,10 +177,10 @@ class LLMEngine:
         prefix_cache: bool = True,
         prefix_cache_max_blocks: int = 0,
     ):
-        if quantize:
-            raise NotImplementedError("int8 weight-only serving is not ported yet")
         if mesh is not None:
             raise NotImplementedError("multi-device (mesh) serving is not ported yet")
+        if cfg.num_experts > 0:
+            raise NotImplementedError("MoE layers (num_experts > 0) are not ported yet")
         if cache_kind not in ("dense", "paged"):
             raise ValueError(f"cache_kind must be 'dense' or 'paged', got {cache_kind!r}")
         self.device = default_device(device, "LLMEngine")
@@ -212,7 +223,19 @@ class LLMEngine:
         self.top_k = top_k
         self.top_p = top_p
         # params keep their dtype (cast at use, as in the JAX forward)
-        self.params = _to_device(params, self.device)
+        params = _to_device(params, self.device)
+        self.quantized = quantize
+        if quantize:
+            # weight-only int8 on the stacked layer linears (norm gains and
+            # the embedding stay full precision); the scales go to every
+            # forward, which runs K6 or dequantizes one layer at a time
+            q_layers, self._layer_scales = quantize_layers(
+                params["layers"], min_size=quantize_min_size
+            )
+            params = {**params, "layers": q_layers}
+        else:
+            self._layer_scales = None
+        self.params = params
 
         self._queue = admission.WeightedFairQueue(tenant_weights)
         self._lock = threading.Lock()
@@ -271,7 +294,7 @@ class LLMEngine:
         toks = self._tensor(tokens)
         positions = torch.arange(toks.shape[1], device=self.device)[None, :]
         logits, _ = forward_with_cache(
-            self.cfg, self.params, row, toks, positions,
+            self.cfg, self.params, row, toks, positions, layer_scales=self._layer_scales,
             use_prefill_kernel=self.device.type == "cuda",  # positions start at 0
         )
         return logits[0, length - 1]
@@ -282,7 +305,8 @@ class LLMEngine:
         t, p = self._tensor(toks), self._tensor(pos)
         out = []
         for _ in range(self.decode_chunk):
-            logits, _ = decode_step(self.cfg, self.params, self._cache, t, p)
+            logits, _ = decode_step(self.cfg, self.params, self._cache, t, p,
+                                    layer_scales=self._layer_scales)
             t = self._sample_impl(logits, temps)
             out.append(t)
             p = p + 1
@@ -300,6 +324,7 @@ class LLMEngine:
         logits, _ = paged_forward_with_cache(
             self.cfg, self.params, self._cache, self._tensor(bt, torch.int32),
             self._tensor(toks), positions, valid=valid, use_decode_kernel=False,
+            layer_scales=self._layer_scales,
         )
         return logits[0, length - 1]
 
@@ -309,7 +334,8 @@ class LLMEngine:
         bt_t = self._tensor(bt, torch.int32)
         out = []
         for _ in range(self.decode_chunk):
-            logits, _ = paged_decode_step(self.cfg, self.params, self._cache, t, p, bt_t)
+            logits, _ = paged_decode_step(self.cfg, self.params, self._cache, t, p, bt_t,
+                                          layer_scales=self._layer_scales)
             t = self._sample_impl(logits, temps)
             out.append(t)
             p = p + 1

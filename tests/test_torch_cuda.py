@@ -9,7 +9,10 @@ imports no JAX, so it also runs where only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Tolerances: f32 atol 1e-4 (summation order only), bf16 atol = rtol = 2e-2.
-The backward kernels have no atomics: two launches give the same bits.
+The int8 matmul in f32: atol 1e-5 x max|plain| (its K-term sums in another
+order differ by about sqrt(K) * 2^-24 * |partial sums|, which grows with the
+output's magnitude). The backward kernels and the int8 matmul have no
+atomics: two launches give the same bits.
 """
 
 import pytest
@@ -18,6 +21,7 @@ torch = pytest.importorskip("torch")
 
 from ray_tpu_torch.ops import attention as tattn  # noqa: E402
 from ray_tpu_torch.ops import decode_attention as tdec  # noqa: E402
+from ray_tpu_torch.ops import quantization as tq  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -103,6 +107,26 @@ def test_flash_backward_kernels_match_plain(cuda, case, dtype, atol, rtol):
         assert torch.equal(a, b)  # no atomics: bitwise deterministic
 
 
+@pytest.mark.parametrize("shape", [(8, 1024, 512), (100, 300, 50)], ids=["decode_wk", "ragged"])
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+def test_int8_matmul_kernel_matches_plain(cuda, shape, dtype, atol, rtol):
+    M, K, N = shape
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
+    w = torch.randn(K, N, generator=g, device=cuda)
+    w[:, 3] = 0  # a zero column: scale 1, int8 zeros
+    w_q, scales = tq.quantize_int8(w, axis=0)
+    n = tq.int8_matmul.launches
+    got = tq.int8_matmul(x, w_q, scales)
+    assert tq.int8_matmul.launches == n + 1 and got.dtype == dtype
+    want = tq._int8_matmul_plain(x, w_q, scales, dtype)
+    if dtype == torch.float32:
+        atol = 1e-5 * float(want.abs().max())
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+    assert not got[:, 3].any()
+    assert torch.equal(got, tq.int8_matmul(x, w_q, scales))  # no atomics
+
+
 def test_train_step_on_gpu_matches_cpu(cuda):
     """One AdamW step through K3, K4 and K5 (GQA, remat "dots") against the
     same step on the CPU's plain versions, f32: loss atol 1e-4, the first
@@ -130,10 +154,12 @@ def test_train_step_on_gpu_matches_cpu(cuda):
         torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("quantize", [False, True], ids=["float", "int8"])
 @pytest.mark.parametrize("cache_kind", ["paged", "dense"])
-def test_engine_on_gpu_matches_engine_on_cpu(cuda, cache_kind):
+def test_engine_on_gpu_matches_engine_on_cpu(cuda, cache_kind, quantize):
     """Greedy tokens through the kernels equal the plain path's on the CPU
-    (f32, head_dim 64 so the kernels take it)."""
+    (f32, head_dim 64 so the kernels take it); with ``quantize`` every layer
+    linear is int8 and six of them a layer run K6."""
     from ray_tpu_torch.models.transformer import TransformerConfig, init_params
     from ray_tpu_torch.serve.llm import LLMEngine
 
@@ -144,9 +170,11 @@ def test_engine_on_gpu_matches_engine_on_cpu(cuda, cache_kind):
     out = {}
     for dev in ("cpu", "cuda"):
         eng = LLMEngine(cfg, params, device=dev, max_batch_size=4, max_seq_len=64,
-                        cache_kind=cache_kind)
+                        cache_kind=cache_kind, quantize=quantize)
+        n = tq.int8_matmul.launches
         try:
             out[dev] = [f.result(timeout=120) for f in [eng.submit(p, max_tokens=8) for p in prompts]]
         finally:
             eng.shutdown()
+        assert (tq.int8_matmul.launches > n) == (quantize and dev == "cuda")
     assert out["cuda"] == out["cpu"]

@@ -14,6 +14,7 @@ torch = pytest.importorskip("torch")
 from ray_tpu_torch.ops import _build  # noqa: E402
 from ray_tpu_torch.ops import attention as tattn  # noqa: E402
 from ray_tpu_torch.ops import decode_attention as tdec  # noqa: E402
+from ray_tpu_torch.ops import quantization as tq  # noqa: E402
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -72,16 +73,17 @@ def test_unported_engine_options_raise():
     from ray_tpu_torch.serve.llm import LLMEngine
 
     cfg = TransformerConfig(vocab_size=11, d_model=8, n_layers=1, n_heads=2)
-    for kw in ({"quantize": True}, {"mesh": object()}):
+    moe = TransformerConfig(vocab_size=11, d_model=8, n_layers=1, n_heads=2, num_experts=2)
+    for c, kw in ((cfg, {"mesh": object()}), (moe, {})):
         with pytest.raises(NotImplementedError):
-            LLMEngine(cfg, {}, device="cpu", **kw)
+            LLMEngine(c, {}, device="cpu", **kw)
 
 
 def _no_plain(*a, **k):
     raise AssertionError("a non-CPU tensor reached the plain version")
 
 
-@pytest.mark.parametrize("op", ["paged", "dense", "flash", "flash_backward"])
+@pytest.mark.parametrize("op", ["paged", "dense", "flash", "flash_backward", "int8"])
 def test_device_tensors_never_reach_the_plain_version(monkeypatch, op):
     """A tensor off the CPU goes to the kernel or raises; here the kernel
     library cannot load (no nvcc), and the plain version must not be run
@@ -91,6 +93,7 @@ def test_device_tensors_never_reach_the_plain_version(monkeypatch, op):
     monkeypatch.setattr(tattn, "_flash_forward_plain", _no_plain)
     for name in ("_flash_backward_plain", "_bwd_dq_plain", "_bwd_dkv_plain"):
         monkeypatch.setattr(tattn, name, _no_plain)
+    monkeypatch.setattr(tq, "_int8_matmul_plain", _no_plain)
 
     def no_library(*a, **k):
         raise RuntimeError("kernel library unavailable")
@@ -100,7 +103,8 @@ def test_device_tensors_never_reach_the_plain_version(monkeypatch, op):
     q = torch.empty(2, 4, 64, device=dev)
     lengths = torch.ones(2, dtype=torch.int32, device=dev)
     counters = (tdec.paged_decode_attention, tdec.decode_attention, tattn.flash_attention_with_lse,
-                tattn.flash_attention_backward_dq, tattn.flash_attention_backward_dkv)
+                tattn.flash_attention_backward_dq, tattn.flash_attention_backward_dkv,
+                tq.int8_matmul)
     before = [c.launches for c in counters]
     if op == "flash_backward":
         # a forward that "ran" on the device, so the backward is reached
@@ -119,6 +123,9 @@ def test_device_tensors_never_reach_the_plain_version(monkeypatch, op):
         elif op == "flash":
             x = torch.empty(1, 2, 8, 64, device=dev)
             tattn.flash_attention(x, x, x)
+        elif op == "int8":
+            w = torch.empty(64, 32, dtype=torch.int8, device=dev)
+            tq.int8_matmul(q[0], w, torch.empty(32, device=dev))
         else:
             torch.autograd.grad((out, lse), x, (torch.ones_like(out), torch.ones_like(lse)))
     assert [c.launches for c in counters] == before
@@ -128,6 +135,6 @@ def test_kernel_sources_build_into_a_gitignored_directory():
     with open(os.path.join(REPO, ".gitignore")) as f:
         ignored = f.read().split()
     assert os.path.relpath(_build.BUILD, REPO) + "/" in ignored
-    assert {"attention.cu", "attention_bwd.cu", "decode_attention.cu"} <= set(
+    assert {"attention.cu", "attention_bwd.cu", "decode_attention.cu", "int8_matmul.cu"} <= set(
         os.listdir(_build.CSRC))
     assert "arch=compute_90a,code=sm_90a" in _build.FLAGS

@@ -175,6 +175,104 @@ def test_paged_forward_with_cache_matches_jax(params, jax_kernels):
                                atol=ATOL)
 
 
+# --------------------------------------------------------------------------
+# int8 weight-only serving: quantized layers with their scales
+# --------------------------------------------------------------------------
+@pytest.fixture(scope="module", params=[256, 2048], ids=["all_linears", "wk_wv_float"])
+def qparams(request, params):
+    """(JAX params, scales), (port params, scales) from ``quantize_layers``;
+    at min_size 2048 ``wk``/``wv`` (1024 elements) stay float."""
+    from ray_tpu.ops.quantization import quantize_layers as jquantize_layers
+    from ray_tpu_torch.ops.quantization import quantize_layers as tquantize_layers
+
+    jp, tp = params
+    jl, js = jquantize_layers(jp["layers"], min_size=request.param)
+    tl, ts = tquantize_layers(tp["layers"], min_size=request.param)
+    assert (tl["wk"].dtype == torch.int8) == (request.param == 256)
+    return ({**jp, "layers": jl}, js), ({**tp, "layers": tl}, ts)
+
+
+def test_quantized_forward_with_cache_matches_jax(qparams):
+    """Prefill + 3 decode steps with ``layer_scales``: the port's int8
+    products (the plain version of K6 on the CPU) and dequantized ``wo``
+    against the JAX code's per-layer dequantization, atol 1e-4."""
+    (jp, js), (tp, ts) = qparams
+    jcache, tcache = jgen.init_cache(JCFG, 2, 16), tgen.init_cache(TCFG, 2, 16)
+    jlast, jcache = jgen.prefill(JCFG, jp, jcache, jnp.asarray(PROMPT), jnp.asarray(LENS),
+                                 layer_scales=js)
+    tlast, tcache = tgen.prefill(TCFG, tp, tcache, torch.from_numpy(PROMPT),
+                                 torch.from_numpy(LENS), layer_scales=ts)
+    np.testing.assert_allclose(tlast.numpy(), np.asarray(jlast), atol=ATOL)
+    tok = np.array(jnp.argmax(jlast, -1))
+    for t in range(3):
+        pos = LENS + t
+        jl, jcache = jgen.decode_step(JCFG, jp, jcache, jnp.asarray(tok), jnp.asarray(pos),
+                                      layer_scales=js)
+        tl, tcache = tgen.decode_step(TCFG, tp, tcache, torch.from_numpy(tok),
+                                      torch.from_numpy(pos), layer_scales=ts)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+        tok = np.array(jnp.argmax(jl, -1))
+    np.testing.assert_allclose(tcache["k"].numpy(), np.asarray(jcache["k"]), atol=ATOL)
+
+
+def test_quantized_paged_forward_with_cache_matches_jax(qparams):
+    (jp, js), (tp, ts) = qparams
+    bs, M = 4, 4
+    N = 2 * M + 1
+    bt = np.random.default_rng(7).permutation(np.arange(1, N)).reshape(2, M).astype(np.int32)
+    jcache, tcache = jgen.init_paged_cache(JCFG, N, bs), tgen.init_paged_cache(TCFG, N, bs)
+    positions = np.tile(np.arange(8), (2, 1))
+    valid = positions < LENS[:, None]
+    jl, jcache = jgen.paged_forward_with_cache(
+        JCFG, jp, jcache, jnp.asarray(bt), jnp.asarray(PROMPT), jnp.asarray(positions),
+        valid=jnp.asarray(valid), layer_scales=js,
+    )
+    tl, tcache = tgen.paged_forward_with_cache(
+        TCFG, tp, tcache, torch.from_numpy(bt), torch.from_numpy(PROMPT),
+        torch.from_numpy(positions), valid=torch.from_numpy(valid), layer_scales=ts,
+    )
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+    tok = np.array(jnp.argmax(jl[np.arange(2), LENS - 1], -1))
+    for t in range(3):
+        pos = LENS + t
+        jl, jcache = jgen.paged_decode_step(JCFG, jp, jcache, jnp.asarray(tok), jnp.asarray(pos),
+                                            jnp.asarray(bt), layer_scales=js)
+        tl, tcache = tgen.paged_decode_step(TCFG, tp, tcache, torch.from_numpy(tok),
+                                            torch.from_numpy(pos), torch.from_numpy(bt),
+                                            layer_scales=ts)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
+        tok = np.array(jnp.argmax(jl, -1))
+    np.testing.assert_allclose(tcache["v"].numpy()[:, 1:], np.asarray(jcache["v"])[:, 1:],
+                               atol=ATOL)
+
+
+def test_quantized_products_route_by_dtype_and_scale_shape(monkeypatch, qparams):
+    """Every int8 leaf whose scales are per output column goes through
+    ``int8_matmul`` (6 products a layer with all linears int8: wq, wk, wv,
+    w1, w3, w2); ``wo``, whose scales vary along the contracted Dh, and
+    float leaves do not."""
+    from ray_tpu_torch.models import transformer as ttr_mod
+
+    _, (tp, ts) = qparams
+    seen = []
+    real = ttr_mod.int8_matmul
+
+    def spy(x, w, s, **kw):
+        seen.append(tuple(w.shape))
+        return real(x, w, s, **kw)
+
+    monkeypatch.setattr(ttr_mod, "int8_matmul", spy)
+    cache = tgen.init_cache(TCFG, 2, 16)
+    tgen.prefill(TCFG, tp, cache, torch.from_numpy(PROMPT), torch.from_numpy(LENS),
+                 layer_scales=ts)
+    d, ff = SMALL["d_model"], SMALL["d_ff"]
+    kv = d // SMALL["n_heads"] * SMALL["n_kv_heads"]
+    per_layer = [(d, d), (d, kv), (d, kv), (d, ff), (d, ff), (ff, d)]
+    if tp["layers"]["wk"].dtype != torch.int8:
+        per_layer = [per_layer[0]] + per_layer[3:]
+    assert sorted(seen) == sorted(per_layer * SMALL["n_layers"])
+
+
 def test_scatter_paged_kv_routes_invalid_writes_to_page_zero():
     rng = np.random.default_rng(4)
     N, bs, Hkv, D, M = 6, 4, 2, 3, 2

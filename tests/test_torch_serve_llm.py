@@ -131,6 +131,52 @@ def test_prefix_hit_with_cow_matches_jax(params, n, cows):
 
 
 # --------------------------------------------------------------------------
+# int8 weight-only serving
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("cache_kind", ["paged", "dense"])
+def test_quantized_engine_matches_jax(params, cache_kind):
+    """``quantize=True`` (every linear int8 at min_size 256) with chunked
+    prefill on: the port's greedy tokens equal the JAX quantized engine's."""
+    jp, tp = params
+    kw = dict(max_batch_size=4, max_seq_len=64, cache_kind=cache_kind, quantize=True,
+              quantize_min_size=256, prefill_chunk_tokens=7)
+    ref_eng = JaxEngine(JCFG, jp, **kw)
+    eng = LLMEngine(CFG, tp, device="cpu", **kw)
+    try:
+        assert eng.quantized and eng.params["layers"]["wq"].dtype == torch.int8
+        assert eng.params["layers"]["attn_norm"].dtype == torch.float32  # norms untouched
+        assert _serve(eng) == _serve(ref_eng)
+        if cache_kind == "paged":
+            assert eng.stats()["prefill_chunks"] > len(PROMPTS)  # prompts of 17, 30 chunk
+            _assert_no_leak(eng)
+    finally:
+        ref_eng.shutdown()
+        eng.shutdown()
+
+
+def test_quantized_engine_equals_generate_on_dequantized_weights(params):
+    """The JAX test's contract (tests/test_serve_llm.py:144-174): greedy
+    output of the quantized engine equals ``generate()`` on the dequantized
+    weights."""
+    from ray_tpu_torch.models.generation import generate
+    from ray_tpu_torch.ops.quantization import dequantize_int8
+
+    _, tp = params
+    eng = _port(tp, quantize=True, quantize_min_size=256)
+    try:
+        prompt = [3, 14, 15]
+        out = eng.generate(prompt, max_tokens=8)
+        q_layers = eng.params["layers"]
+        deq = {k: dequantize_int8(w, eng._layer_scales[k], CFG.param_dtype)
+               if w.dtype == torch.int8 else w for k, w in q_layers.items()}
+        ref, _ = generate(CFG, {**eng.params, "layers": deq}, torch.tensor([prompt]),
+                          max_new_tokens=8, temperature=0)
+        assert out == ref[0, len(prompt):].tolist()
+    finally:
+        eng.shutdown()
+
+
+# --------------------------------------------------------------------------
 # admission: typed sheds and the never-fits contract
 # --------------------------------------------------------------------------
 def test_pool_exhaustion_is_typed_overload():
