@@ -8,12 +8,17 @@
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
-1. ``build``   — nvcc builds every kernel from ``ray_tpu_torch/ops/csrc``.
+1. ``build``   — nvcc builds every kernel from ``ray_tpu_torch/ops/csrc``;
+   ``-Xptxas -v`` must report no spills for the tensor-core (wgmma)
+   kernels, and where the toolkit has ``cuobjdump`` the count of ``HGMMA``
+   instructions per kernel must be non-zero for them and zero for the rest.
 2. ``kernel``  — one line per kernel: the kernel against its plain PyTorch
    version on the card, at the main paths' shapes plus edge cases, in f32
    (atol 1e-4: only the summation order differs; the int8 matmul, whose
    K-term sums grow with K, atol 1e-5 x max|plain|) and bf16 (atol and rtol
-   2e-2: bf16 keeps about 3 digits); the backward kernels and the int8
+   2e-2: bf16 keeps about 3 digits); K3 and K5 report each route (bf16 on
+   the tensor cores, f32 scalar) with its errors and check that each input
+   moved only its route's counter; the attention kernels and the int8
    matmul also run twice and must give the same bits; device times of the
    kernel, the plain version and (where one PyTorch call computes the same
    function) that call, and the least time the card could take
@@ -34,14 +39,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    launch counters are zeroed just before each run and read just after, and
    every kernel of the run must have launched.
 5. ``train_parity`` — the 602M train-step decoder of ``bench.py`` (vocab
-   32000, d_model 2048, 8 layers, 16 heads, d_ff 8192, T 2048) in f32
-   activations, batch 1: loss and every gradient leaf through the flash
-   kernels (``attention="flash"``) against the einsum attention
-   (``attention="dense"``): loss within 1e-4, each leaf's max error within
-   1e-3 of that leaf's largest gradient.
+   32000, d_model 2048, 8 layers, 16 heads, d_ff 8192, T 2048), batch 1:
+   loss and every gradient leaf through the flash kernels
+   (``attention="flash"``) against the einsum attention
+   (``attention="dense"``). In f32 activations (the scalar route): loss
+   within 1e-4, each leaf's max error within 1e-3 of that leaf's largest
+   gradient. In bf16 activations (the tensor-core route, P and dS rounded
+   to bf16 as the TPU's MXU passes round them): loss within 1e-2, each
+   leaf's relative Frobenius error ||g_flash - g_dense|| / ||g_dense||
+   within 2e-2.
 6. ``train``   — the same decoder as ``bench.py`` trains it (bf16, batch 6,
    ``remat="dots"``): 5 AdamW steps on a repeated batch, counters zeroed
-   before and read after each step (K4 = K5 = 8, K3 = 16 a step), every loss
+   before and read after each step (K4 = K5 = 8, K3 = 16 a step, every K3
+   and K5 launch on the tensor-core route), every loss
    finite and the last below the first; step ms (CUDA events), tokens/s and
    the model FLOP share of 989 TFLOP/s. The state after step 2 is saved
    through ``Checkpoint.from_pytree`` and restored into a fresh state: step 3
@@ -89,6 +99,80 @@ def card_line() -> str:
         capture_output=True, text=True, timeout=60, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# build
+# ---------------------------------------------------------------------------
+def kernel_label(mangled: str) -> str:
+    """``flash_fwd_wgmma_kernel<128,2>`` from a mangled kernel name (its
+    identifier and template arguments), else the name itself."""
+    i = mangled.find("_ZN") + 3
+    while i > 2 and i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j: j + int(mangled[i:j])], j + int(mangled[i:j])
+        if name.endswith("_kernel") and mangled.startswith("I", i):
+            args = re.findall(r"Li(\d+)E|^(f)|13(__nv_bfloat16)",
+                              mangled[i + 1: mangled.find("EEv", i)])
+            args = ["float" if a[1] else a[0] or a[2] for a in args]
+            return f"{name}<{','.join(args)}>"
+    return mangled
+
+
+def ptxas_report(logs: dict) -> dict:
+    """{kernel: {"registers": n, "spill_bytes": n}} from ``-Xptxas -v``."""
+    out, fn = {}, None
+    for log in logs.values():
+        for ln in log.splitlines():
+            m = re.search(r"Compiling entry function '(\S+)'", ln)
+            if m:
+                fn = kernel_label(m.group(1))
+                out[fn] = {}
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m and fn:
+                out[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            m = re.search(r"Used (\d+) registers", ln)
+            if m and fn:
+                out[fn]["registers"] = int(m.group(1))
+    return out
+
+
+def hgmma_counts(libs: dict):
+    """{kernel: number of HGMMA (wgmma) instructions in its SASS}, from
+    ``cuobjdump -sass`` of each built library; None without cuobjdump."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    counts, fn = {}, None
+    for lib in libs.values():
+        sass = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        for ln in sass.splitlines():
+            m = re.search(r"Function : (\S+)", ln)
+            if m:
+                fn = kernel_label(m.group(1))
+                counts[fn] = 0
+            elif fn and "HGMMA" in ln:
+                counts[fn] += 1
+    return counts
+
+
+def check_tensor_core_build(ptxas: dict, hgmma) -> None:
+    """The wgmma kernels spill nothing and run HGMMA; the others run none."""
+    tc = [k for k in ptxas if "wgmma" in k]
+    if len(tc) < 4:
+        raise AssertionError(f"build: expected the K3/K5 wgmma kernels, found {tc}")
+    spilled = {k: ptxas[k] for k in tc if ptxas[k].get("spill_bytes", 1) != 0}
+    if spilled:
+        raise AssertionError(f"build: wgmma kernels spill: {spilled}")
+    if hgmma is not None:
+        wrong = {k: n for k, n in hgmma.items() if (n > 0) != ("wgmma" in k)}
+        if wrong or not any(hgmma.get(k) for k in tc):
+            raise AssertionError(f"build: HGMMA counts off: {wrong or hgmma}")
 
 
 # ---------------------------------------------------------------------------
@@ -264,6 +348,27 @@ def kernel_dense_decode(torch, g):
     )
 
 
+ROUTE_OF = {"bfloat16": "wgmma_bf16", "float32": "simt_f32"}
+
+
+def check_route(fn, before: dict, dt: str, what: str) -> None:
+    """One launch of ``fn`` on ``dt`` inputs moved its route's counter, and
+    only that one."""
+    moved = {r: n - before[r] for r, n in fn.launches_by_route.items() if n != before[r]}
+    if moved != {ROUTE_OF[dt]: 1}:
+        raise AssertionError(f"{what} {dt}: route counters moved {moved}, want "
+                             f"{{{ROUTE_OF[dt]!r}: 1}}")
+
+
+def route_errs(errs: dict) -> dict:
+    """Worst error of each route over its cases ({"case/dtype": err})."""
+    out = {}
+    for key, e in errs.items():
+        r = ROUTE_OF[key.rsplit("/", 1)[1]]
+        out[r] = max(out.get(r, 0.0), e)
+    return {r: {"max_abs_err": e} for r, e in out.items()}
+
+
 def kernel_flash_forward(torch, g):
     import torch.nn.functional as F
 
@@ -281,7 +386,9 @@ def kernel_flash_forward(torch, g):
         "ragged_noncausal": (2, 4, 37, 100, 64, False, None),
         "window_causal": (1, 4, 200, 200, 64, True, 16),
         "window_noncausal": (1, 4, 150, 150, 64, False, 40),
+        "window_noncausal_empty_rows": (1, 4, 150, 60, 64, False, 40),  # rows >= 99 see no key
         "d128": (1, 8, 77, 77, 128, True, None),
+        "t1024_d128": (1, 2, 1024, 1024, 128, True, None),
         "train_shape": (*TRAIN_ATTN[:3], TRAIN_ATTN[2], TRAIN_ATTN[3], True, None),
     }
     errs = {}
@@ -289,10 +396,17 @@ def kernel_flash_forward(torch, g):
         atol, rtol = TOLS[dt]
         for name, (B, H, Tq, Tk, D, causal, window) in cases.items():
             q, k, v = mk(B, H, Tq, Tk, D, getattr(torch, dt))
+            before = dict(flash_attention_with_lse.launches_by_route)
             o_k, lse_k = flash_attention_with_lse(q, k, v, None, causal, window)
             o_p, lse_p = flash_attention_with_lse(q, k, v, None, causal, window, use_kernel=False)
             errs[f"{name}/{dt}"] = max_err(o_k, o_p, atol, rtol, f"flash {name} {dt}")
             max_err(lse_k, lse_p, 1e-4, 1e-5, f"flash lse {name} {dt}")
+            check_route(flash_attention_with_lse, before, dt, f"flash {name}")
+            o_2, lse_2 = flash_attention_with_lse(q, k, v, None, causal, window)
+            if not (torch.equal(o_k, o_2) and torch.equal(lse_k, lse_2)):
+                raise AssertionError(f"flash {name} {dt}: two launches gave different bits")
+            del q, k, v, o_k, lse_k, o_p, lse_p, o_2, lse_2
+
     def measure(B, H, T, D):
         q, k, v = mk(B, H, T, T, D, torch.bfloat16)
         nbytes = 4 * B * H * T * D * 2 + B * H * T * 4
@@ -313,7 +427,7 @@ def kernel_flash_forward(torch, g):
         source="ray_tpu_torch/ops/csrc/attention.cu",
         replaces="ray_tpu/ops/attention.py:62 _attn_fwd_kernel (pallas_call at :156)",
         shapes=f"q/k/v[{B},{H},{T},{D}] causal bf16",
-        errs=errs, max_abs_err=errs["main/bfloat16"],
+        errs=errs, max_abs_err=errs["main/bfloat16"], by_route=route_errs(errs),
         library_call="scaled_dot_product_attention(q, k, v, is_causal=True)",
         **measure(B, H, T, D),
         train_shape="q/k/v[{},{},{},{}] causal bf16".format(*TRAIN_ATTN),
@@ -351,7 +465,9 @@ def kernel_flash_backward(torch, g):
         for name, shape in cases.items():
             a = mk(*shape, getattr(torch, dt))
             dq = A.flash_attention_backward_dq(*a)
+            before = dict(A.flash_attention_backward_dkv.launches_by_route)
             dk, dv = A.flash_attention_backward_dkv(*a)
+            check_route(A.flash_attention_backward_dkv, before, dt, f"backward dkv {name}")
             dq_p = A._bwd_dq_plain(*a)
             dk_p, dv_p = A._bwd_dkv_plain(*a)
             what = f"{name} {dt}"
@@ -390,6 +506,7 @@ def kernel_flash_backward(torch, g):
              source="ray_tpu_torch/ops/csrc/attention_bwd.cu",
              replaces="ray_tpu/ops/attention.py:237 _bwd_dkv_kernel (pallas_call at :342)",
              errs=errs["dkv"], max_abs_err=errs["dkv"]["main/bfloat16"],
+             by_route=route_errs(errs["dkv"]),
              kernel_ms=device_ms(lambda: A.flash_attention_backward_dkv(*a)),
              plain_ms=device_ms(lambda: A._bwd_dkv_plain(*a)),
              bound=bound(6 * elem + side, 8 * D * pairs, "bfloat16"), **common),
@@ -625,6 +742,20 @@ def forward_parity(torch, cfg, params):
     return report
 
 
+def zero_counters(counters: dict) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+        for r in getattr(fn, "launches_by_route", ()):
+            fn.launches_by_route[r] = 0
+
+
+def read_counters(counters: dict):
+    """({kernel: launches}, {kernel: {route: launches}} for K3 and K5)."""
+    return ({name: fn.launches for name, fn in counters.items()},
+            {name: dict(fn.launches_by_route) for name, fn in counters.items()
+             if hasattr(fn, "launches_by_route")})
+
+
 def run_engine(torch, cfg, params, cache_kind: str, n_req: int, prompt_len: int,
                max_tokens: int, counters: dict, quantize: bool = False):
     """Serve ``n_req`` concurrent streaming requests; ``counters`` ({kernel
@@ -658,8 +789,7 @@ def run_engine(torch, cfg, params, cache_kind: str, n_req: int, prompt_len: int,
                 toks.append(tok)
             results[i] = toks
 
-        for fn in counters.values():
-            fn.launches = 0
+        zero_counters(counters)
         threads = [threading.Thread(target=client, args=(i,)) for i in range(n_req)]
         t0 = time.perf_counter()
         for t in threads:
@@ -668,7 +798,7 @@ def run_engine(torch, cfg, params, cache_kind: str, n_req: int, prompt_len: int,
             t.join(timeout=600)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches, by_route = read_counters(counters)
     finally:
         eng.shutdown()
     for i, r in enumerate(results):
@@ -682,7 +812,7 @@ def run_engine(torch, cfg, params, cache_kind: str, n_req: int, prompt_len: int,
         "prompt_len": prompt_len, "max_tokens": max_tokens, "tokens": n_tok, "wall_s": wall,
         "tokens_per_s": n_tok / wall,
         "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
-        "launches": launches, **weight_bytes,
+        "launches": launches, "launches_by_route": by_route, **weight_bytes,
     }
 
 
@@ -707,31 +837,51 @@ def named_leaves(tree, prefix=""):
 
 def train_parity(torch, cfg, params):
     """Loss and every gradient leaf through the flash kernels against the
-    einsum attention, f32, batch 1."""
+    einsum attention, batch 1: in f32 activations (K3/K5 on the scalar
+    route) and in bf16 (on the tensor-core route)."""
     from ray_tpu_torch.models.transformer import loss_and_grads
+    from ray_tpu_torch.ops.attention import flash_attention_backward_dkv, flash_attention_with_lse
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(2)
     tokens = torch.randint(0, cfg.vocab_size, (1, cfg.max_seq_len), generator=g, device="cuda")
-    res = {}
-    for attention in ("flash", "dense"):
-        res[attention] = loss_and_grads(dataclasses.replace(cfg, attention=attention),
-                                        params, tokens)
-    (loss_k, grads_k), (loss_p, grads_p) = res["flash"], res["dense"]
-    loss_err = abs(float(loss_k) - float(loss_p))
-    if not (torch.isfinite(loss_k) and loss_err <= 1e-4):
-        raise AssertionError(f"train_parity: loss {float(loss_k)} vs {float(loss_p)}")
-    rel = {}
-    for (name, a), (_, b) in zip(named_leaves(grads_k), named_leaves(grads_p)):
-        if not torch.isfinite(a).all():
-            raise AssertionError(f"train_parity: non-finite grad {name}")
-        rel[name] = float((a - b).abs().max() / b.abs().max())
-        if rel[name] > 1e-3:
-            raise AssertionError(f"train_parity: grad {name} off by {rel[name]:.3e} "
-                                 "of its largest element")
-    return {"loss_flash": float(loss_k), "loss_dense": float(loss_p), "loss_abs_err": loss_err,
-            "grad_max_rel_err": max(rel.values()), "grad_rel_err": rel}
+    counters = {"flash_attention_forward": flash_attention_with_lse,
+                "flash_attention_backward_dkv": flash_attention_backward_dkv}
+    report = {}
+    for dt in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg, dtype=getattr(torch, dt))
+        zero_counters(counters)
+        loss_k, grads_k = loss_and_grads(dataclasses.replace(c, attention="flash"), params, tokens)
+        _, by_route = read_counters(counters)
+        if any(r[ROUTE_OF[dt]] == 0 or sum(r.values()) != r[ROUTE_OF[dt]]
+               for r in by_route.values()):
+            raise AssertionError(f"train_parity {dt}: routes {by_route}")
+        loss_p, grads_p = loss_and_grads(dataclasses.replace(c, attention="dense"), params, tokens)
+        loss_err = abs(float(loss_k) - float(loss_p))
+        if not (torch.isfinite(loss_k) and loss_err <= (1e-4 if dt == "float32" else 1e-2)):
+            raise AssertionError(f"train_parity {dt}: loss {float(loss_k)} vs {float(loss_p)}")
+        rel = {}
+        for (name, a), (_, b) in zip(named_leaves(grads_k), named_leaves(grads_p)):
+            if not torch.isfinite(a).all():
+                raise AssertionError(f"train_parity {dt}: non-finite grad {name}")
+            a, b = a.float(), b.float()
+            if dt == "float32":  # max error over the leaf's largest element
+                rel[name] = float((a - b).abs().max() / b.abs().max())
+                limit = 1e-3
+            else:  # bf16: relative Frobenius error
+                rel[name] = float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+                limit = 2e-2
+            if rel[name] > limit:
+                raise AssertionError(f"train_parity {dt}: grad {name} off by {rel[name]:.3e} "
+                                     f"(limit {limit})")
+        key = "" if dt == "float32" else "bf16_"
+        report.update({f"{key}loss_flash": float(loss_k), f"{key}loss_dense": float(loss_p),
+                       f"{key}loss_abs_err": loss_err, f"{key}grad_max_rel_err": max(rel.values()),
+                       f"{key}grad_rel_err": rel, f"{key}launches_by_route": by_route})
+        del grads_k, grads_p
+        torch.cuda.empty_cache()
+    return report
 
 
 def run_train(torch, cfg, params, counters: dict, steps: int = 5, batch: int = 6):
@@ -748,24 +898,30 @@ def run_train(torch, cfg, params, counters: dict, steps: int = 5, batch: int = 6
     T = cfg.max_seq_len
     g = torch.Generator(device="cuda").manual_seed(3)
     tokens = torch.randint(0, cfg.vocab_size, (batch, T), generator=g, device="cuda")
-    losses, step_ms, launches = [], [], []
+    losses, step_ms, launches, routes = [], [], [], []
 
     def one_step(state):
-        for fn in counters.values():
-            fn.launches = 0
+        zero_counters(counters)
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         t0.record()
         state, loss = train_step(state, tokens)
         t1.record()
         torch.cuda.synchronize()
-        n = {name: fn.launches for name, fn in counters.items()}
+        n, by_route = read_counters(counters)
         L = cfg.n_layers
         if not (n["flash_attention_backward_dq"] == n["flash_attention_backward_dkv"] == L
                 and n["flash_attention_forward"] >= L):
             raise AssertionError(f"step {len(losses) + 1}: launches {n}")
+        # bf16 activations: every K3 launch (forward and its recompute) and
+        # every K5 launch on the tensor cores
+        want = {"flash_attention_forward": {"wgmma_bf16": 2 * L, "simt_f32": 0},
+                "flash_attention_backward_dkv": {"wgmma_bf16": L, "simt_f32": 0}}
+        if by_route != want:
+            raise AssertionError(f"step {len(losses) + 1}: routes {by_route}, want {want}")
         losses.append(loss)
         step_ms.append(t0.elapsed_time(t1))
         launches.append(n)
+        routes.append(by_route)
         return state
 
     torch.cuda.reset_peak_memory_stats()
@@ -801,7 +957,8 @@ def run_train(torch, cfg, params, counters: dict, steps: int = 5, batch: int = 6
         "step_ms": step_ms, "step_ms_median": ms, "tokens_per_s": tokens_per_s,
         "model_flops_per_token": flops_per_token,
         "flop_share_of_989_tflops": tokens_per_s * flops_per_token / PEAK_FLOPS["bfloat16"],
-        "launches_per_step": launches, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "launches_per_step": launches, "launches_by_route_per_step": routes,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
         "resume_loss_bitwise_equal": True, "checkpoint_save_s": save_s,
         "checkpoint_restore_s": restore_s, "step3_deterministic_algorithms": True,
     }
@@ -880,11 +1037,13 @@ def main(argv=None) -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
-    _build.build_all()
+    libs = _build.build_all()
     build_s = time.perf_counter() - t0
-    ptxas = [ln.strip() for log in _build.build_logs().values() for ln in log.splitlines()
-             if "Used" in ln or "Compiling entry" in ln]
-    emit({"phase": "build", "ok": True, "seconds": build_s, "card": card, "ptxas": ptxas})
+    ptxas = ptxas_report(_build.build_logs())
+    hgmma = hgmma_counts(libs)
+    check_tensor_core_build(ptxas, hgmma)
+    emit({"phase": "build", "ok": True, "seconds": build_s, "card": card, "ptxas": ptxas,
+          "hgmma_per_kernel": hgmma})
 
     kernels = {}
     if "kernels" in phases:
@@ -897,6 +1056,15 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
 
     launches = {}  # kernel -> launches over the engine and train runs
+    by_route = {}  # K3, K5 -> {route: launches} over the same runs
+
+    def count(n: dict, routes: dict) -> None:
+        for name, x in n.items():
+            launches[name] = launches.get(name, 0) + x
+        for name, per in routes.items():
+            for r, x in per.items():
+                by_route.setdefault(name, {}).setdefault(r, 0)
+                by_route[name][r] += x
     if phases & {"forward_parity", "engine"}:
         cfg = serving_config(torch)
         from ray_tpu_torch.models.transformer import init_params
@@ -943,8 +1111,7 @@ def main(argv=None) -> int:
                                      f"{dense_q['launches']}")
             emit({"phase": "engine", "ok": True, "card": card, **dense_q})
             for run in (paged, dense, paged_q, dense_q):
-                for name, n in run["launches"].items():
-                    launches[name] = launches.get(name, 0) + n
+                count(run["launches"], run["launches_by_route"])
         del params
         torch.cuda.empty_cache()
     if phases & {"train_parity", "train", "profile"}:
@@ -953,7 +1120,7 @@ def main(argv=None) -> int:
 
         params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
         if "train_parity" in phases:
-            rep = train_parity(torch, dataclasses.replace(cfg, dtype=torch.float32), params)
+            rep = train_parity(torch, cfg, params)
             emit({"phase": "train_parity", "ok": True, "card": card, **rep})
             torch.cuda.empty_cache()
         if "profile" in phases:
@@ -967,9 +1134,8 @@ def main(argv=None) -> int:
                 "flash_attention_backward_dkv": flash_attention_backward_dkv,
             })
             emit({"phase": "train", "ok": True, "card": card, **rep})
-            for per_step in rep["launches_per_step"]:
-                for name, n in per_step.items():
-                    launches[name] = launches.get(name, 0) + n
+            for n, routes in zip(rep["launches_per_step"], rep["launches_by_route_per_step"]):
+                count(n, routes)
         del params
     if kernels:
         # the K3 entry's ms/bound are its serving prefill shape; train_* keys
@@ -981,7 +1147,10 @@ def main(argv=None) -> int:
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "library_ms": r["library_ms"],
              **{k: x for k, x in r.items()
-                if k.startswith(("train_", "prefill_")) and not k.endswith("_shape")}}
+                if k.startswith(("train_", "prefill_")) and not k.endswith("_shape")},
+             # K3, K5: each route's worst error and its launches on the main path
+             **({"by_route": {rt: {**e, "launches": by_route.get(n, {}).get(rt)}
+                              for rt, e in r["by_route"].items()}} if "by_route" in r else {})}
             for n, r in kernels.items()
         ]})
     print(card, flush=True)

@@ -3,7 +3,12 @@
 The port's counterpart of ``ray_tpu/models/checkpoint.py``:
 
     save_model(path, cfg, params)
-    cfg, params = load_model(path, device="cuda")
+    cfg, params = load_model(path)                 # params on CUDA
+    cfg, params = load_model(path, device="cpu")   # on the CPU, when asked
+
+Like the engine and the train step, ``load_model`` places the params on
+CUDA unless a device is named, and raises when none is named and no CUDA
+device is present (the JAX package restores onto its accelerator).
 
 The config is written as JSON (dataclass fields; torch dtypes stored by
 name) and the params through the crash-atomic framed writer of
@@ -20,6 +25,7 @@ from typing import Any, Tuple, Type
 
 import torch
 
+from ray_tpu_torch.models.common import default_device
 from ray_tpu_torch.train.checkpoint import _map_tensors, load_framed, save_framed
 
 _CONFIG_FILE = "model_config.json"
@@ -59,8 +65,9 @@ def save_model(path: str, cfg: Any, params: Any) -> None:
 
 
 def load_model(path: str, device=None) -> Tuple[Any, Any]:
-    """Returns (cfg, params) saved by :func:`save_model`; params on the CPU,
-    or on ``device``."""
+    """Returns (cfg, params) saved by :func:`save_model`, the params on
+    ``device`` (default CUDA; no silent CPU fallback)."""
+    device = default_device(device, "load_model")
     with open(os.path.join(path, _CONFIG_FILE)) as f:
         meta = json.load(f)
     cls = _CONFIG_TYPES.get(meta["type"])
@@ -73,9 +80,7 @@ def load_model(path: str, device=None) -> Tuple[Any, Any]:
     params = load_framed(os.path.join(path, _PARAMS_FILE))
     if params is None:
         raise FileNotFoundError(f"no readable params at {path} (missing or torn)")
-    if device is not None:
-        params = _map_tensors(params, lambda t: t.to(device))
-    return cfg, params
+    return cfg, _map_tensors(params, lambda t: t.to(device))
 
 
 def _register_builtin():

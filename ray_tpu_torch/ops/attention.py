@@ -15,6 +15,13 @@ kernels in a custom VJP (the source files say what bounds each kernel on the
 H100 and what its design does about it). On CPU tensors the same Function
 runs the plain PyTorch versions :func:`_flash_forward_plain` and
 :func:`_flash_backward_plain`. :func:`mha` is the plain reference attention.
+
+The forward and the dk/dv kernel each have two routes, chosen by
+:func:`kernel_route` from the dtype and head dimension alone: bf16 (every
+user-facing path) runs the tensor-core (wgmma) kernels, f32 (the parity
+checks, whose limits rule out TF32) the scalar ones. Each wrapper counts its
+launches in ``launches`` and, for those two, per route in
+``launches_by_route``.
 """
 
 from __future__ import annotations
@@ -42,6 +49,23 @@ _BWD_PROTOTYPES = {
     # q, k, v, dout, lse, delta, dk, dv, BH, Tq, Tk, D, dtype, scale, causal, window, stream
     "flash_attention_backward_dkv": [_P] * 8 + [_I] * 5 + [_F, _I, _I, _P],
 }
+
+
+ROUTES = ("wgmma_bf16", "simt_f32")
+
+
+def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel route of the flash forward and the dk/dv backward for
+    inputs of ``dtype`` with ``head_dim``: ``"wgmma_bf16"`` (tensor cores)
+    for bf16, ``"simt_f32"`` (scalar FMAs) for f32. Raises for anything the
+    kernels do not take. The C entry points dispatch on the same two."""
+    if head_dim not in (64, 128):
+        raise ValueError(f"the flash kernels take head_dim 64 or 128, got {head_dim}")
+    if dtype == torch.bfloat16:
+        return "wgmma_bf16"
+    if dtype == torch.float32:
+        return "simt_f32"
+    raise TypeError(f"the flash kernels take float32 or bfloat16, got {dtype}")
 
 
 def _visible(Tq: int, Tk: int, causal: bool, window: Optional[int], device) -> torch.Tensor:
@@ -74,26 +98,38 @@ def _flash_forward_plain(q, k, v, scale: float, causal: bool, window: Optional[i
     return out.to(q.dtype), lse
 
 
-def _check_kernel_inputs(what: str, q, k, v) -> None:
+def _check_kernel_inputs(what: str, q, k, v) -> str:
+    """Checks what every flash kernel needs; returns the route."""
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     if q.device.type != "cuda":
         raise RuntimeError(f"{what} runs on CUDA tensors, got {q.device}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
-    if D not in (64, 128):
-        raise ValueError(f"{what} takes head_dim 64 or 128, got {D}")
+    route = kernel_route(q.dtype, D)
     if k.shape != (B, H, Tk, D) or v.shape != k.shape:
         raise ValueError(f"k/v must be [B, H, Tk, D]; got {tuple(k.shape)}, {tuple(v.shape)}")
+    return route
+
+
+def _check_aligned(what: str, *ts) -> None:
+    # the tensor-core kernels copy rows in 16-byte chunks
+    for t in ts:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what}: tensor data must be 16-byte aligned")
 
 
 def _flash_forward_kernel(q, k, v, scale: float, causal: bool, window: Optional[int]):
-    _check_kernel_inputs("the flash kernel", q, k, v)
+    route = _check_kernel_inputs("the flash kernel", q, k, v)
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty_like(q)
-    lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
+    if route == "wgmma_bf16":
+        _check_aligned("flash_attention_forward", q, k, v, out)
+        if not scale > 0:  # the kernel takes each row's max from the unscaled scores
+            raise ValueError(f"flash_attention_forward: bf16 takes a positive scale, got {scale}")
+    lse =torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     lib = _build.library("attention", _PROTOTYPES)
     err = lib.flash_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
@@ -103,6 +139,7 @@ def _flash_forward_kernel(q, k, v, scale: float, causal: bool, window: Optional[
     )
     _build.check(err, "flash_attention_forward")
     flash_attention_with_lse.launches += 1
+    flash_attention_with_lse.launches_by_route[route] += 1
     return out, lse
 
 
@@ -156,8 +193,8 @@ def _flash_backward_plain(q, k, v, out, lse, g_out, g_lse, scale: float, causal:
     return dq, dk, dv
 
 
-def _bwd_launch(what: str, q, k, v, g_out, lse, delta, outs, scale, causal, window):
-    _check_kernel_inputs(what, q, k, v)
+def _bwd_launch(what: str, q, k, v, g_out, lse, delta, outs, scale, causal, window) -> str:
+    route = _check_kernel_inputs(what, q, k, v)
     B, H, Tq, D = q.shape
     if g_out.shape != q.shape or g_out.dtype != q.dtype:
         raise ValueError(f"{what}: dO must match q, got {tuple(g_out.shape)} {g_out.dtype}")
@@ -166,6 +203,8 @@ def _bwd_launch(what: str, q, k, v, g_out, lse, delta, outs, scale, causal, wind
             raise ValueError(f"{what}: {name} must be f32 [B, H, Tq], got "
                              f"{tuple(t.shape)} {t.dtype}")
     ins = [t.contiguous() for t in (q, k, v, g_out, lse, delta)]
+    if route == "wgmma_bf16" and what == "flash_attention_backward_dkv":
+        _check_aligned(what, *ins[:4], *outs)
     lib = _build.library("attention_bwd", _BWD_PROTOTYPES)
     err = getattr(lib, what)(
         *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
@@ -174,6 +213,7 @@ def _bwd_launch(what: str, q, k, v, g_out, lse, delta, outs, scale, causal, wind
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, what)
+    return route
 
 
 def flash_attention_backward_dq(q, k, v, g_out, lse, delta, scale: float, causal: bool,
@@ -193,14 +233,16 @@ def flash_attention_backward_dkv(q, k, v, g_out, lse, delta, scale: float, causa
     (dk, dv) [B,H,Tk,D] in k's dtype."""
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(k.shape, dtype=k.dtype, device=k.device)
-    _bwd_launch("flash_attention_backward_dkv", q, k, v, g_out, lse, delta, (dk, dv),
-                scale, causal, window)
+    route = _bwd_launch("flash_attention_backward_dkv", q, k, v, g_out, lse, delta, (dk, dv),
+                        scale, causal, window)
     flash_attention_backward_dkv.launches += 1
+    flash_attention_backward_dkv.launches_by_route[route] += 1
     return dk, dv
 
 
 flash_attention_backward_dq.launches = 0
 flash_attention_backward_dkv.launches = 0
+flash_attention_backward_dkv.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def _flash_backward_kernel(q, k, v, out, lse, g_out, g_lse, scale: float, causal: bool,
@@ -267,6 +309,7 @@ def flash_attention_with_lse(
 
 
 flash_attention_with_lse.launches = 0
+flash_attention_with_lse.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
 def flash_attention(q, k, v, sm_scale: Optional[float] = None, causal: bool = True, *,

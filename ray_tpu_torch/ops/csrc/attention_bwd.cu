@@ -6,39 +6,58 @@
 //                                 dk = scale * sum_q (P o (dP - delta))^T . Q
 //     replaces ray_tpu/ops/attention.py::_bwd_dkv_kernel (K5);
 //
-// both reached through the driver _flash_backward and the custom VJP of
+// both reached through the JAX wrapper _flash_backward and the custom VJP of
 // flash_attention_with_lse. P = exp(q.k * scale - lse) is recomputed from the
 // forward's saved lse; delta = rowsum(dO o O) - g_lse comes from the caller
-// (plain PyTorch, as the TPU driver computes it in plain XLA), so the lse
+// (plain PyTorch, as the JAX wrapper computes it in plain XLA), so the lse
 // cotangent folds into the same term. Causal, non-causal or sliding window
 // (key k visible to query q iff k > q - window), as the forward kernel.
 //
-// What bounds it on the H100: at the training shape (B*H = 96, T = 2048,
-// D = 128, causal) both kernels are bound by operations (6 and 8 FLOPs per
-// visible (q, k) pair per head dimension): 0.156 and 0.209 ms a call at the
-// tensor cores' 989 TFLOP/s. This first version runs scalar f32 FMAs over
-// shared-memory tiles, as the forward does, so it is bound by the
-// shared-memory loads feeding those FMAs: 12.1 and 15.6 ms a call on an H100
-// SXM (80 GB HBM3, 700 W limit; PERF.md). wgmma and TMA come later (ROADMAP).
-// Design:
-//   * one block per (b*h, 32-row tile): dq walks the k-tiles its q-tile can
-//     see, dk/dv the q-tiles that can see its k-tile, each accumulating in
-//     f32 registers and writing its own rows once -- no atomics, so the
-//     result is bitwise the same run to run (bit-exact resume needs that);
-//   * 128 threads, 4 per tile row; each thread computes 8 scores of its row
-//     with the head dimension as the outer loop, so one load of its own row
-//     element feeds 8 FMAs;
-//   * tiles that hold no visible pair are never loaded (above the causal
-//     diagonal, left of the window, and for dk/dv past q + window);
-//   * P is SELECTED by the mask, never multiplied by it: a row that sees no
-//     key has lse = -1e30, and exp(s - lse) = inf would turn 0 * inf into NaN;
-//   * rows past Tq / Tk are never loaded (zero-filled tiles) and never
-//     written, instead of padding the inputs as the TPU driver does; for
-//     dk/dv such query rows get P = 0.
-// Shared memory: f32 tiles of q, dO, k, v and the P / dS tiles: ~37 KB (dq)
-// and ~42 KB (dk/dv) at D=64, ~70 KB and ~75 KB at D=128, above the 48 KB
-// default (the opt-in in common.cuh; a refused launch returns its error).
+// What bounds them on the H100: at the training shape (B*H = 96, T = 2048,
+// D = 128, causal) both are bound by operations (6 and 8 FLOPs per visible
+// (q, k) pair per head dimension): 0.156 and 0.209 ms a call at the tensor
+// cores' 989 TFLOP/s. Each block owns its outputs -- dq a q-tile, dk/dv a
+// k-tile -- accumulates in f32 registers and writes its own rows once, in a
+// fixed order: no atomics, so a launch is bitwise repeatable (bit-exact
+// resume needs that). P is SELECTED by the mask, never multiplied by it: a
+// row that sees no key has lse = -1e30, and exp(s - lse) = inf would turn
+// 0 * inf into NaN. Tiles that hold no visible pair are never loaded (above
+// the causal diagonal, left of the window, and for dk/dv past q + window);
+// rows past Tq / Tk are zero-filled and never written, instead of padding
+// the inputs as the JAX wrapper does.
+//
+// dk/dv, bf16 -> flash_bwd_dkv_wgmma_kernel, on the tensor cores:
+//   * one block per (b*h, 128-key tile): two warpgroups of 64 keys; K and V
+//     stay in shared memory, dK and dV accumulate in f32 registers (64 + 64
+//     a thread at D = 128); key tiles dispatched longest first (causal);
+//   * the block walks the 64-query tiles that can see its keys; Q, dO, lse
+//     and delta of tile j + 1 are copied (cp.async, 128-byte swizzle) into
+//     the next of three stages while tile j computes (three stages need one
+//     barrier a tile);
+//   * per q-tile, four wgmma products: S^T = K.Q^T and dP^T = V.dO^T
+//     (m64n64k16, both operands in shared memory, D contracted), then
+//     P^T = 2^(S^T * scale * log2 e - lse * log2 e) (one FFMA and one
+//     MUFU.EX2 a weight) selected by the mask,
+//     dS^T = P^T o (dP^T - delta) with lse and delta per column from shared
+//     memory, then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T rounded
+//     to bf16 as register A operands and dO, Q as transposed (MN-major) B
+//     operands. The TPU kernel ran the same products from bf16 operands.
+//     The products go in three commit groups, so P^T is formed while dP^T
+//     is still on the tensor cores and dS^T while dV is;
+//   * dK is scaled by `scale` once, at the end.
+//   Registers: dK + dV 128, S^T + dP^T 64 at their peak: 250 at D = 128,
+//   181 at D = 64, no spills (ptxas -v in the build log). Shared memory: K, V 2 x 32 KB,
+//   three stages of Q, dO 3 x 32 KB, lse and delta 1.5 KB: ~163 KB at
+//   D = 128, ~83 KB at D = 64.
+// dk/dv, f32 -> flash_bwd_dkv_kernel: scalar FMAs, kept only for the f32
+//   parity checks (their 1e-3 gradient limits rule out TF32): 32-key tiles,
+//   128 threads, 4 per key row, f32 tiles of q, dO, k, v, P and dS (~42 KB
+//   at D = 64, ~75 KB at D = 128).
+// dq, f32 and bf16 -> flash_bwd_dq_kernel: the same scalar structure, one
+//   block per 32-row q-tile walking the k-tiles it can see (~37 / ~70 KB).
+//   Its tensor-core redesign is the next one (ROADMAP).
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace rtt {
 namespace {
@@ -157,12 +176,13 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   }
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int Tq, int Tk, float scale, int causal, int window) {
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv, int Tq, int Tk, float scale,
+                     int causal, int window) {
   constexpr int DPT = D / kTPR;  // dk/dv columns per thread
   extern __shared__ float smem[];
   float* k_s = smem;                  // [B][D+1] this block's keys
@@ -180,8 +200,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const int64_t q_base = static_cast<int64_t>(bh) * Tq * D;
   const int64_t k_base = static_cast<int64_t>(bh) * Tk * D;
 
-  load_tile<T, D>(k_s, k, k_base, k0, Tk);
-  load_tile<T, D>(v_s, v, k_base, k0, Tk);
+  load_tile<float, D>(k_s, k, k_base, k0, Tk);
+  load_tile<float, D>(v_s, v, k_base, k0, Tk);
 
   // queries that can see some key of this tile: causal needs q >= k0; the
   // window needs q < k + window, at most k0 + kB - 1 + window - 1
@@ -197,8 +217,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   const float* vr = v_s + row * (D + 1);
   for (int q0 = q_begin; q0 < q_end; q0 += kB) {
     __syncthreads();  // the previous tile's readers are done (and k/v are written)
-    load_tile<T, D>(q_s, q, q_base, q0, Tq);
-    load_tile<T, D>(do_s, dout, q_base, q0, Tq);
+    load_tile<float, D>(q_s, q, q_base, q0, Tq);
+    load_tile<float, D>(do_s, dout, q_base, q0, Tq);
     if (tid < kB) {
       const bool in = q0 + tid < Tq;
       const int64_t r = static_cast<int64_t>(bh) * Tq + q0 + tid;
@@ -250,8 +270,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
     const int64_t o = k_base + static_cast<int64_t>(kpos) * D;
 #pragma unroll
     for (int c = 0; c < DPT; ++c) {
-      dk[o + sub + c * kTPR] = from_f32<T>(acc_k[c] * scale);
-      dv[o + sub + c * kTPR] = from_f32<T>(acc_v[c]);
+      dk[o + sub + c * kTPR] = acc_k[c] * scale;
+      dv[o + sub + c * kTPR] = acc_v[c];
     }
   }
 }
@@ -278,17 +298,196 @@ cudaError_t launch_dq(const Args& a, void* dq) {
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch_dkv(const Args& a, void* dk, void* dv) {
+template <int D>
+cudaError_t launch_dkv_simt(const Args& a, void* dk, void* dv) {
   const size_t smem = dkv_smem_bytes<D>();
-  auto kernel = flash_bwd_dkv_kernel<T, D>;
+  auto kernel = flash_bwd_dkv_kernel<D>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.Tk + kB - 1) / kB, a.BH), kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(dk), static_cast<T*>(dv), a.Tq, a.Tk,
-      a.scale, a.causal, a.window);
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), a.Tq, a.Tk, a.scale, a.causal,
+      a.window);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// dk/dv, bf16: the tensor-core route
+// ---------------------------------------------------------------------------
+constexpr int kKeys = 128;  // keys a block: two warpgroups of 64
+constexpr int kQT = 64;     // queries a Q/dO tile (the N of S^T = K.Q^T)
+constexpr int kStages = 3;  // Q/dO tiles in flight: one barrier a tile
+constexpr float kLog2e = 1.4426950408889634f;
+
+template <int D>
+struct DkvTiles {
+  static constexpr int kv_bytes = kKeys * D * 2;  // one swizzled K or V tile
+  static constexpr int q_bytes = kQT * D * 2;      // one Q or dO tile
+  static constexpr int stage_bytes = 2 * q_bytes;
+  static constexpr int vec_bytes = kQT * 4;  // one lse or delta tile
+  // + 1024: the base is rounded up to the swizzle's 1024-byte period
+  static constexpr size_t smem =
+      2 * kv_bytes + kStages * (stage_bytes + 2 * vec_bytes) + 1024;
+};
+
+template <int D>
+__global__ void __launch_bounds__(256, 1)
+flash_bwd_dkv_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v,
+                           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                           const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                           __nv_bfloat16* __restrict__ dv, int Tq, int Tk, float scale,
+                           int causal, int window) {
+  using L = DkvTiles<D>;
+  constexpr int NT = 256;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* const aligned = smem_raw + (((tc::smem_u32(smem_raw) + 1023) & ~1023u) -
+                                       tc::smem_u32(smem_raw));
+  const uint32_t k_s = tc::smem_u32(aligned), v_s = k_s + L::kv_bytes;
+  const uint32_t qd_s = v_s + L::kv_bytes;  // stage st: Q at + st * stage_bytes, dO after it
+  // stage st: lse at vec + 2 * st * kQT, delta at + kQT after it
+  const float* vec =
+      reinterpret_cast<const float*>(aligned + 2 * L::kv_bytes + kStages * L::stage_bytes);
+  const uint32_t vec_s = tc::smem_u32(vec);
+
+  // causal: the longest (first) key tiles of every head run first
+  const int bh = blockIdx.x, k0 = blockIdx.y * kKeys;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int64_t q_base = static_cast<int64_t>(bh) * Tq * D;
+  const int64_t k_base = static_cast<int64_t>(bh) * Tk * D;
+  const float* lse_h = lse + static_cast<int64_t>(bh) * Tq;
+  const float* dl_h = delta + static_cast<int64_t>(bh) * Tq;
+
+  // queries that can see some key of this tile: causal needs q >= k0; the
+  // window needs q < k + window, at most k0 + kKeys - 1 + window - 1
+  const int q_begin = causal ? k0 / kQT * kQT : 0;
+  int q_end = Tq;
+  if (window > 0) q_end = min(q_end, k0 + kKeys - 1 + window);
+  const int n_tiles = q_end > q_begin ? (q_end - q_begin + kQT - 1) / kQT : 0;
+
+  auto load_q_tile = [&](int st, int q0) {
+    const uint32_t dst = qd_s + st * L::stage_bytes;
+    tc::load_tile<kQT, D, NT>(dst, q + q_base, q0, Tq);
+    tc::load_tile<kQT, D, NT>(dst + L::q_bytes, dout + q_base, q0, Tq);
+    tc::load_vec<kQT, NT>(vec_s + 8 * st * kQT, lse_h, q0, Tq);
+    tc::load_vec<kQT, NT>(vec_s + 8 * st * kQT + 4 * kQT, dl_h, q0, Tq);
+  };
+  tc::load_tile<kKeys, D, NT>(k_s, k + k_base, k0, Tk);
+  tc::load_tile<kKeys, D, NT>(v_s, v + k_base, k0, Tk);
+  if (n_tiles > 0) load_q_tile(0, q_begin);
+  tc::cp_async_commit();
+
+  // this warpgroup's 64 keys start at kw; this thread holds keys ka, ka + 8
+  const int kw = k0 + wg * 64;
+  const int ka = kw + warp * 16 + lane / 4;
+  const float sl2 = scale * kLog2e;
+  float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int q0 = q_begin + it * kQT, st = it % kStages;
+    const uint32_t q_t = qd_s + st * L::stage_bytes, do_t = q_t + L::q_bytes;
+    const float* lse_t = vec + 2 * st * kQT;
+    const float* dl_t = lse_t + kQT;
+    // the stage refilled here was last read in tile it - 2, and every
+    // thread is past it: the barrier below, in tile it - 1, came after it
+    if (it + 1 < n_tiles) load_q_tile((it + 1) % kStages, q0 + kQT);
+    tc::cp_async_commit();  // possibly empty: one group a tile either way
+    tc::cp_async_wait<1>();  // this tile (and K, V) have landed
+    tc::fence_proxy_async();
+    __syncthreads();
+
+    // a warpgroup with no visible pair in this tile skips it
+    if (kw >= Tk || (causal && q0 + kQT - 1 < kw) || (window > 0 && q0 >= kw + 63 + window))
+      continue;
+
+    // Four products in three groups, so the MUFU and FMA work of P and dS
+    // runs under the tensor cores: P^T is formed while dP^T is still being
+    // computed, and dS^T while dV += P^T.dO runs (groups complete in order).
+    float s[kQT / 2], dp[kQT / 2];
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      tc::wgmma_ss_n64(s, tc::desc_k<kKeys>(k_s, wg * 64, kk), tc::desc_k<kQT>(q_t, 0, kk), kk > 0);
+    tc::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      tc::wgmma_ss_n64(dp, tc::desc_k<kKeys>(v_s, wg * 64, kk), tc::desc_k<kQT>(do_t, 0, kk),
+                     kk > 0);
+    tc::wgmma_commit();
+    tc::wgmma_wait<1>();  // S^T is in
+    tc::pin(s);
+
+    const bool edge = (causal && q0 < kw + 63) || (window > 0 && q0 + kQT - 1 >= kw + window) ||
+                      q0 + kQT > Tq || kw + 64 > Tk;
+#pragma unroll
+    for (int i = 0; i < kQT / 2; ++i) {
+      const int key = ka + 8 * ((i / 2) % 2);
+      const int c = (i / 4) * 8 + (lane % 4) * 2 + i % 2, qpos = q0 + c;
+      const bool vis = !edge || (qpos < Tq && key < Tk && (!causal || key <= qpos) &&
+                                 (window <= 0 || key > qpos - window));
+      s[i] = vis ? tc::ex2(fmaf(s[i], sl2, -lse_t[c] * kLog2e)) : 0.f;
+    }
+    uint32_t pa[kQT / 16][4], dsa[kQT / 16][4];
+    tc::to_a_operand(s, pa);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kQT / 16; ++kk)
+      tc::mma_rs<D>(dv_acc, pa[kk], tc::desc_mn<kQT>(do_t, kk), 1);
+    tc::wgmma_commit();
+    tc::wgmma_wait<1>();  // dP^T is in; dV may still run
+    tc::pin(dp);
+
+#pragma unroll
+    for (int i = 0; i < kQT / 2; ++i) {
+      const int c = (i / 4) * 8 + (lane % 4) * 2 + i % 2;
+      dp[i] = s[i] * (dp[i] - dl_t[c]);
+    }
+    tc::to_a_operand(dp, dsa);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kQT / 16; ++kk)
+      tc::mma_rs<D>(dk_acc, dsa[kk], tc::desc_mn<kQT>(q_t, kk), 1);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::pin(dv_acc);
+    tc::pin(dk_acc);
+    tc::pin(pa);
+    tc::pin(dsa);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int key = ka + 8 * h;
+    if (key >= Tk) continue;
+    const int64_t o = k_base + static_cast<int64_t>(key) * D + (lane % 4) * 2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int i = 4 * j + 2 * h;
+      *reinterpret_cast<__nv_bfloat162*>(dk + o + j * 8) =
+          __floats2bfloat162_rn(dk_acc[i] * scale, dk_acc[i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + o + j * 8) =
+          __floats2bfloat162_rn(dv_acc[i], dv_acc[i + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
+  constexpr size_t smem = DkvTiles<D>::smem;
+  auto kernel = flash_bwd_dkv_wgmma_kernel<D>;
+  cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.BH, (a.Tk + kKeys - 1) / kKeys), 256, smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), a.Tq, a.Tk, a.scale,
+      a.causal, a.window);
   return cudaGetLastError();
 }
 
@@ -312,18 +511,18 @@ int flash_attention_backward_dq(const void* q, const void* k, const void* v, con
   return cudaErrorInvalidValue;
 }
 
-// the same inputs; dk, dv [BH, Tk, D] in k's dtype
+// the same inputs; dk, dv [BH, Tk, D] in k's dtype (bf16: 16-byte aligned
+// rows). bf16 runs the tensor-core kernel, f32 the scalar one.
 int flash_attention_backward_dkv(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dk, void* dv, int BH,
                                  int Tq, int Tk, int D, int dtype, float scale, int causal,
                                  int window, void* stream) {
   const rtt::Args a{q, k, v, dout, lse, delta, BH, Tq, Tk, scale, causal, window,
                     static_cast<cudaStream_t>(stream)};
-  if (dtype == rtt::kFloat32 && D == 64) return rtt::launch_dkv<float, 64>(a, dk, dv);
-  if (dtype == rtt::kFloat32 && D == 128) return rtt::launch_dkv<float, 128>(a, dk, dv);
-  if (dtype == rtt::kBFloat16 && D == 64) return rtt::launch_dkv<__nv_bfloat16, 64>(a, dk, dv);
-  if (dtype == rtt::kBFloat16 && D == 128)
-    return rtt::launch_dkv<__nv_bfloat16, 128>(a, dk, dv);
+  if (dtype == rtt::kBFloat16 && D == 64) return rtt::launch_dkv_wgmma<64>(a, dk, dv);
+  if (dtype == rtt::kBFloat16 && D == 128) return rtt::launch_dkv_wgmma<128>(a, dk, dv);
+  if (dtype == rtt::kFloat32 && D == 64) return rtt::launch_dkv_simt<64>(a, dk, dv);
+  if (dtype == rtt::kFloat32 && D == 128) return rtt::launch_dkv_simt<128>(a, dk, dv);
   return cudaErrorInvalidValue;
 }
 

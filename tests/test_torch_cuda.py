@@ -8,10 +8,12 @@ imports no JAX, so it also runs where only PyTorch is installed:
 
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-Tolerances: f32 atol 1e-4 (summation order only), bf16 atol = rtol = 2e-2.
+Tolerances: f32 atol 1e-4 (summation order only), bf16 atol = rtol = 2e-2
+(the tensor-core route of K3 and K5 also rounds P and dS to bf16, as the
+TPU kernels' MXU passes do), lse atol 1e-4.
 The int8 matmul in f32: atol 1e-5 x max|plain| (its K-term sums in another
 order differ by about sqrt(K) * 2^-24 * |partial sums|, which grows with the
-output's magnitude). The backward kernels and the int8 matmul have no
+output's magnitude). The attention kernels and the int8 matmul have no
 atomics: two launches give the same bits.
 """
 
@@ -107,6 +109,70 @@ def test_flash_backward_kernels_match_plain(cuda, case, dtype, atol, rtol):
         assert torch.equal(a, b)  # no atomics: bitwise deterministic
 
 
+WGMMA_CASES = {  # (B, H, Tq, Tk, D, causal, window)
+    "serving_prefill": (1, 16, 64, 64, 64, True, None),
+    "t1024_d128": (1, 2, 1024, 1024, 128, True, None),
+    "ragged_causal": (2, 4, 77, 77, 64, True, None),
+    "noncausal_tq_ne_tk": (2, 4, 37, 100, 64, False, None),
+    "window_causal": (2, 4, 77, 77, 64, True, 16),
+    "window_causal_d128": (1, 4, 200, 200, 128, True, 16),
+    "window_noncausal_empty_rows": (1, 4, 150, 60, 64, False, 40),  # rows >= 99 see no key
+}
+
+
+def _moved(fn, before):
+    return {r: n - before[r] for r, n in fn.launches_by_route.items() if n != before[r]}
+
+
+@pytest.mark.parametrize("case", list(WGMMA_CASES))
+def test_tensor_core_route_matches_plain(cuda, case):
+    """K3 and K5 on bf16 inputs take the wgmma route and agree with their
+    plain versions; two launches give the same bits; the same inputs in f32
+    move only the scalar route's counters."""
+    B, H, Tq, Tk, D, causal, window = WGMMA_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q, g_out = (torch.randn(B, H, Tq, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, H, Tk, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    g_lse = torch.randn(B, H, Tq, generator=g, device=cuda)
+    fwd, dkv = tattn.flash_attention_with_lse, tattn.flash_attention_backward_dkv
+
+    before = dict(fwd.launches_by_route)
+    o, lse = fwd(q, k, v, None, causal, window)
+    assert _moved(fwd, before) == {"wgmma_bf16": 1}
+    po, plse = fwd(q, k, v, None, causal, window, use_kernel=False)
+    torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
+    o2, lse2 = fwd(q, k, v, None, causal, window)
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+
+    args = (q, k, v, g_out, plse, tattn._delta(po, g_out, g_lse), D ** -0.5, causal, window)
+    before = dict(dkv.launches_by_route)
+    dk, dv = dkv(*args)
+    assert _moved(dkv, before) == {"wgmma_bf16": 1}
+    for name, a, b in zip(("dk", "dv"), (dk, dv), tattn._bwd_dkv_plain(*args)):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a).all(), name
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2, msg=name)
+    dk2, dv2 = dkv(*args)
+    assert torch.equal(dk, dk2) and torch.equal(dv, dv2)  # no atomics
+
+    before = dict(fwd.launches_by_route), dict(dkv.launches_by_route)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g_out))
+    of, lsef = fwd(qf, kf, vf, None, causal, window)
+    dkv(qf, kf, vf, gf, lsef, tattn._delta(of, gf, g_lse), D ** -0.5, causal, window)
+    assert _moved(fwd, before[0]) == _moved(dkv, before[1]) == {"simt_f32": 1}
+
+
+@pytest.mark.parametrize("scale", [0.0, -0.125])
+def test_tensor_core_forward_refuses_non_positive_scale(cuda, scale):
+    """The bf16 forward takes each row's max from the unscaled scores, so it
+    raises for a scale that is not positive instead of launching."""
+    q = torch.randn(1, 2, 64, 64, device=cuda).bfloat16()
+    before = dict(tattn.flash_attention_with_lse.launches_by_route)
+    with pytest.raises(ValueError, match="positive scale"):
+        tattn.flash_attention_with_lse(q, q, q, scale, True)
+    assert tattn.flash_attention_with_lse.launches_by_route == before
+
+
 @pytest.mark.parametrize("shape", [(8, 1024, 512), (100, 300, 50)], ids=["decode_wk", "ragged"])
 @pytest.mark.parametrize("dtype,atol,rtol", TOLS)
 def test_int8_matmul_kernel_matches_plain(cuda, shape, dtype, atol, rtol):
@@ -152,6 +218,34 @@ def test_train_step_on_gpu_matches_cpu(cuda):
     assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-4
     for a, b in zip(out["cuda"][1], out["cpu"][1]):
         torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+
+
+def test_bf16_train_step_matches_dense_attention_on_gpu(cuda):
+    """One AdamW step in bf16 activations through K3 and K5 on the tensor
+    cores (and K4) against the same step with the einsum attention on the
+    card: loss atol 2e-2 (bf16 activations; P and dS rounded to bf16)."""
+    import dataclasses
+
+    from ray_tpu_torch.models import transformer as ttr
+
+    cfg = ttr.TransformerConfig(vocab_size=97, d_model=128, n_layers=2, n_heads=2, n_kv_heads=1,
+                                d_ff=256, dtype=torch.bfloat16, remat="dots")
+    params = ttr.init_params(cfg, torch.Generator().manual_seed(5))
+    tokens = torch.randint(0, 97, (2, 77), generator=torch.Generator().manual_seed(6)).to(cuda)
+    fwd, dkv = tattn.flash_attention_with_lse, tattn.flash_attention_backward_dkv
+    loss = {}
+    for attention in ("flash", "dense"):
+        _, train_step = ttr.make_train_step(dataclasses.replace(cfg, attention=attention),
+                                             device=cuda)
+        state = ttr.new_train_state(
+            ttr._rebuild(params, [t.to(cuda, copy=True) for t in ttr._leaves(params)]))
+        before = dict(fwd.launches_by_route), dict(dkv.launches_by_route)
+        state, loss[attention] = train_step(state, tokens)
+        moved = _moved(fwd, before[0]), _moved(dkv, before[1])
+        assert moved == (({"wgmma_bf16": 4}, {"wgmma_bf16": 2}) if attention == "flash"
+                         else ({}, {}))  # K3 again in the recompute
+        assert torch.isfinite(loss[attention])
+    assert abs(float(loss["flash"]) - float(loss["dense"])) <= 2e-2
 
 
 @pytest.mark.parametrize("quantize", [False, True], ids=["float", "int8"])

@@ -68,6 +68,19 @@ def test_engine_without_device_refuses_to_fall_back_to_cpu(monkeypatch):
         LLMEngine(TransformerConfig(vocab_size=11, d_model=8, n_layers=1, n_heads=2), {})
 
 
+def test_load_model_without_device_refuses_to_fall_back_to_cpu(monkeypatch, tmp_path):
+    from ray_tpu_torch.models.checkpoint import load_model, save_model
+    from ray_tpu_torch.models.transformer import TransformerConfig
+
+    save_model(str(tmp_path), TransformerConfig(vocab_size=11, d_model=8, n_layers=1, n_heads=2),
+               {"embed": torch.zeros(11, 8)})
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        load_model(str(tmp_path))
+    _, params = load_model(str(tmp_path), device="cpu")
+    assert params["embed"].device.type == "cpu"
+
+
 def test_unported_engine_options_raise():
     from ray_tpu_torch.models.transformer import TransformerConfig
     from ray_tpu_torch.serve.llm import LLMEngine

@@ -200,12 +200,31 @@ def test_unused_lse_folds_away_and_gqa_sums_group_grads():
         torch.testing.assert_close(x, y, rtol=0, atol=ATOL)
 
 
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma_bf16"), (torch.float32, "simt_f32")])
+def test_kernel_route_by_dtype_and_head_dim(dtype, route, head_dim):
+    """bf16 goes to the tensor-core kernels, f32 to the scalar ones; the
+    head dimension only has to be one the kernels take."""
+    assert tattn.kernel_route(dtype, head_dim) == route
+    assert route in tattn.ROUTES
+
+
+@pytest.mark.parametrize("dtype,head_dim,exc", [
+    (torch.bfloat16, 96, ValueError), (torch.float32, 32, ValueError),
+    (torch.float16, 64, TypeError), (torch.float64, 128, TypeError),
+])
+def test_kernel_route_refuses_what_no_kernel_takes(dtype, head_dim, exc):
+    with pytest.raises(exc):
+        tattn.kernel_route(dtype, head_dim)
+
+
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     q, kp, vp, bt, lengths = _paged_case(1, 2)
     counters = (tdec.paged_decode_attention, tdec.decode_attention,
                 tattn.flash_attention_with_lse, tattn.flash_attention_backward_dq,
                 tattn.flash_attention_backward_dkv)
     before = [c.launches for c in counters]
+    routes = [dict(c.launches_by_route) for c in counters[2:5:2]]
     forced = tdec.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt), _t(lengths),
                                          use_kernel=True)
     plain = tdec.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt), _t(lengths),
@@ -215,3 +234,4 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tattn.flash_attention(x, x, x, use_kernel=True).sum().backward()
     tdec.decode_attention(x[:, :, 0], x, x, torch.tensor([3]))
     assert [c.launches for c in counters] == before
+    assert [c.launches_by_route for c in counters[2:5:2]] == routes
