@@ -9,16 +9,18 @@
 Phases, each printing one JSON line; any failure exits non-zero:
 
 1. ``build``   — nvcc builds every kernel from ``ray_tpu_torch/ops/csrc``;
-   ``-Xptxas -v`` must report no spills for the tensor-core (wgmma)
-   kernels, and where the toolkit has ``cuobjdump`` the count of ``HGMMA``
-   instructions per kernel must be non-zero for them and zero for the rest.
+   ``-Xptxas -v`` must report no spills for the tensor-core kernels (K3,
+   K4, K5: ``wgmma``; K6: ``mma``), and where the toolkit has ``cuobjdump``
+   the count of tensor-core instructions per kernel (``HGMMA`` for wgmma,
+   ``HMMA`` for mma.sync) must be non-zero for them and zero for the rest.
 2. ``kernel``  — one line per kernel: the kernel against its plain PyTorch
    version on the card, at the main paths' shapes plus edge cases, in f32
    (atol 1e-4: only the summation order differs; the int8 matmul, whose
    K-term sums grow with K, atol 1e-5 x max|plain|) and bf16 (atol and rtol
-   2e-2: bf16 keeps about 3 digits); K3 and K5 report each route (bf16 on
-   the tensor cores, f32 scalar) with its errors and check that each input
-   moved only its route's counter; the attention kernels and the int8
+   2e-2: bf16 keeps about 3 digits); K3, K4, K5 and K6 report each route
+   (bf16 on the tensor cores, f32 scalar; K6's ragged bf16 shapes scalar
+   too) with its errors and check that each input moved only its route's
+   counter; the attention kernels and the int8
    matmul also run twice and must give the same bits; device times of the
    kernel, the plain version and (where one PyTorch call computes the same
    function) that call, and the least time the card could take
@@ -50,8 +52,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    within 2e-2.
 6. ``train``   — the same decoder as ``bench.py`` trains it (bf16, batch 6,
    ``remat="dots"``): 5 AdamW steps on a repeated batch, counters zeroed
-   before and read after each step (K4 = K5 = 8, K3 = 16 a step, every K3
-   and K5 launch on the tensor-core route), every loss
+   before and read after each step (K4 = K5 = 8, K3 = 16 a step, every K3,
+   K4 and K5 launch on the tensor-core route), every loss
    finite and the last below the first; step ms (CUDA events), tokens/s and
    the model FLOP share of 989 TFLOP/s. The state after step 2 is saved
    through ``Checkpoint.from_pytree`` and restored into a fresh state: step 3
@@ -140,8 +142,9 @@ def ptxas_report(logs: dict) -> dict:
 
 
 def hgmma_counts(libs: dict):
-    """{kernel: number of HGMMA (wgmma) instructions in its SASS}, from
-    ``cuobjdump -sass`` of each built library; None without cuobjdump."""
+    """{kernel: number of tensor-core instructions in its SASS: HGMMA (wgmma)
+    or HMMA (mma.sync)}, from ``cuobjdump -sass`` of each built library; None
+    without cuobjdump."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     tool = os.path.join(CUDA_HOME or "/usr/local/cuda", "bin", "cuobjdump")
@@ -156,23 +159,29 @@ def hgmma_counts(libs: dict):
             if m:
                 fn = kernel_label(m.group(1))
                 counts[fn] = 0
-            elif fn and "HGMMA" in ln:
+            elif fn and ("HGMMA" in ln or "HMMA" in ln):
                 counts[fn] += 1
     return counts
 
 
+def is_tensor_core_kernel(name: str) -> bool:
+    return "wgmma" in name or "_mma_" in name
+
+
 def check_tensor_core_build(ptxas: dict, hgmma) -> None:
-    """The wgmma kernels spill nothing and run HGMMA; the others run none."""
-    tc = [k for k in ptxas if "wgmma" in k]
-    if len(tc) < 4:
-        raise AssertionError(f"build: expected the K3/K5 wgmma kernels, found {tc}")
+    """The tensor-core kernels (K3, K4, K5: wgmma; K6: mma) are all built,
+    spill nothing and run tensor-core instructions; the others run none."""
+    tc = [k for k in ptxas if is_tensor_core_kernel(k)]
+    for stem in ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma", "int8_matmul_mma"):
+        if not any(stem in k for k in tc):
+            raise AssertionError(f"build: no {stem} kernel among {tc}")
     spilled = {k: ptxas[k] for k in tc if ptxas[k].get("spill_bytes", 1) != 0}
     if spilled:
-        raise AssertionError(f"build: wgmma kernels spill: {spilled}")
+        raise AssertionError(f"build: tensor-core kernels spill: {spilled}")
     if hgmma is not None:
-        wrong = {k: n for k, n in hgmma.items() if (n > 0) != ("wgmma" in k)}
-        if wrong or not any(hgmma.get(k) for k in tc):
-            raise AssertionError(f"build: HGMMA counts off: {wrong or hgmma}")
+        wrong = {k: n for k, n in hgmma.items() if (n > 0) != is_tensor_core_kernel(k)}
+        if wrong or not all(hgmma.get(k) for k in tc):
+            raise AssertionError(f"build: tensor-core instruction counts off: {wrong or hgmma}")
 
 
 # ---------------------------------------------------------------------------
@@ -351,13 +360,14 @@ def kernel_dense_decode(torch, g):
 ROUTE_OF = {"bfloat16": "wgmma_bf16", "float32": "simt_f32"}
 
 
-def check_route(fn, before: dict, dt: str, what: str) -> None:
-    """One launch of ``fn`` on ``dt`` inputs moved its route's counter, and
-    only that one."""
+def check_route(fn, before: dict, dt: str, what: str, route: str = None) -> None:
+    """One launch of ``fn`` on ``dt`` inputs moved its route's counter
+    (``route``, by default the attention kernels' route of ``dt``), and only
+    that one."""
+    route = route or ROUTE_OF[dt]
     moved = {r: n - before[r] for r, n in fn.launches_by_route.items() if n != before[r]}
-    if moved != {ROUTE_OF[dt]: 1}:
-        raise AssertionError(f"{what} {dt}: route counters moved {moved}, want "
-                             f"{{{ROUTE_OF[dt]!r}: 1}}")
+    if moved != {route: 1}:
+        raise AssertionError(f"{what} {dt}: route counters moved {moved}, want {{{route!r}: 1}}")
 
 
 def route_errs(errs: dict) -> dict:
@@ -437,7 +447,8 @@ def kernel_flash_forward(torch, g):
 
 def kernel_flash_backward(torch, g):
     """K4 and K5, each against its plain version (same q, k, v, dO, lse,
-    delta), with a non-zero lse cotangent folded into delta."""
+    delta), with a non-zero lse cotangent folded into delta, on both routes
+    (bf16: tensor cores, f32: scalar)."""
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops import attention as A
@@ -458,13 +469,18 @@ def kernel_flash_backward(torch, g):
         "window_noncausal": (1, 4, 150, 150, 64, False, 40),
         "window_noncausal_empty_rows": (1, 4, 150, 60, 64, False, 40),  # rows >= 99 see no key
         "d128": (1, 8, 77, 77, 128, True, None),
+        "t1024_d128": (1, 2, 1024, 1024, 128, True, None),
+        "window_causal_d128": (1, 4, 200, 200, 128, True, 16),
+        "noncausal_d128_tq_ne_tk": (1, 2, 300, 130, 128, False, None),
     }
     errs = {"dq": {}, "dkv": {}}
     for dt in ("float32", "bfloat16"):
         atol, rtol = TOLS[dt]
         for name, shape in cases.items():
             a = mk(*shape, getattr(torch, dt))
+            before = dict(A.flash_attention_backward_dq.launches_by_route)
             dq = A.flash_attention_backward_dq(*a)
+            check_route(A.flash_attention_backward_dq, before, dt, f"backward dq {name}")
             before = dict(A.flash_attention_backward_dkv.launches_by_route)
             dk, dv = A.flash_attention_backward_dkv(*a)
             check_route(A.flash_attention_backward_dkv, before, dt, f"backward dkv {name}")
@@ -499,6 +515,7 @@ def kernel_flash_backward(torch, g):
              source="ray_tpu_torch/ops/csrc/attention_bwd.cu",
              replaces="ray_tpu/ops/attention.py:188 _bwd_dq_kernel (pallas_call at :319)",
              errs=errs["dq"], max_abs_err=errs["dq"]["main/bfloat16"],
+             by_route=route_errs(errs["dq"]),
              kernel_ms=device_ms(lambda: A.flash_attention_backward_dq(*a)),
              plain_ms=device_ms(lambda: A._bwd_dq_plain(*a)),
              bound=bound(5 * elem + side, 6 * D * pairs, "bfloat16"), **common),
@@ -523,9 +540,11 @@ L2_BYTES = 50 * 2**20
 
 def kernel_int8_matmul(torch, g, n_layers: int = 16):
     from ray_tpu_torch.ops.quantization import (
+        _int8_matmul_cuda,
         _int8_matmul_plain,
         dequantize_int8,
         int8_matmul,
+        matmul_route,
         quantize_int8,
     )
 
@@ -539,21 +558,42 @@ def kernel_int8_matmul(torch, g, n_layers: int = 16):
 
     cases = {**{f"decode_{k}": v for k, v in K6_DECODE.items()},
              "prefill_w1": (64, 1024, 4096), "ragged": (100, 300, 50), "m1": (1, 1024, 1024),
-             "zero_column": (8, 1024, 512)}
-    errs = {}
+             "zero_column": (8, 1024, 512),
+             # the tensor-core route's row tiles (8, 16, 32, 64 and several of 64)
+             **{f"m{m}": (m, 1024, 4096) for m in (16, 63, 64, 65, 200)},
+             "m32_w2": (32, 4096, 1024),      # K over a cluster at a 32-row tile
+             "ragged_k": (20, 328, 512),      # K % 16 != 0: a half-filled last step
+             "ragged_n": (20, 256, 1000),     # N % 16 != 0: falls to the 4-byte loads
+             # wide outputs: the 8- and 16-byte loads at each row tile (on 132 SMs)
+             **{f"m{m}_n{n}": (m, 256, n) for m in (8, 16, 32) for n in (8448, 16896)}}
+    errs, by_route = {}, {}
     for dt in ("float32", "bfloat16"):
         for name, (M, K, N) in cases.items():
             x, w_q, s = mk(M, K, N, getattr(torch, dt), 5 if name == "zero_column" else None)
-            got = int8_matmul(x, w_q, s)
             want = _int8_matmul_plain(x, w_q, s, x.dtype)
             atol, rtol = TOLS[dt]
             if dt == "float32":
                 # f32 sums over K terms in another order: the error grows
                 # like sqrt(K) * 2^-24 * |partial sums|, i.e. with the output
                 atol = 1e-5 * float(want.abs().max())
+            # the route the wrapper takes, and every other route that takes the case
+            route = matmul_route(x.dtype, M, K, N)
+            if route != ("mma_bf16" if dt == "bfloat16" and N % 16 == 0 and K % 8 == 0
+                         else "simt"):
+                raise AssertionError(f"int8_matmul {name} {dt}: route {route}")
+            before = dict(int8_matmul.launches_by_route)
+            got = int8_matmul(x, w_q, s)
+            check_route(int8_matmul, before, dt, f"int8_matmul {name}", route)
+            outs = {route: got}
+            if route != "simt":
+                outs["simt"] = _int8_matmul_cuda(x, w_q, s.reshape(N).float(), x.dtype,
+                                                 route="simt")
+            for r, y in outs.items():
+                e = max_err(y, want, atol, rtol, f"int8_matmul {name} {dt} {r}")
+                by_route[r] = max(by_route.get(r, 0.0), e)
+                if name == "zero_column" and y[:, 5].any():
+                    raise AssertionError(f"int8_matmul {dt} {r}: the zero column is not zero")
             errs[f"{name}/{dt}"] = max_err(got, want, atol, rtol, f"int8_matmul {name} {dt}")
-            if name == "zero_column" and got[:, 5].any():
-                raise AssertionError(f"int8_matmul {dt}: the zero column is not zero")
             if not torch.equal(got, int8_matmul(x, w_q, s)):
                 raise AssertionError(f"int8_matmul {name} {dt}: two launches gave different bits")
     torch.cuda.synchronize()
@@ -573,6 +613,11 @@ def kernel_int8_matmul(torch, g, n_layers: int = 16):
         if not library:
             return out
         out["warm_kernel_ms"] = device_ms(lambda: int8_matmul(x, *ws[0]))  # weights in L2
+        # the same shape on the scalar route (what f32 and ragged shapes take)
+        flat = [(w_q, s.reshape(N).float()) for w_q, s in ws]
+        nxt_flat = itertools.cycle(flat).__next__
+        out["simt_route_ms"] = device_ms(
+            lambda: _int8_matmul_cuda(x, *nxt_flat(), torch.bfloat16, route="simt"))
         out["plain_ms"] = device_ms(lambda: _int8_matmul_plain(x, *nxt(), torch.bfloat16))
         # the JAX package's route: dequantize to param_dtype, cast, matmul
         out["jax_route_ms"] = device_ms(
@@ -615,6 +660,7 @@ def kernel_int8_matmul(torch, g, n_layers: int = 16):
         replaces="ray_tpu/ops/quantization.py:49 _int8_matmul_kernel (pallas_call at :105)",
         shapes=f"x[{M},{K}] bf16 @ int8 w[{K},{N}] * f32 scales[{N}] (w1 at decode)",
         errs=errs, max_abs_err=errs["decode_w1/bfloat16"],
+        by_route={r: {"max_abs_err": e} for r, e in by_route.items()},
         library_call="torch.matmul(x, w dequantized to bf16 ahead of time): the same "
                      "product, reading 2x the weight bytes",
         **main,
@@ -750,7 +796,8 @@ def zero_counters(counters: dict) -> None:
 
 
 def read_counters(counters: dict):
-    """({kernel: launches}, {kernel: {route: launches}} for K3 and K5)."""
+    """({kernel: launches}, {kernel: {route: launches}} for the kernels with
+    routes: K3, K4, K5, K6)."""
     return ({name: fn.launches for name, fn in counters.items()},
             {name: dict(fn.launches_by_route) for name, fn in counters.items()
              if hasattr(fn, "launches_by_route")})
@@ -837,16 +884,21 @@ def named_leaves(tree, prefix=""):
 
 def train_parity(torch, cfg, params):
     """Loss and every gradient leaf through the flash kernels against the
-    einsum attention, batch 1: in f32 activations (K3/K5 on the scalar
+    einsum attention, batch 1: in f32 activations (K3/K4/K5 on the scalar
     route) and in bf16 (on the tensor-core route)."""
     from ray_tpu_torch.models.transformer import loss_and_grads
-    from ray_tpu_torch.ops.attention import flash_attention_backward_dkv, flash_attention_with_lse
+    from ray_tpu_torch.ops.attention import (
+        flash_attention_backward_dkv,
+        flash_attention_backward_dq,
+        flash_attention_with_lse,
+    )
 
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
     g = torch.Generator(device="cuda").manual_seed(2)
     tokens = torch.randint(0, cfg.vocab_size, (1, cfg.max_seq_len), generator=g, device="cuda")
     counters = {"flash_attention_forward": flash_attention_with_lse,
+                "flash_attention_backward_dq": flash_attention_backward_dq,
                 "flash_attention_backward_dkv": flash_attention_backward_dkv}
     report = {}
     for dt in ("float32", "bfloat16"):
@@ -913,8 +965,9 @@ def run_train(torch, cfg, params, counters: dict, steps: int = 5, batch: int = 6
                 and n["flash_attention_forward"] >= L):
             raise AssertionError(f"step {len(losses) + 1}: launches {n}")
         # bf16 activations: every K3 launch (forward and its recompute) and
-        # every K5 launch on the tensor cores
+        # every K4 and K5 launch on the tensor cores
         want = {"flash_attention_forward": {"wgmma_bf16": 2 * L, "simt_f32": 0},
+                "flash_attention_backward_dq": {"wgmma_bf16": L, "simt_f32": 0},
                 "flash_attention_backward_dkv": {"wgmma_bf16": L, "simt_f32": 0}}
         if by_route != want:
             raise AssertionError(f"step {len(losses) + 1}: routes {by_route}, want {want}")
@@ -966,7 +1019,8 @@ def run_train(torch, cfg, params, counters: dict, steps: int = 5, batch: int = 6
 
 def profile_train_step(torch, cfg, params, batch: int = 6):
     """One train step (after a warm-up step) under ``torch.profiler``:
-    device time by kernel and the device's busy share of the step."""
+    device time by kernel, by group and by PyTorch op, and the device's busy
+    share of the step."""
     from torch.profiler import ProfilerActivity, profile
 
     from ray_tpu_torch.models.transformer import make_train_step, new_train_state
@@ -998,8 +1052,14 @@ def profile_train_step(torch, cfg, params, batch: int = 6):
             group = "other (elementwise, reductions, copies, optimizer)"
         groups[group] = groups.get(group, 0.0) + t
     busy = sum(r[1] for r in rows)
+    # the same device time by the PyTorch op that launched it (the port's
+    # kernels launch through ctypes, outside any op, and are not in this list)
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count) for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU and e.self_device_time_total > 0]
+    ops.sort(key=lambda r: -r[1])
     return {"wall_ms": wall_ms, "device_busy_ms": busy, "device_busy_share": busy / wall_ms,
             "device_ms_by_group": groups,
+            "device_ms_by_op": [{"op": n[:80], "device_ms": t, "calls": c} for n, t, c in ops[:20]],
             "top": [{"name": n[:120], "device_ms": t, "calls": c} for n, t, c in rows[:15]]}
 
 
@@ -1056,7 +1116,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
 
     launches = {}  # kernel -> launches over the engine and train runs
-    by_route = {}  # K3, K5 -> {route: launches} over the same runs
+    by_route = {}  # K3, K4, K5, K6 -> {route: launches} over the same runs
 
     def count(n: dict, routes: dict) -> None:
         for name, x in n.items():
@@ -1110,6 +1170,10 @@ def main(argv=None) -> int:
                 raise AssertionError(f"quantized dense engine skipped a kernel: "
                                      f"{dense_q['launches']}")
             emit({"phase": "engine", "ok": True, "card": card, **dense_q})
+            for run in (paged_q, dense_q):  # bf16 activations: every K6 launch on the tensor cores
+                r = run["launches_by_route"]["int8_matmul"]
+                if r != {"mma_bf16": run["launches"]["int8_matmul"], "simt": 0}:
+                    raise AssertionError(f"quantized {run['cache_kind']} engine: K6 routes {r}")
             for run in (paged, dense, paged_q, dense_q):
                 count(run["launches"], run["launches_by_route"])
         del params
@@ -1148,7 +1212,7 @@ def main(argv=None) -> int:
              "library_ms": r["library_ms"],
              **{k: x for k, x in r.items()
                 if k.startswith(("train_", "prefill_")) and not k.endswith("_shape")},
-             # K3, K5: each route's worst error and its launches on the main path
+             # K3-K6: each route's worst error and its launches on the main path
              **({"by_route": {rt: {**e, "launches": by_route.get(n, {}).get(rt)}
                               for rt, e in r["by_route"].items()}} if "by_route" in r else {})}
             for n, r in kernels.items()

@@ -16,11 +16,13 @@ H100 and what its design does about it). On CPU tensors the same Function
 runs the plain PyTorch versions :func:`_flash_forward_plain` and
 :func:`_flash_backward_plain`. :func:`mha` is the plain reference attention.
 
-The forward and the dk/dv kernel each have two routes, chosen by
+The forward, the dq and the dk/dv kernel each have two routes, chosen by
 :func:`kernel_route` from the dtype and head dimension alone: bf16 (every
-user-facing path) runs the tensor-core (wgmma) kernels, f32 (the parity
-checks, whose limits rule out TF32) the scalar ones. Each wrapper counts its
-launches in ``launches`` and, for those two, per route in
+user-facing path) runs the tensor-core (wgmma) kernels
+``flash_fwd_wgmma_kernel``, ``flash_bwd_dq_wgmma_kernel`` and
+``flash_bwd_dkv_wgmma_kernel`` (route ``"wgmma_bf16"``), f32 (the parity
+checks, whose limits rule out TF32) the scalar ones (route ``"simt_f32"``).
+Each wrapper counts its launches in ``launches`` and per route in
 ``launches_by_route``.
 """
 
@@ -55,7 +57,7 @@ ROUTES = ("wgmma_bf16", "simt_f32")
 
 
 def kernel_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The kernel route of the flash forward and the dk/dv backward for
+    """The kernel route of the flash forward and the two backward kernels for
     inputs of ``dtype`` with ``head_dim``: ``"wgmma_bf16"`` (tensor cores)
     for bf16, ``"simt_f32"`` (scalar FMAs) for f32. Raises for anything the
     kernels do not take. The C entry points dispatch on the same two."""
@@ -129,7 +131,7 @@ def _flash_forward_kernel(q, k, v, scale: float, causal: bool, window: Optional[
         _check_aligned("flash_attention_forward", q, k, v, out)
         if not scale > 0:  # the kernel takes each row's max from the unscaled scores
             raise ValueError(f"flash_attention_forward: bf16 takes a positive scale, got {scale}")
-    lse =torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
+    lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     lib = _build.library("attention", _PROTOTYPES)
     err = lib.flash_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
@@ -203,7 +205,7 @@ def _bwd_launch(what: str, q, k, v, g_out, lse, delta, outs, scale, causal, wind
             raise ValueError(f"{what}: {name} must be f32 [B, H, Tq], got "
                              f"{tuple(t.shape)} {t.dtype}")
     ins = [t.contiguous() for t in (q, k, v, g_out, lse, delta)]
-    if route == "wgmma_bf16" and what == "flash_attention_backward_dkv":
+    if route == "wgmma_bf16":
         _check_aligned(what, *ins[:4], *outs)
     lib = _build.library("attention_bwd", _BWD_PROTOTYPES)
     err = getattr(lib, what)(
@@ -219,11 +221,13 @@ def _bwd_launch(what: str, q, k, v, g_out, lse, delta, outs, scale, causal, wind
 def flash_attention_backward_dq(q, k, v, g_out, lse, delta, scale: float, causal: bool,
                                 window: Optional[int] = None) -> torch.Tensor:
     """The dq kernel on CUDA tensors: q, dO [B,H,Tq,D], k, v [B,H,Tk,D], lse
-    and delta f32 [B,H,Tq] -> dq [B,H,Tq,D] in q's dtype."""
+    and delta f32 [B,H,Tq] -> dq [B,H,Tq,D] in q's dtype. bf16 runs the
+    tensor-core kernel, f32 the scalar one (:func:`kernel_route`)."""
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _bwd_launch("flash_attention_backward_dq", q, k, v, g_out, lse, delta, (dq,),
-                scale, causal, window)
+    route = _bwd_launch("flash_attention_backward_dq", q, k, v, g_out, lse, delta, (dq,),
+                        scale, causal, window)
     flash_attention_backward_dq.launches += 1
+    flash_attention_backward_dq.launches_by_route[route] += 1
     return dq
 
 
@@ -241,6 +245,7 @@ def flash_attention_backward_dkv(q, k, v, g_out, lse, delta, scale: float, causa
 
 
 flash_attention_backward_dq.launches = 0
+flash_attention_backward_dq.launches_by_route = dict.fromkeys(ROUTES, 0)
 flash_attention_backward_dkv.launches = 0
 flash_attention_backward_dkv.launches_by_route = dict.fromkeys(ROUTES, 0)
 

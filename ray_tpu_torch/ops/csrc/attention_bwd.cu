@@ -53,9 +53,38 @@
 //   parity checks (their 1e-3 gradient limits rule out TF32): 32-key tiles,
 //   128 threads, 4 per key row, f32 tiles of q, dO, k, v, P and dS (~42 KB
 //   at D = 64, ~75 KB at D = 128).
-// dq, f32 and bf16 -> flash_bwd_dq_kernel: the same scalar structure, one
-//   block per 32-row q-tile walking the k-tiles it can see (~37 / ~70 KB).
-//   Its tensor-core redesign is the next one (ROADMAP).
+// dq, bf16 -> flash_bwd_dq_wgmma_kernel, on the tensor cores: K5's design
+// with the roles of queries and keys exchanged:
+//   * one block per (b*h, 128-row q-tile): two warpgroups of 64 rows. Q and
+//     dO stay in shared memory, each thread's two rows of lse (in log2
+//     units) and delta in registers, dQ accumulates in f32 registers (64 a
+//     thread at D = 128); causal q-tiles dispatched longest first;
+//   * the block walks the 64-key tiles its rows can see; K and V of tile
+//     j + 1 are copied (cp.async, 128-byte swizzle) while tile j computes:
+//     four stages and one barrier a tile (four, because dQ's product is
+//     still reading its K tile when the next tile begins);
+//   * per key tile, three wgmma products: S = Q.K^T and dP = dO.V^T
+//     (m64n64k16, both operands in shared memory, D contracted), then
+//     P = 2^(S * scale * log2 e - lse * log2 e) selected by the mask (one
+//     FFMA and one MUFU.EX2 a weight), dS = P o (dP - delta), and
+//     dQ += dS.K with dS rounded to bf16 as the register A operand and the
+//     same K tile read down its rows as the transposed (MN-major) B operand:
+//     no shared-memory round trip for dS, no second copy of K. Three commit
+//     groups: P forms while dP is on the tensor cores, and the dQ product
+//     is left running under the next tile's barrier and first products
+//     (0.505 -> 0.481 ms); three warpgroups (168 registers) were slower
+//     (0.54), one far slower (0.81);
+//   * dQ is scaled by `scale` once, at the end; rows past Tq are never
+//     written.
+//   Registers: 180 at D = 128, 138 at D = 64 at the first build, no spills
+//   (ptxas -v in the build log). Shared memory: Q, dO 2 x 32 KB, four stages
+//   of K, V 4 x 32 KB: ~193 KB at D = 128, ~97 KB at D = 64. At the train
+//   shape it takes 0.48 ms against 0.156 of bound: like K5, what is left is
+//   the exponentials and the waits between dependent products, not the
+//   tensor cores' rate.
+// dq, f32 -> flash_bwd_dq_kernel: scalar FMAs, kept only for the f32 parity
+//   checks: one block per 32-row q-tile walking the k-tiles it can see,
+//   f32 tiles of q, dO, k, v and dS (~37 / ~70 KB).
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -92,12 +121,13 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int causal, int wind
   return (!causal || kpos <= qpos) && (window <= 0 || kpos > qpos - window);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int Tq, int Tk,
-                    float scale, int causal, int window) {
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int Tq, int Tk, float scale, int causal,
+                    int window) {
   constexpr int DPT = D / kTPR;  // dq columns per thread
   extern __shared__ float smem[];
   float* q_s = smem;                // [B][D+1]
@@ -115,8 +145,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const float row_lse = row_in ? lse[static_cast<int64_t>(bh) * Tq + qpos] : 0.f;
   const float row_delta = row_in ? delta[static_cast<int64_t>(bh) * Tq + qpos] : 0.f;
 
-  load_tile<T, D>(q_s, q, q_base, q0, Tq);
-  load_tile<T, D>(do_s, dout, q_base, q0, Tq);
+  load_tile<float, D>(q_s, q, q_base, q0, Tq);
+  load_tile<float, D>(do_s, dout, q_base, q0, Tq);
 
   // keys that can be visible to some row of this tile
   int k_end = Tk;
@@ -132,8 +162,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   const float* dr = do_s + row * (D + 1);
   for (int k0 = k_begin; k0 < k_end; k0 += kB) {
     __syncthreads();  // the previous tile's readers are done (and q/dO are written)
-    load_tile<T, D>(k_s, k, k_base, k0, Tk);
-    load_tile<T, D>(v_s, v, k_base, k0, Tk);
+    load_tile<float, D>(k_s, k, k_base, k0, Tk);
+    load_tile<float, D>(v_s, v, k_base, k0, Tk);
     __syncthreads();
 
     float s[kCPT], dp[kCPT];
@@ -172,7 +202,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
   if (row_in) {
     const int64_t o = q_base + static_cast<int64_t>(qpos) * D;
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) dq[o + sub + i * kTPR] = from_f32<T>(acc[i] * scale);
+    for (int i = 0; i < DPT; ++i) dq[o + sub + i * kTPR] = acc[i] * scale;
   }
 }
 
@@ -284,17 +314,17 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <typename T, int D>
-cudaError_t launch_dq(const Args& a, void* dq) {
+template <int D>
+cudaError_t launch_dq_simt(const Args& a, void* dq) {
   const size_t smem = dq_smem_bytes<D>();
-  auto kernel = flash_bwd_dq_kernel<T, D>;
+  auto kernel = flash_bwd_dq_kernel<D>;
   cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<dim3((a.Tq + kB - 1) / kB, a.BH), kThreads, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k), static_cast<const T*>(a.v),
-      static_cast<const T*>(a.dout), static_cast<const float*>(a.lse),
-      static_cast<const float*>(a.delta), static_cast<T*>(dq), a.Tq, a.Tk, a.scale, a.causal,
-      a.window);
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<float*>(dq), a.Tq, a.Tk, a.scale, a.causal, a.window);
   return cudaGetLastError();
 }
 
@@ -491,23 +521,194 @@ cudaError_t launch_dkv_wgmma(const Args& a, void* dk, void* dv) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// dq, bf16: the tensor-core route
+// ---------------------------------------------------------------------------
+constexpr int kDqStages = 4;  // K/V tiles in flight (see the stage note in the kernel)
+constexpr int kDqWarpgroups = 2;  // 64-row q-tiles a block, sharing each K/V stage
+constexpr int kKT = 64;           // keys a K/V tile (the N of S = Q.K^T)
+
+template <int D, int NWG>
+struct DqTiles {
+  static constexpr int BM = 64 * NWG;           // q rows a block
+  static constexpr int q_bytes = BM * D * 2;    // one swizzled Q or dO tile
+  static constexpr int kv_bytes = kKT * D * 2;  // one K or V tile
+  static constexpr int stage_bytes = 2 * kv_bytes;
+  // + 1024: the base is rounded up to the swizzle's 1024-byte period
+  static constexpr size_t smem = 2 * q_bytes + kDqStages * stage_bytes + 1024;
+};
+
+template <int D, int NWG>
+__global__ void __launch_bounds__(128 * NWG, 1)
+flash_bwd_dq_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                          const __nv_bfloat16* __restrict__ k,
+                          const __nv_bfloat16* __restrict__ v,
+                          const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
+                          const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int Tq,
+                          int Tk, float scale, int causal, int window) {
+  using L = DqTiles<D, NWG>;
+  constexpr int BM = L::BM, NT = 128 * NWG, BK = kKT;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t q_s = (tc::smem_u32(smem_raw) + 1023) & ~1023u, do_s = q_s + L::q_bytes;
+  const uint32_t kv_s = do_s + L::q_bytes;  // stage st: K at + st * stage_bytes, V after it
+
+  // causal q-tiles run longest first, every head's before any shorter one
+  const int bh = blockIdx.x;
+  const int qt = causal ? gridDim.y - 1 - blockIdx.y : blockIdx.y;
+  const int q0 = qt * BM;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32, lane = threadIdx.x % 32;
+  const int64_t q_base = static_cast<int64_t>(bh) * Tq * D;
+  const int64_t k_base = static_cast<int64_t>(bh) * Tk * D;
+
+  // keys that can be visible to some row of this tile
+  int k_end = Tk;
+  if (causal) k_end = min(k_end, q0 + BM);
+  int k_begin = 0;
+  if (window > 0) k_begin = max(0, q0 - window + 1) / BK * BK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + BK - 1) / BK : 0;
+
+  tc::load_tile<BM, D, NT>(q_s, q + q_base, q0, Tq);
+  tc::load_tile<BM, D, NT>(do_s, dout + q_base, q0, Tq);
+  if (n_tiles > 0) {
+    tc::load_tile<BK, D, NT>(kv_s, k + k_base, k_begin, Tk);
+    tc::load_tile<BK, D, NT>(kv_s + L::kv_bytes, v + k_base, k_begin, Tk);
+  }
+  tc::cp_async_commit();
+
+  // this warpgroup's 64 rows start at r0; this thread holds rows ra, ra + 8,
+  // and their lse (in log2 units) and delta stay in registers
+  const int r0 = q0 + wg * 64;
+  const int ra = r0 + warp * 16 + lane / 4;
+  const float sl2 = scale * kLog2e;
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = ra + 8 * h;
+    const int64_t r = static_cast<int64_t>(bh) * Tq + row;
+    lse2[h] = row < Tq ? lse[r] * kLog2e : 0.f;
+    dl[h] = row < Tq ? delta[r] : 0.f;
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  uint32_t dsa[BK / 16][4] = {};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    const int k0 = k_begin + it * BK;
+    const uint32_t k_s = kv_s + (it % kDqStages) * L::stage_bytes, v_s = k_s + L::kv_bytes;
+    // The stage refilled here was last read in tile it - 3, by its dQ
+    // product, which every thread waited for in tile it - 2, before the
+    // barrier of tile it - 1 that this thread has passed. (Three stages would
+    // not do: a dQ product is still reading its K tile while the other
+    // warpgroup, one barrier ahead, refills the third stage back.)
+    if (it + 1 < n_tiles) {
+      const uint32_t nk = kv_s + ((it + 1) % kDqStages) * L::stage_bytes;
+      tc::load_tile<BK, D, NT>(nk, k + k_base, k0 + BK, Tk);
+      tc::load_tile<BK, D, NT>(nk + L::kv_bytes, v + k_base, k0 + BK, Tk);
+    }
+    tc::cp_async_commit();  // possibly empty: one group a tile either way
+    tc::cp_async_wait<1>();  // this tile (and Q, dO) have landed
+    tc::fence_proxy_async();
+    __syncthreads();
+
+    // a warpgroup with no visible pair in this tile skips it
+    if (r0 >= Tq || (causal && k0 > r0 + 63) || (window > 0 && k0 + BK - 1 <= r0 - window)) {
+      tc::wgmma_wait<0>();
+      tc::pin(acc);
+      tc::pin(dsa);
+      continue;
+    }
+
+    // Three products in three groups (they complete in order): P is formed
+    // while dP = dO.V^T is still on the tensor cores, and dQ += dS.K is left
+    // running into the next tile, under its barrier and its first products.
+    float s[BK / 2], dp[BK / 2];
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      tc::wgmma_ss_n64(s, tc::desc_k<BM>(q_s, wg * 64, kk), tc::desc_k<BK>(k_s, 0, kk), kk > 0);
+    tc::wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      tc::wgmma_ss_n64(dp, tc::desc_k<BM>(do_s, wg * 64, kk), tc::desc_k<BK>(v_s, 0, kk), kk > 0);
+    tc::wgmma_commit();
+    tc::wgmma_wait<1>();  // the previous tile's dQ product and S are in
+    tc::pin(dsa);
+    tc::pin(s);
+
+    const bool edge = (causal && k0 + BK - 1 > r0) || (window > 0 && k0 <= r0 + 63 - window) ||
+                      k0 + BK > Tk || r0 + 64 > Tq;
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int h = (i / 2) % 2, row = ra + 8 * h;
+      const int col = k0 + (i / 4) * 8 + (lane % 4) * 2 + i % 2;
+      const bool vis = !edge || (row < Tq && col < Tk && (!causal || col <= row) &&
+                                 (window <= 0 || col > row - window));
+      s[i] = vis ? tc::ex2(fmaf(s[i], sl2, -lse2[h])) : 0.f;
+    }
+    tc::wgmma_wait<0>();  // dP is in, and its registers are released
+    tc::pin(dp);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) dp[i] = s[i] * (dp[i] - dl[(i / 2) % 2]);
+
+    // dQ += dS.K: dS rounded to bf16 is the register A operand as it stands,
+    // the same K tile read down its rows (MN-major) the B operand
+    tc::to_a_operand(dp, dsa);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) tc::mma_rs<D>(acc, dsa[kk], tc::desc_mn<BK>(k_s, kk), 1);
+    tc::wgmma_commit();
+  }
+  tc::wgmma_wait<0>();
+  tc::pin(acc);
+  tc::pin(dsa);
+
+  if (r0 >= Tq) return;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = ra + 8 * h;
+    if (row >= Tq) continue;
+    __nv_bfloat16* orow = dq + q_base + static_cast<int64_t>(row) * D + (lane % 4) * 2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<__nv_bfloat162*>(orow + j * 8) =
+          __floats2bfloat162_rn(acc[4 * j + 2 * h] * scale, acc[4 * j + 2 * h + 1] * scale);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_wgmma(const Args& a, void* dq) {
+  using L = DqTiles<D, kDqWarpgroups>;
+  auto kernel = flash_bwd_dq_wgmma_kernel<D, kDqWarpgroups>;
+  cudaError_t err = allow_smem(kernel, L::smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<dim3(a.BH, (a.Tq + L::BM - 1) / L::BM), 128 * kDqWarpgroups, L::smem, a.stream>>>(
+      static_cast<const __nv_bfloat16*>(a.q), static_cast<const __nv_bfloat16*>(a.k),
+      static_cast<const __nv_bfloat16*>(a.v), static_cast<const __nv_bfloat16*>(a.dout),
+      static_cast<const float*>(a.lse), static_cast<const float*>(a.delta),
+      static_cast<__nv_bfloat16*>(dq), a.Tq, a.Tk, a.scale, a.causal, a.window);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace rtt
 
 extern "C" {
 
 // q, dout [BH, Tq, D]; k, v [BH, Tk, D]; lse, delta f32 [BH, Tq]; dq [BH, Tq, D]
-// in q's dtype. All contiguous. window <= 0 means no window.
+// in q's dtype (bf16: 16-byte aligned rows). All contiguous. window <= 0 means
+// no window. bf16 runs the tensor-core kernel, f32 the scalar one.
 int flash_attention_backward_dq(const void* q, const void* k, const void* v, const void* dout,
                                 const void* lse, const void* delta, void* dq, int BH, int Tq,
                                 int Tk, int D, int dtype, float scale, int causal, int window,
                                 void* stream) {
   const rtt::Args a{q, k, v, dout, lse, delta, BH, Tq, Tk, scale, causal, window,
                     static_cast<cudaStream_t>(stream)};
-  if (dtype == rtt::kFloat32 && D == 64) return rtt::launch_dq<float, 64>(a, dq);
-  if (dtype == rtt::kFloat32 && D == 128) return rtt::launch_dq<float, 128>(a, dq);
-  if (dtype == rtt::kBFloat16 && D == 64) return rtt::launch_dq<__nv_bfloat16, 64>(a, dq);
-  if (dtype == rtt::kBFloat16 && D == 128) return rtt::launch_dq<__nv_bfloat16, 128>(a, dq);
+  if (dtype == rtt::kBFloat16 && D == 64) return rtt::launch_dq_wgmma<64>(a, dq);
+  if (dtype == rtt::kBFloat16 && D == 128) return rtt::launch_dq_wgmma<128>(a, dq);
+  if (dtype == rtt::kFloat32 && D == 64) return rtt::launch_dq_simt<64>(a, dq);
+  if (dtype == rtt::kFloat32 && D == 128) return rtt::launch_dq_simt<128>(a, dq);
   return cudaErrorInvalidValue;
 }
 

@@ -1,4 +1,5 @@
-// Hopper (sm_90a) building blocks of the tensor-core attention kernels:
+// Hopper (sm_90a) building blocks of the tensor-core attention kernels (the
+// int8 matmul borrows the cp.async copies and the bf16 packing):
 // 16-byte cp.async copies into shared memory laid out in the 128-byte swizzle
 // that wgmma descriptors read, the descriptors themselves, and the
 // wgmma.mma_async products in raw PTX (no CUTLASS: a build stays seconds).

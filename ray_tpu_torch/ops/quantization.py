@@ -19,7 +19,13 @@ one multiply per output next to the weight stream.
 
 Dispatch: a tensor on the CPU goes to the plain PyTorch version
 (:func:`_int8_matmul_plain`); any other tensor launches the CUDA kernel or
-raises. The wrapper counts its kernel launches in ``int8_matmul.launches``.
+raises. The kernel has two routes, chosen by :func:`matmul_route` from x's
+dtype and the shape alone: ``"mma_bf16"`` (bf16 x with N % 16 == 0 and
+K % 8 == 0, decode and prefill alike: the weights converted in registers as
+the tensor cores' A operand) and ``"simt"`` (f32 x, whose parity limit rules
+out rounding x to bf16, and ragged bf16 shapes: scalar FMAs). The wrapper
+counts its kernel launches in ``int8_matmul.launches`` and per route in
+``int8_matmul.launches_by_route``.
 """
 
 from __future__ import annotations
@@ -34,9 +40,24 @@ from ray_tpu_torch.ops import _build
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PROTOTYPES = {
-    # x, w, scales, out, M, K, N, x_dtype, stream
-    "int8_matmul": [_P] * 4 + [_I] * 4 + [_P],
+    # x, w, scales, out, M, K, N, x_dtype, route, stream
+    "int8_matmul": [_P] * 4 + [_I] * 5 + [_P],
 }
+
+ROUTES = ("mma_bf16", "simt")
+_ROUTE_CODES = {"simt": 0, "mma_bf16": 1}
+
+
+def matmul_route(dtype: torch.dtype, M: int, K: int, N: int) -> str:
+    """The kernel route of :func:`int8_matmul` for x of ``dtype`` [M, K] and
+    w_q [K, N]: ``"mma_bf16"`` (tensor cores) for bf16 x at any M when the
+    16-byte loads fit (N % 16 == 0, K % 8 == 0), else ``"simt"`` (scalar
+    FMAs; every f32 x). Raises for a dtype no kernel takes."""
+    if dtype == torch.bfloat16:
+        return "mma_bf16" if N % 16 == 0 and K % 8 == 0 else "simt"
+    if dtype == torch.float32:
+        return "simt"
+    raise TypeError(f"the int8 matmul kernel takes float32 or bfloat16 x, got {dtype}")
 
 
 def _lib():
@@ -94,9 +115,13 @@ def int8_matmul(
 
 
 int8_matmul.launches = 0
+int8_matmul.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
-def _int8_matmul_cuda(x, w_q, scales, out_dtype):
+def _int8_matmul_cuda(x, w_q, scales, out_dtype, route=None):
+    """Launches the kernel on the route :func:`matmul_route` gives; ``route``
+    overrides it (measurements only: the kernel refuses what a route does not
+    take)."""
     if x.device.type != "cuda":
         raise RuntimeError(f"the int8 matmul kernel runs on CUDA tensors, got {x.device}")
     for name, t in (("w_q", w_q), ("scales", scales)):
@@ -113,16 +138,21 @@ def _int8_matmul_cuda(x, w_q, scales, out_dtype):
     # result rounded once, as the kernel's epilogue would round it.
     if out_dtype == torch.float32:
         x = x.float()
-    x, w_q = x.contiguous(), w_q.contiguous()
+    x, w_q, scales = x.contiguous(), w_q.contiguous(), scales.contiguous()
     out = torch.empty(M, N, dtype=x.dtype, device=x.device)
     if M == 0 or N == 0:
         return out.to(out_dtype)
+    forced, route = route is not None, route or matmul_route(x.dtype, M, K, N)
+    if not forced and route == "mma_bf16" and any(t.data_ptr() % 16 for t in (x, w_q, scales, out)):
+        route = "simt"  # a view at an odd offset: the narrow loads take it
     err = _lib().int8_matmul(
-        x.data_ptr(), w_q.data_ptr(), scales.contiguous().data_ptr(), out.data_ptr(),
-        M, K, N, _build.dtype_code(x), torch.cuda.current_stream(x.device).cuda_stream,
+        x.data_ptr(), w_q.data_ptr(), scales.data_ptr(), out.data_ptr(),
+        M, K, N, _build.dtype_code(x), _ROUTE_CODES[route],
+        torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check(err, "int8_matmul")
     int8_matmul.launches += 1
+    int8_matmul.launches_by_route[route] += 1
     return out.to(out_dtype)
 
 

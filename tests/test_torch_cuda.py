@@ -9,7 +9,7 @@ imports no JAX, so it also runs where only PyTorch is installed:
     python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
 Tolerances: f32 atol 1e-4 (summation order only), bf16 atol = rtol = 2e-2
-(the tensor-core route of K3 and K5 also rounds P and dS to bf16, as the
+(the tensor-core route of K3, K4 and K5 also rounds P and dS to bf16, as the
 TPU kernels' MXU passes do), lse atol 1e-4.
 The int8 matmul in f32: atol 1e-5 x max|plain| (its K-term sums in another
 order differ by about sqrt(K) * 2^-24 * |partial sums|, which grows with the
@@ -126,7 +126,7 @@ def _moved(fn, before):
 
 @pytest.mark.parametrize("case", list(WGMMA_CASES))
 def test_tensor_core_route_matches_plain(cuda, case):
-    """K3 and K5 on bf16 inputs take the wgmma route and agree with their
+    """K3, K4 and K5 on bf16 inputs take the wgmma route and agree with their
     plain versions; two launches give the same bits; the same inputs in f32
     move only the scalar route's counters."""
     B, H, Tq, Tk, D, causal, window = WGMMA_CASES[case]
@@ -135,6 +135,7 @@ def test_tensor_core_route_matches_plain(cuda, case):
     k, v = (torch.randn(B, H, Tk, D, generator=g, device=cuda).bfloat16() for _ in range(2))
     g_lse = torch.randn(B, H, Tq, generator=g, device=cuda)
     fwd, dkv = tattn.flash_attention_with_lse, tattn.flash_attention_backward_dkv
+    dqk = tattn.flash_attention_backward_dq
 
     before = dict(fwd.launches_by_route)
     o, lse = fwd(q, k, v, None, causal, window)
@@ -155,11 +156,22 @@ def test_tensor_core_route_matches_plain(cuda, case):
     dk2, dv2 = dkv(*args)
     assert torch.equal(dk, dk2) and torch.equal(dv, dv2)  # no atomics
 
-    before = dict(fwd.launches_by_route), dict(dkv.launches_by_route)
+    before = dict(dqk.launches_by_route)
+    dq = dqk(*args)
+    assert _moved(dqk, before) == {"wgmma_bf16": 1}
+    assert dq.dtype == torch.bfloat16 and torch.isfinite(dq).all()
+    torch.testing.assert_close(dq.float(), tattn._bwd_dq_plain(*args).float(), atol=2e-2,
+                               rtol=2e-2)
+    assert torch.equal(dq, dqk(*args))  # each block owns its rows: no atomics
+
+    before = dict(fwd.launches_by_route), dict(dkv.launches_by_route), dict(dqk.launches_by_route)
     qf, kf, vf, gf = (t.float() for t in (q, k, v, g_out))
     of, lsef = fwd(qf, kf, vf, None, causal, window)
-    dkv(qf, kf, vf, gf, lsef, tattn._delta(of, gf, g_lse), D ** -0.5, causal, window)
-    assert _moved(fwd, before[0]) == _moved(dkv, before[1]) == {"simt_f32": 1}
+    argsf = (qf, kf, vf, gf, lsef, tattn._delta(of, gf, g_lse), D ** -0.5, causal, window)
+    dkv(*argsf)
+    dqk(*argsf)
+    assert (_moved(fwd, before[0]) == _moved(dkv, before[1]) == _moved(dqk, before[2])
+            == {"simt_f32": 1})
 
 
 @pytest.mark.parametrize("scale", [0.0, -0.125])
@@ -173,24 +185,57 @@ def test_tensor_core_forward_refuses_non_positive_scale(cuda, scale):
     assert tattn.flash_attention_with_lse.launches_by_route == before
 
 
-@pytest.mark.parametrize("shape", [(8, 1024, 512), (100, 300, 50)], ids=["decode_wk", "ragged"])
+INT8_SHAPES = {  # (M, K, N): the decode and prefill products, the row tiles, ragged edges
+    "decode_wk": (8, 1024, 512), "decode_w2": (8, 4096, 1024), "m1": (1, 1024, 1024),
+    "m16": (16, 1024, 4096), "m63": (63, 1024, 4096), "m64": (64, 1024, 4096),
+    "m65": (65, 1024, 4096), "m200": (200, 1024, 4096), "m32_w2": (32, 4096, 1024),
+    "ragged": (100, 300, 50), "ragged_k": (20, 328, 512), "ragged_n": (20, 256, 1000),
+    # wide outputs: the 8- and 16-byte loads at each row tile (on 132 SMs)
+    "m8_n8448": (8, 256, 8448), "m8_n16896": (8, 256, 16896), "m16_n8448": (16, 256, 8448),
+    "m16_n16896": (16, 256, 16896), "m32_n8448": (32, 256, 8448), "m32_n16896": (32, 256, 16896),
+}
+
+
+@pytest.mark.parametrize("case", list(INT8_SHAPES))
 @pytest.mark.parametrize("dtype,atol,rtol", TOLS)
-def test_int8_matmul_kernel_matches_plain(cuda, shape, dtype, atol, rtol):
-    M, K, N = shape
+def test_int8_matmul_kernel_matches_plain(cuda, case, dtype, atol, rtol):
+    """K6 on the route ``matmul_route`` gives (bf16 with N % 16 == 0 and
+    K % 8 == 0: tensor cores; f32 and ragged shapes: scalar) and, where the
+    wrapper took the tensor cores, on the scalar route too."""
+    M, K, N = INT8_SHAPES[case]
     g = torch.Generator(device=cuda).manual_seed(4)
     x = torch.randn(M, K, generator=g, device=cuda).to(dtype)
     w = torch.randn(K, N, generator=g, device=cuda)
     w[:, 3] = 0  # a zero column: scale 1, int8 zeros
     w_q, scales = tq.quantize_int8(w, axis=0)
-    n = tq.int8_matmul.launches
+    route = tq.matmul_route(dtype, M, K, N)
+    assert route == ("mma_bf16" if dtype == torch.bfloat16 and N % 16 == 0 and K % 8 == 0
+                     else "simt")
+    n, before = tq.int8_matmul.launches, dict(tq.int8_matmul.launches_by_route)
     got = tq.int8_matmul(x, w_q, scales)
     assert tq.int8_matmul.launches == n + 1 and got.dtype == dtype
+    assert _moved(tq.int8_matmul, before) == {route: 1}
     want = tq._int8_matmul_plain(x, w_q, scales, dtype)
     if dtype == torch.float32:
         atol = 1e-5 * float(want.abs().max())
-    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
-    assert not got[:, 3].any()
+    outs = [got]
+    if route != "simt":
+        outs.append(tq._int8_matmul_cuda(x, w_q, scales.reshape(N), dtype, route="simt"))
+    for y in outs:
+        torch.testing.assert_close(y.float(), want.float(), atol=atol, rtol=rtol)
+        assert not y[:, 3].any()
     assert torch.equal(got, tq.int8_matmul(x, w_q, scales))  # no atomics
+
+
+def test_int8_matmul_kernel_refuses_a_route_that_does_not_take_the_input(cuda):
+    """No fallback inside the kernel: f32 x forced onto the tensor-core route
+    raises instead of launching."""
+    x = torch.randn(8, 64, device=cuda)
+    w_q, s = tq.quantize_int8(torch.randn(64, 32, device=cuda), axis=0)
+    n = tq.int8_matmul.launches
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        tq._int8_matmul_cuda(x, w_q, s.reshape(-1), torch.float32, route="mma_bf16")
+    assert tq.int8_matmul.launches == n
 
 
 def test_train_step_on_gpu_matches_cpu(cuda):
@@ -221,9 +266,9 @@ def test_train_step_on_gpu_matches_cpu(cuda):
 
 
 def test_bf16_train_step_matches_dense_attention_on_gpu(cuda):
-    """One AdamW step in bf16 activations through K3 and K5 on the tensor
-    cores (and K4) against the same step with the einsum attention on the
-    card: loss atol 2e-2 (bf16 activations; P and dS rounded to bf16)."""
+    """One AdamW step in bf16 activations through K3, K4 and K5 on the tensor
+    cores against the same step with the einsum attention on the card: loss
+    atol 2e-2 (bf16 activations; P and dS rounded to bf16)."""
     import dataclasses
 
     from ray_tpu_torch.models import transformer as ttr
@@ -233,17 +278,18 @@ def test_bf16_train_step_matches_dense_attention_on_gpu(cuda):
     params = ttr.init_params(cfg, torch.Generator().manual_seed(5))
     tokens = torch.randint(0, 97, (2, 77), generator=torch.Generator().manual_seed(6)).to(cuda)
     fwd, dkv = tattn.flash_attention_with_lse, tattn.flash_attention_backward_dkv
+    dqk = tattn.flash_attention_backward_dq
     loss = {}
     for attention in ("flash", "dense"):
         _, train_step = ttr.make_train_step(dataclasses.replace(cfg, attention=attention),
                                              device=cuda)
         state = ttr.new_train_state(
             ttr._rebuild(params, [t.to(cuda, copy=True) for t in ttr._leaves(params)]))
-        before = dict(fwd.launches_by_route), dict(dkv.launches_by_route)
+        before = [dict(f.launches_by_route) for f in (fwd, dkv, dqk)]
         state, loss[attention] = train_step(state, tokens)
-        moved = _moved(fwd, before[0]), _moved(dkv, before[1])
-        assert moved == (({"wgmma_bf16": 4}, {"wgmma_bf16": 2}) if attention == "flash"
-                         else ({}, {}))  # K3 again in the recompute
+        moved = tuple(_moved(f, b) for f, b in zip((fwd, dkv, dqk), before))
+        assert moved == (({"wgmma_bf16": 4}, {"wgmma_bf16": 2}, {"wgmma_bf16": 2})
+                         if attention == "flash" else ({}, {}, {}))  # K3 again in the recompute
         assert torch.isfinite(loss[attention])
     assert abs(float(loss["flash"]) - float(loss["dense"])) <= 2e-2
 
@@ -272,3 +318,18 @@ def test_engine_on_gpu_matches_engine_on_cpu(cuda, cache_kind, quantize):
             eng.shutdown()
         assert (tq.int8_matmul.launches > n) == (quantize and dev == "cuda")
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("target", ["dq", "int8"])
+def test_variant_probe_builds_checks_and_times_the_source_as_it_stands(cuda, target, capsys):
+    """``python -m ray_tpu_torch.ops.variant_probe <target> base:`` builds the
+    source, holds it against the plain version and prints timed lines."""
+    import json
+
+    from ray_tpu_torch.ops import variant_probe as vp
+
+    assert vp.main([target, "base:"]) == 0
+    lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
+    assert lines and not [ln for ln in lines if "failed" in ln]
+    assert all(ln["variant"] == "base" and ln["card"] for ln in lines)
+    assert all(ln.get("ms", ln.get("cold_ms")) > 0 for ln in lines)

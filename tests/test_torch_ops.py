@@ -203,8 +203,9 @@ def test_unused_lse_folds_away_and_gqa_sums_group_grads():
 @pytest.mark.parametrize("head_dim", [64, 128])
 @pytest.mark.parametrize("dtype,route", [(torch.bfloat16, "wgmma_bf16"), (torch.float32, "simt_f32")])
 def test_kernel_route_by_dtype_and_head_dim(dtype, route, head_dim):
-    """bf16 goes to the tensor-core kernels, f32 to the scalar ones; the
-    head dimension only has to be one the kernels take."""
+    """bf16 goes to the tensor-core kernels (forward, dq and dk/dv alike),
+    f32 to the scalar ones; the head dimension only has to be one the kernels
+    take."""
     assert tattn.kernel_route(dtype, head_dim) == route
     assert route in tattn.ROUTES
 
@@ -224,7 +225,7 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
                 tattn.flash_attention_with_lse, tattn.flash_attention_backward_dq,
                 tattn.flash_attention_backward_dkv)
     before = [c.launches for c in counters]
-    routes = [dict(c.launches_by_route) for c in counters[2:5:2]]
+    routes = [dict(c.launches_by_route) for c in counters[2:]]
     forced = tdec.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt), _t(lengths),
                                          use_kernel=True)
     plain = tdec.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt), _t(lengths),
@@ -234,4 +235,40 @@ def test_cpu_tensors_take_the_plain_version_and_count_no_launch():
     tattn.flash_attention(x, x, x, use_kernel=True).sum().backward()
     tdec.decode_attention(x[:, :, 0], x, x, torch.tensor([3]))
     assert [c.launches for c in counters] == before
-    assert [c.launches_by_route for c in counters[2:5:2]] == routes
+    assert [c.launches_by_route for c in counters[2:]] == routes
+
+
+@pytest.mark.parametrize("fn", ["flash_attention_with_lse", "flash_attention_backward_dq",
+                                "flash_attention_backward_dkv"])
+def test_every_flash_wrapper_counts_launches_by_route(fn):
+    """K3, K4 and K5 each keep one counter per route of ``kernel_route``."""
+    assert set(getattr(tattn, fn).launches_by_route) == set(tattn.ROUTES)
+
+
+@pytest.mark.parametrize("which", ["dq", "dkv"])
+def test_backward_kernels_refuse_cpu_tensors(which):
+    """The kernel wrappers launch or raise: a CPU tensor never reaches a
+    launch (the Function takes the plain version before it gets there) and no
+    counter moves."""
+    fn = getattr(tattn, f"flash_attention_backward_{which}")
+    q = torch.randn(1, 2, 8, 64)
+    lse = torch.zeros(1, 2, 8)
+    before = fn.launches, dict(fn.launches_by_route)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        fn(q, q, q, q, lse, lse, 0.125, True)
+    assert (fn.launches, fn.launches_by_route) == before
+
+
+def test_variant_probe_parses_definitions_and_refuses_a_bad_call(capsys):
+    """The kernel-variant timing tool: ``name:DEF=V,DEF=V`` arguments, unique
+    names, and a usage error (exit code 2) before it looks for a card."""
+    from ray_tpu_torch.ops import variant_probe as vp
+
+    assert vp.parse_variants(["base:", "deep:STAGES=4,DEFER=1", "bare"]) == {
+        "base": [], "deep": ["STAGES=4", "DEFER=1"], "bare": []}
+    for bad in (["a:", "a:X=1"], [":X=1"]):
+        with pytest.raises(ValueError):
+            vp.parse_variants(bad)
+    assert vp.main(["no_such_kernel", "base:"]) == 2 and vp.main(["dq"]) == 2
+    assert "usage" in capsys.readouterr().err
+    assert set(vp.TARGETS) == {"dq", "int8"}

@@ -89,6 +89,65 @@ def test_int8_matmul_matches_jax_interpret(shape, dtype):
         np.testing.assert_allclose(_np(got), np.asarray(ref, np.float32), rtol=2e-2, atol=2e-1)
 
 
+@pytest.mark.parametrize("M", [16, 64, 65])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_matmul_row_tiles_match_jax_interpret(M, dtype):
+    """The row counts at which the CUDA kernel changes its row tile (16, 64,
+    one past 64), K not a multiple of the JAX k-tile: the plain version
+    against the JAX kernel in interpret mode, tolerances as above."""
+    K, N = 136, 96
+    rng = np.random.default_rng(10 + M)
+    x = rng.standard_normal((M, K)).astype(np.float32)
+    w_q, scales = jq.quantize_int8(jnp.asarray(rng.standard_normal((K, N)), jnp.float32), axis=0)
+    ref = jq.int8_matmul(jnp.asarray(x, getattr(jnp, dtype)), w_q, scales,
+                         block_m=32, block_n=64, block_k=32)
+    n = tq.int8_matmul.launches, dict(tq.int8_matmul.launches_by_route)
+    got = tq.int8_matmul(torch.from_numpy(x).to(getattr(torch, dtype)),
+                         torch.from_numpy(np.array(w_q)), torch.from_numpy(np.array(scales)))
+    assert (tq.int8_matmul.launches, tq.int8_matmul.launches_by_route) == n  # CPU: plain version
+    assert got.dtype == getattr(torch, dtype) and tuple(got.shape) == (M, N)
+    ref = np.asarray(ref, np.float32)
+    tol = (dict(rtol=1e-5, atol=1e-6 * np.abs(ref).max()) if dtype == "float32"
+           else dict(rtol=2e-2, atol=2e-1))
+    np.testing.assert_allclose(_np(got), ref, **tol)
+
+
+@pytest.mark.parametrize("dtype,M,K,N,route", [
+    (torch.bfloat16, 8, 1024, 4096, "mma_bf16"),   # decode
+    (torch.bfloat16, 1, 1024, 512, "mma_bf16"),
+    (torch.bfloat16, 64, 1024, 4096, "mma_bf16"),  # prefill
+    (torch.bfloat16, 200, 4096, 1024, "mma_bf16"),
+    (torch.bfloat16, 20, 328, 512, "mma_bf16"),    # K % 16 != 0 still fits the 16-byte copies
+    (torch.bfloat16, 100, 300, 50, "simt"),        # ragged N and K
+    (torch.bfloat16, 8, 1024, 1000, "simt"),       # N % 16 != 0
+    (torch.bfloat16, 8, 1020, 512, "simt"),        # K % 8 != 0
+    (torch.float32, 8, 1024, 4096, "simt"),        # f32: never rounded to bf16
+    (torch.float32, 64, 1024, 4096, "simt"),
+])
+def test_matmul_route_by_dtype_and_shape(dtype, M, K, N, route):
+    assert tq.matmul_route(dtype, M, K, N) == route
+    assert route in tq.ROUTES and set(tq.int8_matmul.launches_by_route) == set(tq.ROUTES)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64, torch.int8])
+def test_matmul_route_refuses_what_no_kernel_takes(dtype):
+    with pytest.raises(TypeError):
+        tq.matmul_route(dtype, 8, 1024, 1024)
+
+
+def test_int8_matmul_kernel_wrapper_refuses_cpu_tensors():
+    """The kernel wrapper launches or raises; ``int8_matmul`` sends a CPU
+    tensor to the plain version before it gets there."""
+    x = torch.randn(8, 64)
+    w_q, s = tq.quantize_int8(torch.randn(64, 32), axis=0)
+    before = tq.int8_matmul.launches, dict(tq.int8_matmul.launches_by_route)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tq._int8_matmul_cuda(x, w_q, s.reshape(-1), torch.float32)
+    torch.testing.assert_close(tq.int8_matmul(x, w_q, s),
+                               tq._int8_matmul_plain(x, w_q, s.reshape(-1), torch.float32))
+    assert (tq.int8_matmul.launches, tq.int8_matmul.launches_by_route) == before
+
+
 @pytest.mark.parametrize("x_dtype,out_dtype", [("bfloat16", "float32"), ("float32", "bfloat16")])
 def test_int8_matmul_out_dtype_matches_jax(x_dtype, out_dtype):
     rng = np.random.default_rng(3)
