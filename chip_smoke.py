@@ -20,12 +20,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    2e-2: bf16 keeps about 3 digits); K3, K4, K5 and K6 report each route
    (bf16 on the tensor cores, f32 scalar; K6's ragged bf16 shapes scalar
    too) with its errors and check that each input moved only its route's
-   counter; the attention kernels and the int8
-   matmul also run twice and must give the same bits; device times of the
-   kernel, the plain version and (where one PyTorch call computes the same
-   function) that call, and the least time the card could take
-   (``bound_ms``). The int8 matmul is timed on weight copies that together
-   exceed the 50 MB L2, as a decode step finds each layer's weights.
+   counter; every kernel also runs twice and must give the same bits;
+   device times of the kernel, the plain version and (where one PyTorch
+   call computes the same function) that call, and the least time the card
+   could take (``bound_ms``). K1 and K2 run every n_rep (1, 2, 3, 4, 16),
+   D 64 and 128, zero, ragged and clamped lengths, and (K1) a garbage page
+   0 full of NaN, and are timed at three shapes of the serving decoder's
+   cache (``variant_probe.DECODE_SHAPES``, whose cases and input builder
+   they share: a decode step of 8 rows of 64-96 positions, the same at
+   960-1024, and 64 rows at 960-1024) cold (the L2 flushed between calls)
+   and warm, beside the event floor of a trivial kernel. The int8 matmul is
+   timed on weight copies that together exceed the 50 MB L2, as a decode
+   step finds each layer's weights. Also checked: the flash kernels at a
+   negative and a zero scale.
 3. ``forward_parity`` — the 284M serving decoder (``llm_bench`` config:
    vocab 32000, d_model 1024, 16 layers, 16 heads / 8 kv heads, d_ff 4096)
    in f32 activations from a seeded generator: a paged prefill + 4 paged
@@ -39,7 +46,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    concurrent requests (prompt 64, 32 tokens, greedy), then the dense
    engine, then both again with ``quantize=True`` (int8 layer linears);
    launch counters are zeroed just before each run and read just after, and
-   every kernel of the run must have launched.
+   every kernel of the run must have launched; every K6 launch on the
+   tensor cores.
 5. ``train_parity`` — the 602M train-step decoder of ``bench.py`` (vocab
    32000, d_model 2048, 8 layers, 16 heads, d_ff 8192, T 2048), batch 1:
    loss and every gradient leaf through the flash kernels
@@ -60,7 +68,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    from both, with deterministic algorithms on, gives bitwise equal losses.
 7. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
    replaces, launches in the engine and train runs, max error, device ms,
-   plain ms, bound ms and what bounds it, library ms.
+   plain ms, bound ms and what bounds it, library ms; K1/K2 also the event
+   floor and each timed shape.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -116,9 +125,9 @@ def kernel_label(mangled: str) -> str:
             j += 1
         name, i = mangled[j: j + int(mangled[i:j])], j + int(mangled[i:j])
         if name.endswith("_kernel") and mangled.startswith("I", i):
-            args = re.findall(r"Li(\d+)E|^(f)|13(__nv_bfloat16)",
+            args = re.findall(r"Li(\d+)E|^(f)|13(__nv_bfloat16)|(DenseRows|PagedRows)",
                               mangled[i + 1: mangled.find("EEv", i)])
-            args = ["float" if a[1] else a[0] or a[2] for a in args]
+            args = ["float" if a[1] else a[0] or a[2] or a[3] for a in args]
             return f"{name}<{','.join(args)}>"
     return mangled
 
@@ -170,14 +179,18 @@ def is_tensor_core_kernel(name: str) -> bool:
 
 def check_tensor_core_build(ptxas: dict, hgmma) -> None:
     """The tensor-core kernels (K3, K4, K5: wgmma; K6: mma) are all built,
-    spill nothing and run tensor-core instructions; the others run none."""
+    spill nothing and run tensor-core instructions; the others run none. The
+    decode kernels (K1, K2), register-resident by design, spill nothing."""
     tc = [k for k in ptxas if is_tensor_core_kernel(k)]
     for stem in ("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma", "int8_matmul_mma"):
         if not any(stem in k for k in tc):
             raise AssertionError(f"build: no {stem} kernel among {tc}")
-    spilled = {k: ptxas[k] for k in tc if ptxas[k].get("spill_bytes", 1) != 0}
+    decode = [k for k in ptxas if k.startswith("decode_kernel")]
+    if len(decode) != 24:  # f32/bf16 x D 64/128 x R 1/2/4 x dense/paged
+        raise AssertionError(f"build: {len(decode)} decode kernels, want 24: {decode}")
+    spilled = {k: ptxas[k] for k in tc + decode if ptxas[k].get("spill_bytes", 1) != 0}
     if spilled:
-        raise AssertionError(f"build: tensor-core kernels spill: {spilled}")
+        raise AssertionError(f"build: kernels spill: {spilled}")
     if hgmma is not None:
         wrong = {k: n for k, n in hgmma.items() if (n > 0) != is_tensor_core_kernel(k)}
         if wrong or not all(hgmma.get(k) for k in tc):
@@ -187,24 +200,12 @@ def check_tensor_core_build(ptxas: dict, hgmma) -> None:
 # ---------------------------------------------------------------------------
 # timing
 # ---------------------------------------------------------------------------
-def device_ms(fn, reps: int = 25) -> float:
-    """Median device time of one ``fn()`` call. The stream is held busy
-    while all calls are enqueued, so host launch overhead is not counted:
-    each pair of events brackets one call running back to back."""
-    import torch
+def device_ms(fn, reps: int = 25, between=None) -> float:
+    """Median device time of one ``fn()`` call, the stream pre-filled so no
+    host launch cost is counted (``ray_tpu_torch.ops.variant_probe``)."""
+    from ray_tpu_torch.ops.variant_probe import device_ms as timed
 
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    starts = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
-    torch.cuda._sleep(200_000_000)  # ~0.1 s: covers the host's enqueue time
-    for s, e in zip(starts, ends):
-        s.record()
-        fn()
-        e.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in zip(starts, ends))
+    return timed(fn, reps, between)
 
 
 def bound(nbytes: int, flops: int, dtype: str):
@@ -238,123 +239,148 @@ TRAIN_ATTN = (6, 16, 2048, 128)
 # ---------------------------------------------------------------------------
 # kernels
 # ---------------------------------------------------------------------------
-def _paged_case(g, B, H, Hkv, D, bs, M, N, lengths, dtype):
-    import torch
+L2_BYTES = 50 * 2**20
 
-    q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
-    kp = torch.randn(N, bs, Hkv, D, generator=g, device="cuda").to(dtype)
-    vp = torch.randn(N, bs, Hkv, D, generator=g, device="cuda").to(dtype)
-    # shuffled physical placement; entries past each row's length -> page 0
-    perm = torch.randperm(N - 1, generator=g, device="cuda")[: B * M] + 1
-    bt = perm.reshape(B, M).to(torch.int32)
-    lengths = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    used = -(-lengths.long() // bs)
-    bt = torch.where(torch.arange(M, device="cuda")[None, :] < used[:, None], bt, 0)
-    return q, kp, vp, bt.contiguous(), lengths
+
+def check_decode_cases(torch, fn, run, cases: dict, mk) -> dict:
+    """Every case in f32 and bf16: one kernel launch against the plain
+    version, and a second launch bitwise equal. Returns {"case/dtype": max
+    abs err}."""
+    errs = {}
+    for dt in ("float32", "bfloat16"):
+        atol, rtol = TOLS[dt]
+        for name, shape in cases.items():
+            case = mk(*shape, getattr(torch, dt))
+            n = fn.launches
+            got = run(case, None)
+            if fn.launches != n + 1:
+                raise AssertionError(f"{fn.__name__} {name} {dt}: {fn.launches - n} launches")
+            errs[f"{name}/{dt}"] = max_err(got, run(case, False), atol, rtol,
+                                           f"{fn.__name__} {name} {dt}")
+            if not torch.equal(got, run(case, None)):
+                raise AssertionError(f"{fn.__name__} {name} {dt}: two launches gave different bits")
+            del case, got
+    return errs
+
+
+def time_decode(torch, run, case, nbytes: int, flops: int, library=None, plain=None) -> dict:
+    """Device ms of one bf16 shape: cold (the L2 flushed by reading 2x its
+    size between calls, as a decode step finds each layer's cache) and warm
+    (the same inputs back to back), beside the bound; the library call and
+    the plain version where given (warm)."""
+    flush = torch.empty(2 * L2_BYTES // 4, device="cuda")
+    cold = lambda: flush.sum()  # noqa: E731
+    out = dict(kernel_ms=device_ms(lambda: run(case, None), between=cold),
+               warm_kernel_ms=device_ms(lambda: run(case, None)))
+    out["bound_ms"], out["bound_by"] = bound(nbytes, flops, "bfloat16")
+    if library is not None:
+        out["library_ms"] = device_ms(library, between=cold)
+        out["warm_library_ms"] = device_ms(library)
+    if plain is not None:
+        out["plain_ms"] = device_ms(plain)
+    return out
+
+
+def decode_entry(name, source, replaces, shapes, errs, timed, floor_ms, **extra):
+    """A K1/K2 line: ``ms`` at the main shape warm (the same inputs back to
+    back, as the other kernels are timed), with every timed shape (cold and
+    warm) beside it."""
+    main = timed["main"]
+    return dict(name=name, source=source, replaces=replaces, shapes=shapes, errs=errs,
+                max_abs_err=errs["main/bfloat16"],
+                kernel_ms=main["warm_kernel_ms"], cold_ms=main["kernel_ms"],
+                plain_ms=main["plain_ms"], library_ms=main.get("warm_library_ms"),
+                bound=(main["bound_ms"], main["bound_by"]), event_floor_ms=floor_ms,
+                timed_shapes=timed, **extra)
 
 
 def kernel_paged_decode(torch, g):
     from ray_tpu_torch.ops.decode_attention import _paged_decode_plain, paged_decode_attention
+    from ray_tpu_torch.ops.variant_probe import DECODE_SHAPES, decode_cases, decode_inputs
 
     def run(case, use_kernel):
         q, kp, vp, bt, ln = case
         return paged_decode_attention(q, kp, vp, bt, ln, use_kernel=use_kernel)
 
-    B, H, Hkv, D, bs, M = 8, 16, 8, 64, 16, 64
-    N = B * M + 1
-    main_len = torch.randint(64, 97, (B,), generator=g, device="cuda").tolist()
-    cases = {
-        "main": (B, H, Hkv, D, bs, M, N, main_len),
-        "zero_and_ragged": (B, H, Hkv, D, bs, M, N, [0, 1, 15, 16, 17, 1024, 500, 33]),
-        "d128_nrep4": (3, 16, 4, 128, 16, 8, 25, [0, 77, 128]),
-    }
-    errs = {}
+    cases = decode_cases()
+    mk = lambda *shape: decode_inputs(True, *shape, g)  # noqa: E731
+    errs = check_decode_cases(torch, paged_decode_attention, run, cases, mk)
+    # garbage page 0 full of NaN: never read, so the output is finite and
+    # equals the plain version's on the same pool with page 0 zeroed
     for dt in ("float32", "bfloat16"):
-        for name, shape in cases.items():
-            case = _paged_case(g, *shape, dtype=getattr(torch, dt))
-            atol, rtol = TOLS[dt]
-            errs[f"{name}/{dt}"] = max_err(
-                run(case, None), run(case, False), atol, rtol, f"paged_decode {name} {dt}"
-            )
+        q, kp, vp, bt, ln = mk(*cases["main"], getattr(torch, dt))
+        kp[0], vp[0] = float("nan"), float("nan")
+        got = run((q, kp, vp, bt, ln), None)
+        kp[0], vp[0] = 0.0, 0.0
+        errs[f"nan_page0/{dt}"] = max_err(got, run((q, kp, vp, bt, ln), False), *TOLS[dt],
+                                          f"paged_decode nan_page0 {dt}")
     torch.cuda.synchronize()
-    case = _paged_case(g, *cases["main"], dtype=torch.bfloat16)
-    q, kp, vp, bt, ln = case
-    n_tok = int(ln.sum())
-    nbytes = (2 * q.numel() * 2 + n_tok * Hkv * D * 2 * 2 + bt.numel() * 4 + B * 4)
-    flops = 4 * n_tok * H * D
-    scale = D ** -0.5
-    return dict(
-        name="paged_decode_attention",
-        source="ray_tpu_torch/ops/csrc/decode_attention.cu",
-        replaces="ray_tpu/ops/decode_attention.py:158 _paged_decode_kernel "
-                 "(pallas_call at :290)",
-        shapes=f"q[{B},{H},{D}] pages[{N},{bs},{Hkv},{D}] tables[{B},{M}] bf16",
-        errs=errs, max_abs_err=errs["main/bfloat16"],
-        kernel_ms=device_ms(lambda: run(case, None)),
-        plain_ms=device_ms(lambda: _paged_decode_plain(q, kp, vp, bt, ln, scale)),
-        library_ms=None,
-        bound=bound(nbytes, flops, "bfloat16"),
-    )
-
-
-def _dense_case(g, B, H, Hkv, S, D, lengths, dtype):
-    import torch
-
-    q = torch.randn(B, H, D, generator=g, device="cuda").to(dtype)
-    k = torch.randn(B, Hkv, S, D, generator=g, device="cuda").to(dtype)
-    v = torch.randn(B, Hkv, S, D, generator=g, device="cuda").to(dtype)
-    return q, k, v, torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    timed = {}
+    for name in DECODE_SHAPES:
+        case = mk(*cases[name], torch.bfloat16)
+        q, kp, vp, bt, ln = case
+        (B, H, D), (_, bs, Hkv, _) = q.shape, kp.shape
+        n_tok = int(ln.sum())
+        pages = int((-(-ln.long() // bs)).sum())  # table entries a launch needs
+        nbytes = 2 * q.numel() * 2 + n_tok * Hkv * D * 2 * 2 + pages * 4 + B * 4
+        timed[name] = time_decode(
+            torch, run, case, nbytes, 4 * n_tok * H * D,
+            plain=lambda: _paged_decode_plain(q, kp, vp, bt, ln, D ** -0.5))
+        timed[name]["shape"] = f"q[{B},{H},{D}] pages[{kp.shape[0]},{bs},{Hkv},{D}] " \
+                               f"tables[{B},{bt.shape[1]}] lengths " \
+                               f"{min(ln.tolist())}-{max(ln.tolist())} bf16"
+        del case, q, kp, vp, bt, ln
+    return decode_entry(
+        "paged_decode_attention", "ray_tpu_torch/ops/csrc/decode_attention.cu",
+        "ray_tpu/ops/decode_attention.py:158 _paged_decode_kernel (pallas_call at :290)",
+        timed["main"]["shape"], errs, timed, event_floor(torch))
 
 
 def kernel_dense_decode(torch, g):
     import torch.nn.functional as F
 
     from ray_tpu_torch.ops.decode_attention import _decode_plain, decode_attention
+    from ray_tpu_torch.ops.variant_probe import DECODE_SHAPES, decode_cases, decode_inputs
 
     def run(case, use_kernel):
         q, k, v, ln = case
         return decode_attention(q, k, v, ln, use_kernel=use_kernel)
 
-    B, H, Hkv, S, D = 8, 16, 8, 1024, 64
-    main_len = torch.randint(64, 97, (B,), generator=g, device="cuda").tolist()
-    cases = {
-        "main": (B, H, Hkv, S, D, main_len),
-        "zero_and_ragged": (B, H, Hkv, S, D, [0, 1, 63, 64, 65, 1000, 1024, 7]),
-        "s_not_tile_multiple": (4, H, Hkv, 1000, D, [1000, 999, 0, 531]),
-        "d128_nrep4": (3, 16, 4, 300, 128, [0, 77, 300]),
-    }
-    errs = {}
-    for dt in ("float32", "bfloat16"):
-        for name, shape in cases.items():
-            case = _dense_case(g, *shape, dtype=getattr(torch, dt))
-            atol, rtol = TOLS[dt]
-            errs[f"{name}/{dt}"] = max_err(
-                run(case, None), run(case, False), atol, rtol, f"decode {name} {dt}"
-            )
-    case = _dense_case(g, *cases["main"], dtype=torch.bfloat16)
-    q, k, v, ln = case
-    n_tok = int(ln.sum())
-    nbytes = 2 * q.numel() * 2 + n_tok * Hkv * D * 2 * 2 + B * 4
-    flops = 4 * n_tok * H * D
-    scale = D ** -0.5
-    # the yardstick: one SDPA call over the same cache, lengths as a mask
-    mask = (torch.arange(S, device="cuda")[None, :] < ln[:, None])[:, None, None, :]
-    q4 = q[:, :, None, :]
-    kr = k.repeat_interleave(H // Hkv, dim=1)
-    vr = v.repeat_interleave(H // Hkv, dim=1)
-    lib = device_ms(lambda: F.scaled_dot_product_attention(q4, kr, vr, attn_mask=mask))
-    return dict(
-        name="decode_attention",
-        source="ray_tpu_torch/ops/csrc/decode_attention.cu",
-        replaces="ray_tpu/ops/decode_attention.py:47 _decode_kernel (pallas_call at :134)",
-        shapes=f"q[{B},{H},{D}] k/v[{B},{Hkv},{S},{D}] bf16",
-        errs=errs, max_abs_err=errs["main/bfloat16"],
-        kernel_ms=device_ms(lambda: run(case, None)),
-        plain_ms=device_ms(lambda: _decode_plain(q, k, v, ln, scale)),
-        library_ms=lib,
-        library_call="scaled_dot_product_attention(q, k/v repeated to H heads, attn_mask)",
-        bound=bound(nbytes, flops, "bfloat16"),
-    )
+    cases = decode_cases()
+    mk = lambda *shape: decode_inputs(False, *shape, g)  # noqa: E731
+    errs = check_decode_cases(torch, decode_attention, run, cases, mk)
+    timed = {}
+    for name in DECODE_SHAPES:
+        case = mk(*cases[name], torch.bfloat16)
+        q, k, v, ln = case
+        (B, H, D), Hkv = q.shape, k.shape[1]
+        n_tok = int(ln.sum())
+        nbytes = 2 * q.numel() * 2 + n_tok * Hkv * D * 2 * 2 + B * 4
+        # the yardstick: one SDPA call over the same cache, lengths as a mask;
+        # it reads K/V repeated to the H query heads, twice the bytes
+        mask = (torch.arange(k.shape[2], device="cuda")[None, :] < ln[:, None])[:, None, None, :]
+        q4 = q[:, :, None, :]
+        kr = k.repeat_interleave(H // Hkv, dim=1)
+        vr = v.repeat_interleave(H // Hkv, dim=1)
+        timed[name] = time_decode(
+            torch, run, case, nbytes, 4 * n_tok * H * D,
+            library=lambda: F.scaled_dot_product_attention(q4, kr, vr, attn_mask=mask),
+            plain=lambda: _decode_plain(q, k, v, ln, D ** -0.5))
+        timed[name]["shape"] = f"q[{B},{H},{D}] k/v[{B},{Hkv},{k.shape[2]},{D}] lengths " \
+                               f"{min(ln.tolist())}-{max(ln.tolist())} bf16"
+        del case, q, k, v, ln, kr, vr, mask, q4
+    return decode_entry(
+        "decode_attention", "ray_tpu_torch/ops/csrc/decode_attention.cu",
+        "ray_tpu/ops/decode_attention.py:47 _decode_kernel (pallas_call at :134)",
+        timed["main"]["shape"], errs, timed, event_floor(torch),
+        library_call="scaled_dot_product_attention(q, k/v repeated to H heads, attn_mask): "
+                     "reads twice the K/V bytes")
+
+
+def event_floor(torch) -> float:
+    """The event-timed floor of a trivial kernel under ``device_ms``."""
+    z = torch.zeros(1, device="cuda")
+    return device_ms(lambda: z.add_(1))
 
 
 ROUTE_OF = {"bfloat16": "wgmma_bf16", "float32": "simt_f32"}
@@ -400,19 +426,24 @@ def kernel_flash_forward(torch, g):
         "d128": (1, 8, 77, 77, 128, True, None),
         "t1024_d128": (1, 2, 1024, 1024, 128, True, None),
         "train_shape": (*TRAIN_ATTN[:3], TRAIN_ATTN[2], TRAIN_ATTN[3], True, None),
+        # any scale: a negative one flips Q's sign in the bf16 kernel
+        "negative_scale": (2, 4, 77, 77, 64, True, None, -0.125),
+        "zero_scale": (2, 4, 77, 77, 128, False, 16, 0.0),
     }
     errs = {}
     for dt in ("float32", "bfloat16"):
         atol, rtol = TOLS[dt]
-        for name, (B, H, Tq, Tk, D, causal, window) in cases.items():
+        for name, (B, H, Tq, Tk, D, causal, window, *scale) in cases.items():
+            scale = scale[0] if scale else None
             q, k, v = mk(B, H, Tq, Tk, D, getattr(torch, dt))
             before = dict(flash_attention_with_lse.launches_by_route)
-            o_k, lse_k = flash_attention_with_lse(q, k, v, None, causal, window)
-            o_p, lse_p = flash_attention_with_lse(q, k, v, None, causal, window, use_kernel=False)
+            o_k, lse_k = flash_attention_with_lse(q, k, v, scale, causal, window=window)
+            o_p, lse_p = flash_attention_with_lse(q, k, v, scale, causal, window=window,
+                                                  use_kernel=False)
             errs[f"{name}/{dt}"] = max_err(o_k, o_p, atol, rtol, f"flash {name} {dt}")
             max_err(lse_k, lse_p, 1e-4, 1e-5, f"flash lse {name} {dt}")
             check_route(flash_attention_with_lse, before, dt, f"flash {name}")
-            o_2, lse_2 = flash_attention_with_lse(q, k, v, None, causal, window)
+            o_2, lse_2 = flash_attention_with_lse(q, k, v, scale, causal, window=window)
             if not (torch.equal(o_k, o_2) and torch.equal(lse_k, lse_2)):
                 raise AssertionError(f"flash {name} {dt}: two launches gave different bits")
             del q, k, v, o_k, lse_k, o_p, lse_p, o_2, lse_2
@@ -453,13 +484,14 @@ def kernel_flash_backward(torch, g):
 
     from ray_tpu_torch.ops import attention as A
 
-    def mk(B, H, Tq, Tk, D, causal, window, dtype):
+    def mk(B, H, Tq, Tk, D, causal, window, *scale, dtype):
+        scale = scale[0] if scale else D ** -0.5
         q, g_out = (torch.randn(B, H, Tq, D, generator=g, device="cuda").to(dtype)
                     for _ in range(2))
         k, v = (torch.randn(B, H, Tk, D, generator=g, device="cuda").to(dtype) for _ in range(2))
         g_lse = torch.randn(B, H, Tq, generator=g, device="cuda")
-        out, lse = A.flash_attention_with_lse(q, k, v, None, causal, window)
-        return (q, k, v, g_out, lse, A._delta(out, g_out, g_lse), D ** -0.5, causal, window)
+        out, lse = A.flash_attention_with_lse(q, k, v, scale, causal, window=window)
+        return (q, k, v, g_out, lse, A._delta(out, g_out, g_lse), scale, causal, window)
 
     cases = {  # (B, H, Tq, Tk, D, causal, window)
         "main": (*TRAIN_ATTN[:3], TRAIN_ATTN[2], TRAIN_ATTN[3], True, None),
@@ -472,12 +504,15 @@ def kernel_flash_backward(torch, g):
         "t1024_d128": (1, 2, 1024, 1024, 128, True, None),
         "window_causal_d128": (1, 4, 200, 200, 128, True, 16),
         "noncausal_d128_tq_ne_tk": (1, 2, 300, 130, 128, False, None),
+        # the lse of a forward at any scale (a negative one flips Q's sign there)
+        "negative_scale": (2, 4, 77, 77, 64, True, None, -0.125),
+        "zero_scale": (2, 4, 77, 77, 128, False, 16, 0.0),
     }
     errs = {"dq": {}, "dkv": {}}
     for dt in ("float32", "bfloat16"):
         atol, rtol = TOLS[dt]
         for name, shape in cases.items():
-            a = mk(*shape, getattr(torch, dt))
+            a = mk(*shape, dtype=getattr(torch, dt))
             before = dict(A.flash_attention_backward_dq.launches_by_route)
             dq = A.flash_attention_backward_dq(*a)
             check_route(A.flash_attention_backward_dq, before, dt, f"backward dq {name}")
@@ -497,7 +532,7 @@ def kernel_flash_backward(torch, g):
                 raise AssertionError(f"backward {what}: two launches gave different bits")
             del a, dq, dk, dv, dq_p, dk_p, dv_p, dk2, dv2
     B, H, T, D = TRAIN_ATTN
-    a = mk(B, H, T, T, D, True, None, torch.bfloat16)
+    a = mk(B, H, T, T, D, True, None, dtype=torch.bfloat16)
     q, k, v, g_out = a[:4]
     # the yardstick: the backward of one SDPA call on the same q, k, v
     ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
@@ -535,7 +570,6 @@ def kernel_flash_backward(torch, g):
 K6_DECODE = {"wq": (8, 1024, 1024), "wk": (8, 1024, 512), "w1": (8, 1024, 4096),
              "w2": (8, 4096, 1024)}
 K6_PER_LAYER = {"wq": 1, "wk": 2, "w1": 2, "w2": 1}
-L2_BYTES = 50 * 2**20
 
 
 def kernel_int8_matmul(torch, g, n_layers: int = 16):
@@ -649,8 +683,7 @@ def kernel_int8_matmul(torch, g, n_layers: int = 16):
     # the weight-streaming rate on 128 MB of int8 weights (decode rows), and
     # the event-timed floor of a trivial kernel under device_ms
     stream = measure(8, 4096, 32768, library=False)
-    z = torch.zeros(1, device="cuda")
-    floor_ms = device_ms(lambda: z.add_(1))
+    floor_ms = event_floor(torch)
     step_ms = n_layers * sum(c * per_shape[k]["kernel_ms"] for k, c in K6_PER_LAYER.items())
     step_bound = n_layers * sum(c * per_shape[k]["bound"][0] for k, c in K6_PER_LAYER.items())
     M, K, N = K6_DECODE["w1"]
@@ -1205,6 +1238,8 @@ def main(argv=None) -> int:
         # the K3 entry's ms/bound are its serving prefill shape; train_* keys
         # hold the same numbers at the train step's shape. K6's are its w1
         # decode shape, with prefill_* at a prompt-64 prefill beside them.
+        # K1's and K2's are the serving decode shape, warm, with each timed
+        # shape (main, long, wide) cold and warm in timed_shapes.
         emit({"kernels": [
             {"name": n, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
              "launches": launches.get(n), "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
@@ -1212,6 +1247,8 @@ def main(argv=None) -> int:
              "library_ms": r["library_ms"],
              **{k: x for k, x in r.items()
                 if k.startswith(("train_", "prefill_")) and not k.endswith("_shape")},
+             # K1/K2: the event floor, the main shape cold, every timed shape
+             **{k: r[k] for k in ("event_floor_ms", "cold_ms", "timed_shapes") if k in r},
              # K3-K6: each route's worst error and its launches on the main path
              **({"by_route": {rt: {**e, "launches": by_route.get(n, {}).get(rt)}
                               for rt, e in r["by_route"].items()}} if "by_route" in r else {})}

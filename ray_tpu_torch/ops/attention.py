@@ -129,8 +129,6 @@ def _flash_forward_kernel(q, k, v, scale: float, causal: bool, window: Optional[
     out = torch.empty_like(q)
     if route == "wgmma_bf16":
         _check_aligned("flash_attention_forward", q, k, v, out)
-        if not scale > 0:  # the kernel takes each row's max from the unscaled scores
-            raise ValueError(f"flash_attention_forward: bf16 takes a positive scale, got {scale}")
     lse = torch.empty(B, H, Tq, dtype=torch.float32, device=q.device)
     lib = _build.library("attention", _PROTOTYPES)
     err = lib.flash_attention_forward(
@@ -294,6 +292,8 @@ def flash_attention_with_lse(
     v: torch.Tensor,
     sm_scale: Optional[float] = None,
     causal: bool = True,
+    block_q: Optional[int] = None,
+    block_k: Optional[int] = None,
     window: Optional[int] = None,
     *,
     use_kernel: Optional[bool] = None,
@@ -303,9 +303,11 @@ def flash_attention_with_lse(
     q, k, v: [B, H, T, D]. Returns (out [B,H,Tq,D], lse [B,H,Tq] f32); the
     lse makes partial results combinable (ring attention). ``window``:
     key j visible to query i iff j > i - window. Differentiable in q, k, v
-    through both outputs. The TPU driver's ``block_q``/``block_k`` arguments
-    have no counterpart: the kernels' tiles are fixed. ``use_kernel=False``
-    runs the plain versions on any device."""
+    through both outputs. The parameters are the JAX function's, in its
+    order; ``block_q``/``block_k`` (its VMEM tile sizes) are accepted so
+    calls read like the JAX ones and are ignored: the CUDA kernels' tiles
+    are fixed. ``use_kernel=False`` runs the plain versions on any device."""
+    del block_q, block_k
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1, got {window} (0 would mask every key)")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(q.shape[-1])
@@ -317,21 +319,26 @@ flash_attention_with_lse.launches = 0
 flash_attention_with_lse.launches_by_route = dict.fromkeys(ROUTES, 0)
 
 
-def flash_attention(q, k, v, sm_scale: Optional[float] = None, causal: bool = True, *,
+def flash_attention(q, k, v, sm_scale: Optional[float] = None, causal: bool = True,
+                    block_q: Optional[int] = None, block_k: Optional[int] = None, *,
                     use_kernel: Optional[bool] = None):
-    """Blockwise flash attention. q, k, v: [B, H, T, D] -> [B, H, Tq, D]."""
-    return flash_attention_with_lse(q, k, v, sm_scale, causal, use_kernel=use_kernel)[0]
+    """Blockwise flash attention. q, k, v: [B, H, T, D] -> [B, H, Tq, D].
+    ``block_q``/``block_k`` as in :func:`flash_attention_with_lse`."""
+    return flash_attention_with_lse(q, k, v, sm_scale, causal, block_q, block_k,
+                                    use_kernel=use_kernel)[0]
 
 
 def sliding_window_attention(
     q, k, v, window: int, *, sm_scale: Optional[float] = None, causal: bool = True,
+    block_q: Optional[int] = None, block_k: Optional[int] = None,
     use_kernel: Optional[bool] = None,
 ):
     """Local (sliding-window) flash attention: with ``causal=True`` query i
     sees keys in (i - window, i]; with ``causal=False`` the window bounds
-    only the past. Tiles wholly outside the window are skipped."""
+    only the past. Tiles wholly outside the window are skipped.
+    ``block_q``/``block_k`` as in :func:`flash_attention_with_lse`."""
     return flash_attention_with_lse(
-        q, k, v, sm_scale, causal, window, use_kernel=use_kernel
+        q, k, v, sm_scale, causal, block_q, block_k, window, use_kernel=use_kernel
     )[0]
 
 

@@ -21,7 +21,9 @@
 //     zero-filled, never padded in memory;
 //   * S = Q.K^T: wgmma m64n64k16, Q and K from shared memory (D contracted,
 //     contiguous in both). The f32 accumulator is scaled (scale * log2 e) in
-//     f32 -- never Q in bf16, which would move lse past its 1e-4 limit;
+//     f32 -- never Q in bf16, which would move lse past its 1e-4 limit. Any
+//     scale is taken: a negative one flips Q's sign bits in shared memory
+//     (exact), so the row max is always taken on the raw scores;
 //   * online softmax in f32 registers, row max and sum across the 4 lanes
 //     that share an accumulator row. It, not the products, sets the pace
 //     (measured: without it the kernel takes half the time), and it is
@@ -43,6 +45,8 @@
 // whose limits (atol 1e-4) rule out TF32. One block per (b*h, 32-row q-tile),
 // 128 threads, 4 per query row, 32-key f32 tiles in shared memory (~29 KB at
 // D = 64, ~54 KB at D = 128), the same tile skipping and edge rules.
+#include <cfloat>
+
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -235,10 +239,28 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
   }
   tc::cp_async_commit();
 
+  // Scores enter the softmax as s * sl2 (log2 units), and each row's max is
+  // taken on the raw s, which picks the max of the products only for sl2 > 0.
+  // A negative scale flips the sign of Q in shared memory instead (exact in
+  // bf16: s becomes -s); a zero scale becomes the least normal float, which
+  // leaves every visible weight 2^(s * 2^-126 - m) exactly 1 and a masked one 0.
+  float sl2 = scale * kLog2e;
+  if (sl2 < 0.f) {  // the same for every thread of the grid
+    tc::cp_async_wait<0>();
+    __syncthreads();
+    uint4* qw = reinterpret_cast<uint4*>(smem_raw + (q_s - tc::smem_u32(smem_raw)));
+    for (int i = threadIdx.x; i < L::q_bytes / 16; i += NT) {
+      uint4 x = qw[i];
+      x.x ^= 0x80008000u, x.y ^= 0x80008000u, x.z ^= 0x80008000u, x.w ^= 0x80008000u;
+      qw[i] = x;
+    }
+    sl2 = -sl2;  // the loop's fence.proxy.async and barrier publish Q to wgmma
+  }
+  if (sl2 == 0.f) sl2 = FLT_MIN;
+
   // this warpgroup's 64 rows start at r0; this thread holds rows ra, ra + 8
   const int r0 = q0 + wg * 64;
   const int ra = r0 + warp * 16 + lane / 4;
-  const float sl2 = scale * kLog2e;  // scores in log2 units
   float o[D / 2];
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
@@ -284,9 +306,9 @@ flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16*
       }
     }
     // Online softmax, the latency-bound part of the loop (see the top):
-    // p = 2^(s * scale * log2 e - m), one FFMA and one MUFU.EX2 a weight, m
-    // the running row max in the same log2 units (scale > 0, so the max of
-    // the raw scores picks it); the row reductions run as four chains.
+    // p = 2^(s * sl2 - m), one FFMA and one MUFU.EX2 a weight, m the running
+    // row max in the same log2 units (sl2 > 0, so the max of the raw scores
+    // picks it); the row reductions run as four chains.
     float alpha[2], base[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {

@@ -15,15 +15,16 @@ sequence attends over its cache; K/V are read once per GQA group.
 Dispatch: a tensor on the CPU goes to the plain PyTorch version
 (:func:`_decode_plain`, :func:`_paged_decode_plain`); any other tensor
 launches the CUDA kernel or raises. ``use_kernel=False`` asks for the plain
-version on any device (the on-card oracle). Each wrapper counts its kernel
-launches in its ``launches`` attribute.
+version on any device (the on-card oracle). :func:`decode_plan` sets the
+launch from the shapes alone: the query heads a block takes and its warps.
+Each wrapper counts its kernel launches in ``launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -34,11 +35,41 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _PROTOTYPES = {
     # q, k_pages, v_pages, block_tables, lengths, out, B, H, Hkv, D,
-    # block_size, max_blocks, dtype, scale, stream
-    "paged_decode_attention": [_P] * 6 + [_I] * 7 + [ctypes.c_float, _P],
-    # q, k, v, lengths, out, B, H, Hkv, S, D, dtype, scale, stream
-    "decode_attention": [_P] * 5 + [_I] * 6 + [ctypes.c_float, _P],
+    # block_size, max_blocks, dtype, scale, rows_per_pass, warps, stream
+    "paged_decode_attention": [_P] * 6 + [_I] * 7 + [ctypes.c_float] + [_I] * 2 + [_P],
+    # q, k, v, lengths, out, B, H, Hkv, S, D, dtype, scale, rows_per_pass,
+    # warps, stream
+    "decode_attention": [_P] * 5 + [_I] * 6 + [ctypes.c_float] + [_I] * 2 + [_P],
 }
+
+
+
+def max_warps(rows_per_pass: int) -> int:
+    """The most warps a block of the kernel takes (its launch bound: 16 keep
+    a thread at 128 registers, which one or two query rows fit)."""
+    return 16 if rows_per_pass <= 2 else 4
+
+
+def decode_plan(B: int, Hkv: int, n_rep: int, sm_count: int) -> Tuple[int, int]:
+    """(rows_per_pass, warps) of a decode launch, from the shapes alone (the
+    lengths are never read: that would cost a host sync a step). A block
+    takes R = 1, 2 or 4 query heads of its GQA group (the kernel's register
+    width; more heads are more blocks) and one row's positions. Where the
+    B * Hkv * passes blocks fill the SMs, each has 4 warps; else each has
+    the most warps it may."""
+    rows = 1 if n_rep == 1 else 2 if n_rep == 2 else 4
+    blocks = B * Hkv * -(-n_rep // rows)
+    return rows, 4 if blocks >= sm_count else max_warps(rows)
+
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    i = device.index if device.index is not None else torch.cuda.current_device()
+    if i not in _SM_COUNT:
+        _SM_COUNT[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SM_COUNT[i]
 
 
 def _lib():
@@ -57,6 +88,8 @@ def _check_inputs(q, k, v, lengths, D):
         raise ValueError(f"the decode kernel takes head_dim 64 or 128, got {D}")
     if not (k.is_contiguous() and v.is_contiguous()):
         raise ValueError("the KV cache must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):  # rows are read in 16-byte vectors
+        raise ValueError("q and the KV cache must be 16-byte aligned")
 
 
 def _decode_plain(q, k_cache, v_cache, lengths, scale):
@@ -81,21 +114,28 @@ def decode_attention(
     lengths: torch.Tensor,  # [B] int: valid cache entries per sequence
     *,
     sm_scale: Optional[float] = None,
+    block_s: int = 512,
     use_kernel: Optional[bool] = None,
 ) -> torch.Tensor:
-    """Returns [B, H, D] in q's dtype. H must be a multiple of Hkv."""
+    """Returns [B, H, D] in q's dtype. H must be a multiple of Hkv.
+
+    ``block_s`` is the TPU kernel's cache block (VMEM tile) size. It is
+    accepted so calls read like the JAX ones and is ignored: the CUDA kernel
+    picks its own tiles and masks the ragged tail instead of padding."""
+    del block_s
     B, H, D = q.shape
     _, Hkv, S, _ = k_cache.shape
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     if use_kernel is False or q.device.type == "cpu":
         return _decode_plain(q, k_cache, v_cache, lengths, scale).to(q.dtype)
-    _check_inputs(q, k_cache, v_cache, lengths, D)
     q = q.contiguous()
+    _check_inputs(q, k_cache, v_cache, lengths, D)
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    rows, warps = decode_plan(B, Hkv, H // Hkv, _sm_count(q.device))
     err = _lib().decode_attention(
         q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, Hkv, S, D, _build.dtype_code(q), scale,
+        out.data_ptr(), B, H, Hkv, S, D, _build.dtype_code(q), scale, rows, warps,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "decode_attention")
@@ -148,17 +188,18 @@ def paged_decode_attention(
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(D)
     if use_kernel is False or q.device.type == "cpu":
         return _paged_decode_plain(q, k_pages, v_pages, block_tables, lengths, scale).to(q.dtype)
+    q = q.contiguous()
     _check_inputs(q, k_pages, v_pages, lengths, D)
     if block_tables.device != q.device:
         raise ValueError(f"block_tables is on {block_tables.device}, q on {q.device}")
-    q = q.contiguous()
     block_tables = block_tables.to(torch.int32).contiguous()
     lengths = lengths.to(torch.int32).contiguous()
     out = torch.empty_like(q)
+    rows, warps = decode_plan(B, Hkv, H // Hkv, _sm_count(q.device))
     err = _lib().paged_decode_attention(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), block_tables.data_ptr(),
         lengths.data_ptr(), out.data_ptr(), B, H, Hkv, D, bs, M, _build.dtype_code(q),
-        scale, torch.cuda.current_stream(q.device).cuda_stream,
+        scale, rows, warps, torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(err, "paged_decode_attention")
     paged_decode_attention.launches += 1

@@ -8,6 +8,7 @@ clocks and inputs::
 
     python -m ray_tpu_torch.ops.variant_probe dq base: deep:STAGES=4,DEFER=1
     python -m ray_tpu_torch.ops.variant_probe int8 base: nosplit:FORCE1=1
+    python -m ray_tpu_torch.ops.variant_probe paged base: alt:X=1
 
 Each argument after the target is ``name:DEF=VALUE,DEF=VALUE`` (no
 definitions: the source as it stands). All variants compile in parallel, one
@@ -20,8 +21,15 @@ launch cost is not counted). The int8 matmul is timed cold (each call on the
 next of several weight copies that together exceed the L2) and warm. One JSON
 line a variant and shape, each with the card's name and power limit.
 
-Targets: ``dq`` (``attention_bwd.cu::flash_attention_backward_dq``, bf16) and
-``int8`` (``int8_matmul.cu::int8_matmul``, bf16 x on the tensor-core route).
+Targets: ``dq`` (``attention_bwd.cu::flash_attention_backward_dq``, bf16),
+``int8`` (``int8_matmul.cu::int8_matmul``, bf16 x on the tensor-core route),
+``paged`` and ``dense`` (``decode_attention.cu::paged_decode_attention`` and
+``::decode_attention``: checked in f32 and bf16 on every case of
+:func:`decode_cases` at each of ``DECODE_WARPS`` warps a block, timed in
+bf16 at the serving step, the full context and batch 64 at each, cold and
+warm). Every variant's first line gives its most registers and spilled
+bytes. The decode shapes, their input builder and :func:`device_ms` are
+also what ``chip_smoke.py`` and the card tests use.
 The switches themselves are not kept in the sources once a design is chosen:
 PERF.md records which were tried and what each measured.
 """
@@ -32,6 +40,8 @@ import ctypes
 import itertools
 import json
 import os
+import random
+import re
 import statistics
 import subprocess
 import sys
@@ -78,8 +88,12 @@ def parse_variants(args: List[str]) -> Dict[str, List[str]]:
     return out
 
 
-def device_ms(fn, reps: int = 25) -> float:
-    """Median device time of one ``fn()`` call (see ``chip_smoke.py``)."""
+def device_ms(fn, reps: int = 25, between=None) -> float:
+    """Median device time of one ``fn()`` call. The stream is held busy
+    while all calls are enqueued, so host launch overhead is not counted:
+    each pair of events brackets one call running back to back.
+    ``between()``, where given, runs before each call outside its events
+    (an L2 flush)."""
     import torch
 
     for _ in range(3):
@@ -89,6 +103,8 @@ def device_ms(fn, reps: int = 25) -> float:
     ends = [torch.cuda.Event(enable_timing=True) for _ in range(reps)]
     torch.cuda._sleep(200_000_000)  # ~0.1 s: covers the host's enqueue time
     for s, e in zip(starts, ends):
+        if between is not None:
+            between()
         s.record()
         fn()
         e.record()
@@ -111,6 +127,15 @@ def build_variants(source: str, variants: Dict[str, List[str]], out_dir: str):
         logs[name], _ = proc.communicate()
         libs[name] = lib if proc.returncode == 0 else None
     return libs, logs
+
+
+def build_report(log: str) -> dict:
+    """Most registers of any kernel and spilled bytes of all, from nvcc's
+    ``-Xptxas -v`` output."""
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    spills = sum(int(a) + int(b) for a, b in
+                 re.findall(r"(\d+) bytes spill stores, (\d+) bytes spill loads", log))
+    return {"max_registers": max(regs, default=0), "spill_bytes": spills}
 
 
 def _check(got, want, what: str) -> None:
@@ -139,7 +164,7 @@ def probe_dq(libs: Dict[str, ctypes.CDLL], emit) -> None:
         q, go = (torch.randn(B, H, Tq, D, generator=g, device="cuda").bfloat16() for _ in range(2))
         k, v = (torch.randn(B, H, Tk, D, generator=g, device="cuda").bfloat16() for _ in range(2))
         g_lse = torch.randn(B, H, Tq, generator=g, device="cuda")
-        out, lse = A.flash_attention_with_lse(q, k, v, None, causal, window)
+        out, lse = A.flash_attention_with_lse(q, k, v, None, causal, window=window)
         return (q, k, v, go, lse, A._delta(out, go, g_lse), D ** -0.5, causal, window)
 
     def call(lib, a):
@@ -172,6 +197,145 @@ def probe_dq(libs: Dict[str, ctypes.CDLL], emit) -> None:
             for n in DQ_TIMED:
                 emit({"variant": name, "round": rnd, "shape": n,
                       "ms": device_ms(lambda: call(lib, args[n]))})
+
+
+# decode attention (K1 paged, K2 dense), shared with chip_smoke.py and the
+# tests: the llm_bench decoder's heads (16 query, 8 kv, head_dim 64) and cache
+# (pages of 16; its max_seq_len 1024 is 64 pages a row, or dense S) at a
+# serving decode step (main), at the full context (long) and at batch 64
+# (wide); (B, shortest length, longest length, table width)
+DECODE_SHAPES = {"main": (8, 64, 96, 1024), "long": (8, 960, 1024, 1024),
+                 "wide": (64, 960, 1024, 1024)}
+# correctness cases beside them, (B, H, Hkv, D, table width, lengths): every
+# n_rep at D 64 and 128, zero, ragged and clamped lengths (past the width),
+# rows far shorter than the table, a width of 63 pages
+DECODE_CASES = {
+    "zero_and_ragged": (8, 16, 8, 64, 1024, [0, 1, 15, 16, 17, 1024, 500, 33]),
+    "clamped": (4, 16, 8, 64, 112, [113, 5000, 112, 63]),
+    "short_rows": (2, 16, 8, 64, 1024, [3, 40]),
+    "odd_width": (4, 16, 8, 64, 1008, [1008, 999, 0, 531]),
+    "nrep1": (4, 8, 8, 64, 256, [1, 100, 256, 37]),
+    "nrep1_d128": (4, 8, 8, 128, 256, [1, 100, 256, 37]),
+    "nrep3": (3, 24, 8, 64, 256, [256, 3, 130]),
+    "nrep3_d128": (3, 24, 8, 128, 256, [256, 3, 130]),
+    "nrep4_d128": (3, 16, 4, 128, 128, [0, 77, 128]),
+    "nrep16": (2, 32, 2, 64, 512, [512, 300]),
+    "nrep16_d128": (2, 32, 2, 128, 512, [512, 300]),
+}
+DECODE_BLOCK_SIZE = 16
+# warps a block, timed at each shape
+DECODE_WARPS = (4, 8, 16)
+
+
+def decode_cases(seed: int = 0) -> Dict[str, tuple]:
+    """Every decode case as (B, H, Hkv, D, table width, lengths): the timed
+    shapes, their lengths drawn from ``seed``, then ``DECODE_CASES``."""
+    rng = random.Random(seed)
+    timed = {n: (B, 16, 8, 64, w, [rng.randint(lo, hi) for _ in range(B)])
+             for n, (B, lo, hi, w) in DECODE_SHAPES.items()}
+    return {**timed, **DECODE_CASES}
+
+
+def decode_inputs(paged: bool, B, H, Hkv, D, width, lengths, dtype, g):
+    """Inputs of one decode call on ``g``'s device: (q, k, v, lengths) for
+    the dense cache [B, Hkv, width, D], (q, k_pages, v_pages, tables,
+    lengths) for a pool of B * width / 16 + 1 pages of 16, each row's at
+    shuffled places and its table entries past its length on the garbage
+    page 0."""
+    import torch
+
+    dev = g.device
+    q = torch.randn(B, H, D, generator=g, device=dev).to(dtype)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    if not paged:
+        k, v = (torch.randn(B, Hkv, width, D, generator=g, device=dev).to(dtype)
+                for _ in range(2))
+        return q, k, v, ln
+    bs = DECODE_BLOCK_SIZE
+    M = width // bs
+    N = B * M + 1
+    k, v = (torch.randn(N, bs, Hkv, D, generator=g, device=dev).to(dtype) for _ in range(2))
+    tables = (torch.randperm(N - 1, generator=g, device=dev) + 1).reshape(B, M).int()
+    used = -(-ln.long() // bs)
+    tables = torch.where(torch.arange(M, device=dev)[None, :] < used[:, None], tables, 0)
+    return q, k, v, tables.contiguous(), ln
+
+
+def probe_decode(paged: bool, libs: Dict[str, ctypes.CDLL], emit) -> None:
+    """Each variant against the plain version (f32 and bf16, every case and
+    timed shape, at each of ``DECODE_WARPS``), then timed in bf16 at each
+    timed shape and warps, cold (the L2 flushed by reading 2x its size
+    between calls) and warm."""
+    import torch
+
+    from ray_tpu_torch.ops import decode_attention as A
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    sms = A._sm_count(torch.device("cuda"))
+    fn = "paged_decode_attention" if paged else "decode_attention"
+
+    def call(lib, a, warps):
+        q, k, v = a[:3]
+        ln = a[-1]
+        B, H, D = q.shape
+        Hkv = k.shape[2] if paged else k.shape[1]
+        rows = A.decode_plan(B, Hkv, H // Hkv, sms)[0]
+        warps = min(warps, A.max_warps(rows))
+        out = torch.empty_like(q)
+        code = _build.dtype_code(q)
+        if paged:
+            tables = a[3]
+            err = lib.paged_decode_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), tables.data_ptr(), ln.data_ptr(),
+                out.data_ptr(), B, H, Hkv, D, k.shape[1], tables.shape[1], code, D ** -0.5,
+                rows, warps, _stream())
+        else:
+            err = lib.decode_attention(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), ln.data_ptr(), out.data_ptr(), B, H,
+                Hkv, k.shape[2], D, code, D ** -0.5, rows, warps, _stream())
+        _build.check(err, fn)
+        return out
+
+    def plain(a):
+        if paged:
+            q, k, v, tables, ln = a
+            return A._paged_decode_plain(q, k, v, tables, ln, q.shape[-1] ** -0.5)
+        q, k, v, ln = a
+        return A._decode_plain(q, k, v, ln, q.shape[-1] ** -0.5)
+
+    checks = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for n, shape in decode_cases().items():
+            a = decode_inputs(paged, *shape, dt, g)
+            checks[(n, dt)] = (a, plain(a).to(dt))
+    for name, lib in libs.items():
+        getattr(lib, fn).argtypes = A._PROTOTYPES[fn]
+        try:
+            for (n, dt), (a, want) in checks.items():
+                for warps in DECODE_WARPS:
+                    got = call(lib, a, warps)
+                    if dt == torch.float32:
+                        if not torch.allclose(got, want, atol=1e-4, rtol=0):
+                            raise AssertionError(f"{name} {n} f32 {warps} warps: off")
+                    else:
+                        _check(got, want, f"{name} {n} bf16 {warps} warps")
+                    if not torch.equal(got, call(lib, a, warps)):
+                        raise AssertionError(f"{name} {n} {warps} warps: two launches differ")
+        except (AssertionError, RuntimeError) as exc:
+            emit({"variant": name, "failed": str(exc)[:200]})
+            libs = {k: x for k, x in libs.items() if k != name}
+    flush = torch.empty(2 * L2_BYTES // 4, device="cuda")
+    for rnd in range(2):
+        for name, lib in libs.items():
+            for n, (B, _, _, _) in DECODE_SHAPES.items():
+                a = checks[(n, torch.bfloat16)][0]
+                policy = A.decode_plan(B, 8, 2, sms)[1]
+                for warps in DECODE_WARPS:
+                    emit({"variant": name, "round": rnd, "shape": n, "warps": warps,
+                          "policy": warps == policy,
+                          "ms": device_ms(lambda: call(lib, a, warps),
+                                          between=lambda: flush.sum()),
+                          "warm_ms": device_ms(lambda: call(lib, a, warps))})
 
 
 def probe_int8(libs: Dict[str, ctypes.CDLL], emit) -> None:
@@ -220,6 +384,8 @@ def probe_int8(libs: Dict[str, ctypes.CDLL], emit) -> None:
 TARGETS: Dict[str, Tuple[str, object]] = {
     "dq": ("attention_bwd.cu", probe_dq),
     "int8": ("int8_matmul.cu", probe_int8),
+    "paged": ("decode_attention.cu", lambda libs, emit: probe_decode(True, libs, emit)),
+    "dense": ("decode_attention.cu", lambda libs, emit: probe_decode(False, libs, emit)),
 }
 
 
@@ -248,6 +414,8 @@ def main(argv=None) -> int:
         for name, path in paths.items():
             if path is None:
                 emit({"variant": name, "failed": "build: " + logs[name][-400:]})
+            else:
+                emit({"variant": name, **build_report(logs[name])})
         probe({n: ctypes.CDLL(p) for n, p in paths.items() if p}, emit)
     return 0
 

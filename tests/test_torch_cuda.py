@@ -24,6 +24,7 @@ torch = pytest.importorskip("torch")
 from ray_tpu_torch.ops import attention as tattn  # noqa: E402
 from ray_tpu_torch.ops import decode_attention as tdec  # noqa: E402
 from ray_tpu_torch.ops import quantization as tq  # noqa: E402
+from ray_tpu_torch.ops import variant_probe as vp  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -67,13 +68,69 @@ def test_decode_kernel_matches_plain(cuda, dtype, atol, rtol):
     torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
 
 
+# (B, H, Hkv, D, table width, lengths), shared with chip_smoke.py and the
+# variant probe: the llm_bench decoder's serving step, its full context and
+# batch 64; every n_rep at D 64 and 128; zero, clamped and ragged lengths
+DECODE_CASES = vp.decode_cases()
+
+
+def _check_decode_launch(fn, run, dtype, atol, rtol):
+    """One kernel launch against the plain version; a second launch gives
+    the same bits."""
+    n = fn.launches
+    got = run(None)
+    assert fn.launches == n + 1
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), run(False).float(), atol=atol, rtol=rtol)
+    assert torch.equal(got, run(None))  # no atomics: bitwise repeatable
+    return got
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+def test_paged_decode_kernel_cases_match_plain(cuda, case, dtype, atol, rtol):
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, kp, vp_, tables, ln = vp.decode_inputs(True, *DECODE_CASES[case], dtype, g)
+    got = _check_decode_launch(
+        tdec.paged_decode_attention,
+        lambda k: tdec.paged_decode_attention(q, kp, vp_, tables, ln, use_kernel=k),
+        dtype, atol, rtol)
+    assert not got[ln == 0].any()  # an empty row gives zeros
+
+
+@pytest.mark.parametrize("case", list(DECODE_CASES))
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+def test_decode_kernel_cases_match_plain(cuda, case, dtype, atol, rtol):
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q, k, v, ln = vp.decode_inputs(False, *DECODE_CASES[case], dtype, g)
+    got = _check_decode_launch(
+        tdec.decode_attention, lambda kern: tdec.decode_attention(q, k, v, ln, use_kernel=kern),
+        dtype, atol, rtol)
+    assert not got[ln == 0].any()
+
+
+@pytest.mark.parametrize("case", ["main", "zero_and_ragged"])
+@pytest.mark.parametrize("dtype,atol,rtol", TOLS)
+def test_paged_decode_kernel_never_reads_the_garbage_page(cuda, case, dtype, atol, rtol):
+    """Page 0 full of NaN: the output is finite and equals the plain version
+    on the same pool with page 0 zeroed."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, kp, vp_, tables, ln = vp.decode_inputs(True, *DECODE_CASES[case], dtype, g)
+    kp[0], vp_[0] = float("nan"), float("nan")
+    got = tdec.paged_decode_attention(q, kp, vp_, tables, ln)
+    assert torch.isfinite(got).all()
+    kp[0], vp_[0] = 0.0, 0.0
+    want = tdec.paged_decode_attention(q, kp, vp_, tables, ln, use_kernel=False)
+    torch.testing.assert_close(got.float(), want.float(), atol=atol, rtol=rtol)
+
+
 @pytest.mark.parametrize("causal,window", [(True, None), (False, None), (True, 16)])
 @pytest.mark.parametrize("dtype,atol,rtol", TOLS)
 def test_flash_kernel_matches_plain(cuda, causal, window, dtype, atol, rtol):
     g = torch.Generator(device=cuda).manual_seed(2)
     q, k, v = (torch.randn(2, 4, 77, 64, generator=g, device=cuda).to(dtype) for _ in range(3))
-    o, lse = tattn.flash_attention_with_lse(q, k, v, None, causal, window)
-    po, plse = tattn.flash_attention_with_lse(q, k, v, None, causal, window, use_kernel=False)
+    o, lse = tattn.flash_attention_with_lse(q, k, v, None, causal, window=window)
+    po, plse = tattn.flash_attention_with_lse(q, k, v, None, causal, window=window, use_kernel=False)
     torch.testing.assert_close(o.float(), po.float(), atol=atol, rtol=rtol)
     torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
 
@@ -94,7 +151,7 @@ def test_flash_backward_kernels_match_plain(cuda, case, dtype, atol, rtol):
     q, g_out = (torch.randn(B, H, Tq, D, generator=g, device=cuda).to(dtype) for _ in range(2))
     k, v = (torch.randn(B, H, Tk, D, generator=g, device=cuda).to(dtype) for _ in range(2))
     g_lse = torch.randn(B, H, Tq, generator=g, device=cuda)
-    out, lse = tattn.flash_attention_with_lse(q, k, v, None, causal, window)
+    out, lse = tattn.flash_attention_with_lse(q, k, v, None, causal, window=window)
     args = (q, k, v, out, lse, g_out, g_lse, D ** -0.5, causal, window)
     n = (tattn.flash_attention_backward_dq.launches, tattn.flash_attention_backward_dkv.launches)
     got = tattn._flash_backward_kernel(*args)
@@ -138,12 +195,12 @@ def test_tensor_core_route_matches_plain(cuda, case):
     dqk = tattn.flash_attention_backward_dq
 
     before = dict(fwd.launches_by_route)
-    o, lse = fwd(q, k, v, None, causal, window)
+    o, lse = fwd(q, k, v, None, causal, window=window)
     assert _moved(fwd, before) == {"wgmma_bf16": 1}
-    po, plse = fwd(q, k, v, None, causal, window, use_kernel=False)
+    po, plse = fwd(q, k, v, None, causal, window=window, use_kernel=False)
     torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
-    o2, lse2 = fwd(q, k, v, None, causal, window)
+    o2, lse2 = fwd(q, k, v, None, causal, window=window)
     assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
     args = (q, k, v, g_out, plse, tattn._delta(po, g_out, g_lse), D ** -0.5, causal, window)
@@ -166,7 +223,7 @@ def test_tensor_core_route_matches_plain(cuda, case):
 
     before = dict(fwd.launches_by_route), dict(dkv.launches_by_route), dict(dqk.launches_by_route)
     qf, kf, vf, gf = (t.float() for t in (q, k, v, g_out))
-    of, lsef = fwd(qf, kf, vf, None, causal, window)
+    of, lsef = fwd(qf, kf, vf, None, causal, window=window)
     argsf = (qf, kf, vf, gf, lsef, tattn._delta(of, gf, g_lse), D ** -0.5, causal, window)
     dkv(*argsf)
     dqk(*argsf)
@@ -174,15 +231,30 @@ def test_tensor_core_route_matches_plain(cuda, case):
             == {"simt_f32": 1})
 
 
+@pytest.mark.parametrize("causal,window,D", [(True, None, 64), (False, 16, 128)])
 @pytest.mark.parametrize("scale", [0.0, -0.125])
-def test_tensor_core_forward_refuses_non_positive_scale(cuda, scale):
-    """The bf16 forward takes each row's max from the unscaled scores, so it
-    raises for a scale that is not positive instead of launching."""
-    q = torch.randn(1, 2, 64, 64, device=cuda).bfloat16()
-    before = dict(tattn.flash_attention_with_lse.launches_by_route)
-    with pytest.raises(ValueError, match="positive scale"):
-        tattn.flash_attention_with_lse(q, q, q, scale, True)
-    assert tattn.flash_attention_with_lse.launches_by_route == before
+def test_tensor_core_forward_and_backward_take_any_scale(cuda, scale, causal, window, D):
+    """The bf16 forward flips Q's sign in shared memory for a negative scale
+    (so each row's max is still taken on the raw scores) and takes a zero
+    one as the least normal float; forward, lse and the two backward kernels
+    match their plain versions on the tensor-core route."""
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q, g_out = (torch.randn(2, 4, 77, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(2, 4, 77, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    g_lse = torch.randn(2, 4, 77, generator=g, device=cuda)
+    fwd = tattn.flash_attention_with_lse
+    before = dict(fwd.launches_by_route)
+    o, lse = fwd(q, k, v, scale, causal, window=window)
+    assert _moved(fwd, before) == {"wgmma_bf16": 1}
+    po, plse = fwd(q, k, v, scale, causal, window=window, use_kernel=False)
+    torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, plse, atol=1e-4, rtol=1e-5)
+    args = (q, k, v, o, lse, g_out, g_lse, scale, causal, window)
+    got = tattn._flash_backward_kernel(*args)
+    want = tattn._flash_backward_plain(*args)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a.float(), b.float(), atol=2e-2, rtol=2e-2, msg=name)
 
 
 INT8_SHAPES = {  # (M, K, N): the decode and prefill products, the row tiles, ragged edges
@@ -320,16 +392,20 @@ def test_engine_on_gpu_matches_engine_on_cpu(cuda, cache_kind, quantize):
     assert out["cuda"] == out["cpu"]
 
 
-@pytest.mark.parametrize("target", ["dq", "int8"])
+@pytest.mark.parametrize("target", ["dq", "int8", "paged", "dense"])
 def test_variant_probe_builds_checks_and_times_the_source_as_it_stands(cuda, target, capsys):
     """``python -m ray_tpu_torch.ops.variant_probe <target> base:`` builds the
-    source, holds it against the plain version and prints timed lines."""
+    source, reports its registers and spills, holds it against the plain
+    version and prints timed lines."""
     import json
-
-    from ray_tpu_torch.ops import variant_probe as vp
 
     assert vp.main([target, "base:"]) == 0
     lines = [json.loads(ln) for ln in capsys.readouterr().out.splitlines() if ln.startswith("{")]
     assert lines and not [ln for ln in lines if "failed" in ln]
     assert all(ln["variant"] == "base" and ln["card"] for ln in lines)
-    assert all(ln.get("ms", ln.get("cold_ms")) > 0 for ln in lines)
+    built = [ln for ln in lines if "max_registers" in ln]
+    assert len(built) == 1 and built[0]["max_registers"] > 0
+    if target in ("paged", "dense"):
+        assert built[0]["spill_bytes"] == 0
+    timed = [ln for ln in lines if "max_registers" not in ln]
+    assert timed and all(ln.get("ms", ln.get("cold_ms")) > 0 for ln in timed)

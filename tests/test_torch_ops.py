@@ -20,6 +20,7 @@ from ray_tpu.ops import attention as jattn  # noqa: E402
 from ray_tpu.ops import decode_attention as jdec  # noqa: E402
 from ray_tpu_torch.ops import attention as tattn  # noqa: E402
 from ray_tpu_torch.ops import decode_attention as tdec  # noqa: E402
+from ray_tpu_torch.ops import variant_probe as vprobe  # noqa: E402
 
 ATOL = 1e-5
 
@@ -109,7 +110,7 @@ def test_flash_attention_with_lse_matches_jax(Tq, Tk, causal, window):
     ref_o, ref_lse = jattn.flash_attention_with_lse(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), None, causal, 16, 16, window
     )
-    o, lse = tattn.flash_attention_with_lse(_t(q), _t(k), _t(v), None, causal, window)
+    o, lse = tattn.flash_attention_with_lse(_t(q), _t(k), _t(v), None, causal, window=window)
     np.testing.assert_allclose(o.numpy(), np.asarray(ref_o), atol=ATOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=ATOL)
 
@@ -130,6 +131,147 @@ def test_sliding_window_and_flash_wrappers_match_jax():
     )
     with pytest.raises(ValueError):
         tattn.sliding_window_attention(_t(q), _t(k), _t(v), 0)
+
+
+# --------------------------------------------------------------------------
+# the JAX functions' positional order (block_q, block_k before window)
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("causal", [True, False])
+def test_reference_positional_call_with_blocks_matches_jax(causal):
+    """``flash_attention_with_lse(q, k, v, s, causal, bq, bk)`` as
+    ``ray_tpu/parallel/ring.py`` calls it: the blocks are taken and unused,
+    and no window is run."""
+    rng = np.random.default_rng(21)
+    q, k, v = (rng.normal(size=(1, 2, 40, 16)).astype(np.float32) for _ in range(3))
+    ref_o, ref_lse = jattn.flash_attention_with_lse(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), 0.3, causal, 16, 16)
+    o, lse = tattn.flash_attention_with_lse(_t(q), _t(k), _t(v), 0.3, causal, 16, 16)
+    np.testing.assert_allclose(o.numpy(), np.asarray(ref_o), atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=ATOL)
+
+
+def test_reference_positional_calls_of_the_wrappers_match_jax():
+    """``flash_attention(q, k, v, None, True, 8, 8)`` and
+    ``sliding_window_attention(..., block_q=8, block_k=8)`` read as in JAX;
+    the eighth positional argument of ``flash_attention_with_lse`` is the
+    window."""
+    rng = np.random.default_rng(22)
+    q, k, v = (rng.normal(size=(2, 2, 33, 16)).astype(np.float32) for _ in range(3))
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    np.testing.assert_allclose(
+        tattn.flash_attention(_t(q), _t(k), _t(v), None, True, 8, 8).numpy(),
+        np.asarray(jattn.flash_attention(jq, jk, jv, None, True, 8, 8)), atol=ATOL)
+    np.testing.assert_allclose(
+        tattn.sliding_window_attention(_t(q), _t(k), _t(v), 6, causal=False, block_q=8,
+                                       block_k=8).numpy(),
+        np.asarray(jattn.sliding_window_attention(jq, jk, jv, 6, causal=False, block_q=8,
+                                                  block_k=8)), atol=ATOL)
+    o, lse = tattn.flash_attention_with_lse(_t(q), _t(k), _t(v), None, True, 8, 8, 6)
+    ref_o, ref_lse = jattn.flash_attention_with_lse(jq, jk, jv, None, True, 8, 8, 6)
+    np.testing.assert_allclose(o.numpy(), np.asarray(ref_o), atol=ATOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(ref_lse), atol=ATOL)
+
+
+@pytest.mark.parametrize("block_q", [1, 4, 128])
+def test_sixth_positional_argument_is_never_a_window(block_q):
+    """A block size in the sixth place (the JAX ``block_q``) leaves the
+    result of full causal attention unchanged, whatever its value."""
+    rng = np.random.default_rng(23)
+    q, k, v = (_t(rng.normal(size=(1, 2, 30, 16)).astype(np.float32)) for _ in range(3))
+    want = tattn.flash_attention_with_lse(q, k, v, None, True)
+    got = tattn.flash_attention_with_lse(q, k, v, None, True, block_q)
+    windowed = tattn.flash_attention_with_lse(q, k, v, None, True, window=block_q)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    if block_q < 30:  # a window of that size would have changed it
+        assert not torch.allclose(windowed[0], want[0])
+    with pytest.raises(TypeError):  # use_kernel is keyword-only after the window
+        tattn.flash_attention_with_lse(q, k, v, None, True, None, None, None, False)
+
+
+@pytest.mark.parametrize("scale", [-0.125, 0.0])
+@pytest.mark.parametrize("causal,window", [(True, None), (False, 7)])
+def test_any_scale_forward_and_vjp_match_jax(scale, causal, window):
+    """The plain forward and its VJP (the oracles of the kernels, whose bf16
+    route flips Q's sign for a negative scale) at a negative and a zero
+    scale, against ``jax.vjp`` of the JAX function."""
+    import jax
+
+    rng = np.random.default_rng(24)
+    B, H, T, D = 1, 2, 29, 16
+    q, k, v, g_out = (rng.normal(size=(B, H, T, D)).astype(np.float32) for _ in range(4))
+    g_lse = rng.normal(size=(B, H, T)).astype(np.float32)
+    (ref_o, ref_lse), vjp = jax.vjp(
+        lambda a, b, c: jattn.flash_attention_with_lse(a, b, c, scale, causal, 16, 16, window),
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    ref_grads = vjp((jnp.asarray(g_out), jnp.asarray(g_lse)))
+    tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
+    o, lse = tattn.flash_attention_with_lse(tq, tk, tv, scale, causal, window=window)
+    np.testing.assert_allclose(o.detach().numpy(), np.asarray(ref_o), atol=ATOL)
+    np.testing.assert_allclose(lse.detach().numpy(), np.asarray(ref_lse), atol=ATOL)
+    grads = torch.autograd.grad((o, lse), (tq, tk, tv), (_t(g_out), _t(g_lse)))
+    for name, got, want in zip("qkv", grads, ref_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5, err_msg=f"d{name}")
+
+
+@pytest.mark.parametrize("block_s", [128, 512])
+def test_decode_attention_takes_block_s_and_matches_jax(block_s):
+    """``block_s`` (the TPU kernel's cache block) is accepted and unused."""
+    rng = np.random.default_rng(25)
+    B, H, Hkv, S, D = 2, 4, 2, 300, 16
+    q = rng.normal(size=(B, H, D)).astype(np.float32)
+    k, v = (rng.normal(size=(B, Hkv, S, D)).astype(np.float32) for _ in range(2))
+    lengths = np.array([299, 130], np.int32)
+    ref = jdec.decode_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                                jnp.asarray(lengths), block_s=block_s)
+    got = tdec.decode_attention(_t(q), _t(k), _t(v), _t(lengths), block_s=block_s)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+# --------------------------------------------------------------------------
+# the decode kernels' launch plan (shapes only) and shared cases
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("B,Hkv,n_rep,want", [
+    (8, 8, 2, (2, 16)),   # the serving engine: 64 blocks of 16 warps
+    (16, 8, 2, (2, 16)),  # 128 blocks still leave SMs idle
+    (64, 8, 2, (2, 4)),   # batch 64: 512 blocks fill the SMs
+    (1, 8, 2, (2, 16)),
+    (2, 2, 16, (4, 4)),   # n_rep 16: four heads a pass, four passes
+    (3, 8, 3, (4, 4)),    # n_rep 3: one pass of four (one unused)
+    (4, 8, 1, (1, 16)),
+    (17, 8, 1, (1, 4)),   # 136 blocks of one head
+])
+def test_decode_plan_depends_on_shapes_only(B, Hkv, n_rep, want):
+    assert tdec.decode_plan(B, Hkv, n_rep, 132) == want
+    rows, warps = want
+    assert warps <= tdec.max_warps(rows)
+
+
+def test_decode_wrappers_do_not_count_launches_on_the_cpu():
+    q, kp, vp, bt, lengths = _paged_case(4, 2)
+    fns = (tdec.paged_decode_attention, tdec.decode_attention)
+    before = [f.launches for f in fns]
+    tdec.paged_decode_attention(_t(q), _t(kp), _t(vp), _t(bt), _t(lengths))
+    x = torch.randn(1, 2, 8, 16)
+    tdec.decode_attention(x[:, :, 0], x, x, torch.tensor([3]), block_s=64)
+    assert [f.launches for f in fns] == before
+
+
+@pytest.mark.parametrize("case", list(vprobe.DECODE_CASES))
+def test_shared_decode_cases_match_jax(case):
+    """The decode cases the card runs (``variant_probe.decode_inputs``),
+    built on the CPU in f32: the port's paged and dense versions against the
+    JAX package's on the same pool and cache."""
+    g = torch.Generator().manual_seed(3)
+    q, kp, vp, bt, ln = vprobe.decode_inputs(True, *vprobe.DECODE_CASES[case], torch.float32, g)
+    assert not bt[torch.arange(bt.shape[1])[None, :] * 16 >= ln[:, None]].any()
+    ref = jdec.paged_decode_attention(*(jnp.asarray(t.numpy()) for t in (q, kp, vp, bt, ln)))
+    got = tdec.paged_decode_attention(q, kp, vp, bt, ln)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+    q, k, v, ln = vprobe.decode_inputs(False, *vprobe.DECODE_CASES[case], torch.float32, g)
+    ref = jdec.decode_attention(*(jnp.asarray(t.numpy()) for t in (q, k, v, ln)))
+    got = tdec.decode_attention(q, k, v, ln)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -170,7 +312,7 @@ def test_flash_attention_with_lse_vjp_matches_jax(Tq, Tk, causal, window):
     )
     ref_grads = vjp((jnp.asarray(g_out), jnp.asarray(g_lse)))
     tq, tk, tv = (_t(x).requires_grad_() for x in (q, k, v))
-    o, lse = tattn.flash_attention_with_lse(tq, tk, tv, None, causal, window)
+    o, lse = tattn.flash_attention_with_lse(tq, tk, tv, None, causal, window=window)
     np.testing.assert_allclose(o.detach().numpy(), np.asarray(ref_o), atol=ATOL)
     np.testing.assert_allclose(lse.detach().numpy(), np.asarray(ref_lse), atol=ATOL)
     grads = torch.autograd.grad((o, lse), (tq, tk, tv), (_t(g_out), _t(g_lse)))
@@ -271,4 +413,6 @@ def test_variant_probe_parses_definitions_and_refuses_a_bad_call(capsys):
             vp.parse_variants(bad)
     assert vp.main(["no_such_kernel", "base:"]) == 2 and vp.main(["dq"]) == 2
     assert "usage" in capsys.readouterr().err
-    assert set(vp.TARGETS) == {"dq", "int8"}
+    assert set(vp.TARGETS) == {"dq", "int8", "paged", "dense"}
+    assert vp.build_report("Used 40 registers\nUsed 128 registers, 8 bytes spill stores, "
+                           "4 bytes spill loads") == {"max_registers": 128, "spill_bytes": 12}
