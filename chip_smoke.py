@@ -4,6 +4,7 @@
     python3 chip_smoke.py                    # every phase, as a release check
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,kernels,train_parity,train   # the training slice
+    python3 chip_smoke.py --phases build,kernels,moe_parity,moe_engine,vit_train,dit
     python3 chip_smoke.py --phases build,profile   # one profiled train step (not in the default run)
 
 Phases, each printing one JSON line; any failure exits non-zero:
@@ -23,7 +24,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    counter; every kernel also runs twice and must give the same bits;
    device times of the kernel, the plain version and (where one PyTorch
    call computes the same function) that call, and the least time the card
-   could take (``bound_ms``). K1 and K2 run every n_rep (1, 2, 3, 4, 16),
+   could take (``bound_ms``). K3, K4 and K5 are also checked and timed at
+   the ViT train step's shape (``[128, 12, 197, 64]`` non-causal: ``vit_*``
+   keys, beside ``scaled_dot_product_attention(is_causal=False)`` and its
+   backward). K1 and K2 run every n_rep (1, 2, 3, 4, 16),
    D 64 and 128, zero, ragged and clamped lengths, and (K1) a garbage page
    0 full of NaN, and are timed at three shapes of the serving decoder's
    cache (``variant_probe.DECODE_SHAPES``, whose cases and input builder
@@ -66,10 +70,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the model FLOP share of 989 TFLOP/s. The state after step 2 is saved
    through ``Checkpoint.from_pytree`` and restored into a fresh state: step 3
    from both, with deterministic algorithms on, gives bitwise equal losses.
-7. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
-   replaces, launches in the engine and train runs, max error, device ms,
-   plain ms, bound ms and what bounds it, library ms; K1/K2 also the event
-   floor and each timed shape.
+7. ``moe_parity`` — ``forward_parity`` on the serving decoder with 8
+   experts, top-2 (1,693,877,248 params; dense dispatch): the same checks,
+   K6 three times a layer per forward under int8 (``wq``, ``wk``, ``wv``;
+   ``wo``, the router and the experts dequantized).
+8. ``moe_engine`` — the engine phase's four runs on that MoE config.
+9. ``vit_train`` — ViT-B/16 (224/16, d_model 768, 12 layers, 12 heads, d_ff
+   3072, 1000 classes; bf16, batch 128, flash attention, no remat): one
+   step's loss and gradients through the flash kernels against the einsum
+   attention (the train_parity bf16 limits), then 5 AdamW steps, counters
+   zeroed before and read after each (K3, K4, K5 12 times a step, all on
+   the tensor cores), losses finite and falling; step ms, images/s, model
+   FLOP share of 989 TFLOP/s.
+10. ``dit`` — DiT-S/2 (d_model 384, 12 layers, 6 heads, patch 2 on 32x32x4
+   latents, 1000 classes; bf16): 3 train steps at batch 32 and a 10-step
+   DDIM sample of 8 images with guidance 4.0 (finite), and the f32 forward
+   on the card against the CPU's on 2 images (atol 1e-4). No kernel runs
+   here: its attention is the plain one, as in the JAX package.
+11. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
+   replaces, launches in the main-path runs (engine, train, moe_engine,
+   vit_train) in all and by phase, max error, device ms, plain ms, bound
+   ms and what bounds it, library ms; K1/K2 also the event floor and each
+   timed shape.
 
 Then the card's name and power limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -96,7 +118,8 @@ import time
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
-PHASES = ("build", "kernels", "forward_parity", "engine", "train_parity", "train")
+PHASES = ("build", "kernels", "forward_parity", "engine", "train_parity", "train",
+          "moe_parity", "moe_engine", "vit_train", "dit")
 OPTIONAL_PHASES = ("profile",)
 
 
@@ -234,6 +257,16 @@ TOLS = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 2e-2)}
 # attention inside the train step of bench.py model_mfu: batch 6, 16 heads,
 # T 2048, head_dim 128
 TRAIN_ATTN = (6, 16, 2048, 128)
+# attention inside the ViT-B/16 train step (vit_train): batch 128, 12 heads,
+# T 197 (196 patches and the CLS token), head_dim 64, non-causal
+VIT_ATTN = (128, 12, 197, 64)
+
+
+def attention_work(B, H, T, D, causal: bool):
+    """(visible (q, k) pairs, one bf16 [B, H, T, D] tensor's bytes, the f32
+    [B, H, T] side tensor's bytes) of an attention call."""
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    return pairs, B * H * T * D * 2, B * H * T * 4
 
 
 # ---------------------------------------------------------------------------
@@ -426,6 +459,7 @@ def kernel_flash_forward(torch, g):
         "d128": (1, 8, 77, 77, 128, True, None),
         "t1024_d128": (1, 2, 1024, 1024, 128, True, None),
         "train_shape": (*TRAIN_ATTN[:3], TRAIN_ATTN[2], TRAIN_ATTN[3], True, None),
+        "vit_noncausal": (*VIT_ATTN[:3], VIT_ATTN[2], VIT_ATTN[3], False, None),
         # any scale: a negative one flips Q's sign in the bf16 kernel
         "negative_scale": (2, 4, 77, 77, 64, True, None, -0.125),
         "zero_scale": (2, 4, 77, 77, 128, False, 16, 0.0),
@@ -448,20 +482,23 @@ def kernel_flash_forward(torch, g):
                 raise AssertionError(f"flash {name} {dt}: two launches gave different bits")
             del q, k, v, o_k, lse_k, o_p, lse_p, o_2, lse_2
 
-    def measure(B, H, T, D):
+    def measure(B, H, T, D, causal=True):
         q, k, v = mk(B, H, T, T, D, torch.bfloat16)
-        nbytes = 4 * B * H * T * D * 2 + B * H * T * 4
-        flops = 4 * B * H * D * (T * (T + 1) // 2)
+        pairs, elem, side = attention_work(B, H, T, D, causal)
         return dict(
-            kernel_ms=device_ms(lambda: flash_attention_with_lse(q, k, v, None, True)),
-            plain_ms=device_ms(lambda: _flash_forward_plain(q, k, v, D ** -0.5, True)),
-            library_ms=device_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
-            bound=bound(nbytes, flops, "bfloat16"),
+            kernel_ms=device_ms(lambda: flash_attention_with_lse(q, k, v, None, causal)),
+            plain_ms=device_ms(lambda: _flash_forward_plain(q, k, v, D ** -0.5, causal)),
+            library_ms=device_ms(
+                lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)),
+            bound=bound(4 * elem + side, 4 * D * pairs, "bfloat16"),
         )
 
-    # the serving path's prefill shape, and the train step's (bench.py model_mfu)
+    # the serving path's prefill shape, the train step's (bench.py
+    # model_mfu) and the ViT train step's (non-causal)
     train = measure(*TRAIN_ATTN)
     train["bound_ms"], train["bound_by"] = train.pop("bound")
+    vit = measure(*VIT_ATTN, causal=False)
+    vit["bound_ms"], vit["bound_by"] = vit.pop("bound")
     B, H, T, D = 1, 16, 64, 64
     return dict(
         name="flash_attention_forward",
@@ -473,6 +510,9 @@ def kernel_flash_forward(torch, g):
         **measure(B, H, T, D),
         train_shape="q/k/v[{},{},{},{}] causal bf16".format(*TRAIN_ATTN),
         **{f"train_{k}": x for k, x in train.items()},
+        vit_shape="q/k/v[{},{},{},{}] non-causal bf16".format(*VIT_ATTN),
+        vit_library_call="scaled_dot_product_attention(q, k, v, is_causal=False)",
+        **{f"vit_{k}": x for k, x in vit.items()},
     )
 
 
@@ -504,6 +544,7 @@ def kernel_flash_backward(torch, g):
         "t1024_d128": (1, 2, 1024, 1024, 128, True, None),
         "window_causal_d128": (1, 4, 200, 200, 128, True, 16),
         "noncausal_d128_tq_ne_tk": (1, 2, 300, 130, 128, False, None),
+        "vit_noncausal": (*VIT_ATTN[:3], VIT_ATTN[2], VIT_ATTN[3], False, None),
         # the lse of a forward at any scale (a negative one flips Q's sign there)
         "negative_scale": (2, 4, 77, 77, 64, True, None, -0.125),
         "zero_scale": (2, 4, 77, 77, 128, False, 16, 0.0),
@@ -531,37 +572,52 @@ def kernel_flash_backward(torch, g):
                     and torch.equal(dk, dk2) and torch.equal(dv, dv2)):
                 raise AssertionError(f"backward {what}: two launches gave different bits")
             del a, dq, dk, dv, dq_p, dk_p, dv_p, dk2, dv2
+    def measure(B, H, T, D, causal):
+        """Device ms of K4 and K5 at one bf16 shape, their plain versions
+        and their bounds, and the backward of one SDPA call on the same q,
+        k, v (the yardstick of both)."""
+        a = mk(B, H, T, T, D, causal, None, dtype=torch.bfloat16)
+        q, k, v, g_out = a[:4]
+        ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+        o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+        library_ms = device_ms(
+            lambda: torch.autograd.grad(o, (ql, kl, vl), g_out, retain_graph=True))
+        pairs, elem, side = attention_work(B, H, T, D, causal)
+        side *= 2  # lse and delta
+        return (
+            dict(kernel_ms=device_ms(lambda: A.flash_attention_backward_dq(*a)),
+                 plain_ms=device_ms(lambda: A._bwd_dq_plain(*a)), library_ms=library_ms,
+                 bound=bound(5 * elem + side, 6 * D * pairs, "bfloat16")),
+            dict(kernel_ms=device_ms(lambda: A.flash_attention_backward_dkv(*a)),
+                 plain_ms=device_ms(lambda: A._bwd_dkv_plain(*a)), library_ms=library_ms,
+                 bound=bound(6 * elem + side, 8 * D * pairs, "bfloat16")),
+        )
+
     B, H, T, D = TRAIN_ATTN
-    a = mk(B, H, T, T, D, True, None, dtype=torch.bfloat16)
-    q, k, v, g_out = a[:4]
-    # the yardstick: the backward of one SDPA call on the same q, k, v
-    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
-    o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-    library_ms = device_ms(lambda: torch.autograd.grad(o, (ql, kl, vl), g_out, retain_graph=True))
-    pairs = B * H * int(A._visible(T, T, True, None, "cuda").sum())
-    elem = B * H * T * D * 2  # one bf16 [B,H,T,D] tensor
-    side = 2 * B * H * T * 4  # lse and delta, f32
+    main = measure(B, H, T, D, True)
+    vit = measure(*VIT_ATTN, False)
+    for m in vit:
+        m["bound_ms"], m["bound_by"] = m.pop("bound")
     common = dict(shapes=f"q/k/v/dO[{B},{H},{T},{D}] causal bf16, non-zero g_lse",
-                  library_ms=library_ms,
                   library_call="backward of scaled_dot_product_attention(q, k, v, "
-                               "is_causal=True): dq, dk and dv in one call")
+                               "is_causal=True): dq, dk and dv in one call",
+                  vit_shape="q/k/v/dO[{},{},{},{}] non-causal bf16, non-zero g_lse".format(
+                      *VIT_ATTN),
+                  vit_library_call="backward of scaled_dot_product_attention(q, k, v, "
+                                   "is_causal=False): dq, dk and dv in one call")
     return [
         dict(name="flash_attention_backward_dq",
              source="ray_tpu_torch/ops/csrc/attention_bwd.cu",
              replaces="ray_tpu/ops/attention.py:188 _bwd_dq_kernel (pallas_call at :319)",
              errs=errs["dq"], max_abs_err=errs["dq"]["main/bfloat16"],
-             by_route=route_errs(errs["dq"]),
-             kernel_ms=device_ms(lambda: A.flash_attention_backward_dq(*a)),
-             plain_ms=device_ms(lambda: A._bwd_dq_plain(*a)),
-             bound=bound(5 * elem + side, 6 * D * pairs, "bfloat16"), **common),
+             by_route=route_errs(errs["dq"]), **main[0],
+             **{f"vit_{k}": x for k, x in vit[0].items()}, **common),
         dict(name="flash_attention_backward_dkv",
              source="ray_tpu_torch/ops/csrc/attention_bwd.cu",
              replaces="ray_tpu/ops/attention.py:237 _bwd_dkv_kernel (pallas_call at :342)",
              errs=errs["dkv"], max_abs_err=errs["dkv"]["main/bfloat16"],
-             by_route=route_errs(errs["dkv"]),
-             kernel_ms=device_ms(lambda: A.flash_attention_backward_dkv(*a)),
-             plain_ms=device_ms(lambda: A._bwd_dkv_plain(*a)),
-             bound=bound(6 * elem + side, 8 * D * pairs, "bfloat16"), **common),
+             by_route=route_errs(errs["dkv"]), **main[1],
+             **{f"vit_{k}": x for k, x in vit[1].items()}, **common),
     ]
 
 
@@ -724,6 +780,14 @@ KERNEL_CHECKS = (
 # ---------------------------------------------------------------------------
 # full-width model phases
 # ---------------------------------------------------------------------------
+def k6_per_layer(cfg) -> int:
+    """int8_matmul launches a layer per forward under ``quantize=True``: the
+    linears whose scales are per output column (wq, wk, wv and a dense
+    FFN's w1, w3, w2); wo and a MoE layer's router and experts are
+    dequantized."""
+    return 3 if cfg.num_experts else 6
+
+
 def serving_config(torch):
     from ray_tpu_torch.models.transformer import TransformerConfig
 
@@ -732,6 +796,13 @@ def serving_config(torch):
         vocab_size=32000, d_model=1024, n_layers=16, n_heads=16, n_kv_heads=8,
         d_ff=4096, max_seq_len=1024, attention="dense", dtype=torch.bfloat16,
     )
+
+
+def moe_config(torch):
+    # the llm_bench decoder with 8 experts, top-2 (Mixtral 8x7B's expert
+    # count and top-k: Jiang et al. 2024, Table 1), dense dispatch (the JAX
+    # default, moe_capacity_factor 0): 1,693,877,248 params
+    return dataclasses.replace(serving_config(torch), num_experts=8, expert_top_k=2)
 
 
 def forward_parity(torch, cfg, params):
@@ -799,13 +870,14 @@ def forward_parity(torch, cfg, params):
             raise AssertionError(f"generate(): {got} vs plain greedy {want}")
         report["generate_tokens"] = got
 
-        # int8 layers: the kernels (K6 in six products a layer) against the
-        # plain path on the dequantized weights (the JAX test's oracle)
+        # int8 layers: the kernels (K6 in six products a layer, three in a
+        # MoE layer) against the plain path on the dequantized weights (the
+        # JAX test's oracle)
         q_layers, scales = quantize_layers(params["layers"], min_size=4096)
         qparams = {**params, "layers": q_layers}
         deq = {**params, "layers": {k: dequantize_int8(w, scales[k]) if w.dtype == torch.int8
                                     else w for k, w in q_layers.items()}}
-        per_forward = 6 * cfg.n_layers
+        per_forward = k6_per_layer(cfg) * cfg.n_layers
         for name, fn in (("paged_int8", paged), ("dense_int8", dense)):
             int8_matmul.launches = 0
             got = fn(qparams, True, layer_scales=scales)
@@ -896,6 +968,39 @@ def run_engine(torch, cfg, params, cache_kind: str, n_req: int, prompt_len: int,
     }
 
 
+def run_engines(torch, cfg, params, kernels_of: dict):
+    """The engine runs on ``cfg``: the paged and the dense engine, float and
+    then ``quantize=True`` (8 and 2 concurrent requests; prompt 64, 32
+    tokens, greedy), each yielded after its launch checks: every kernel of
+    the run launched; the paged decode kernel once a layer in each of the 31
+    decode steps at least; under int8, K6 ``k6_per_layer(cfg)`` times a
+    layer and decode step (paged), every launch on the tensor cores (bf16
+    activations)."""
+    need = cfg.n_layers * 31  # decode steps after the prefill's first token
+    for quantize in (False, True):
+        for kind, n_req in (("paged", 8), ("dense", 2)):
+            names = (["paged_decode_attention"] if kind == "paged"
+                     else ["decode_attention", "flash_attention_forward"])
+            if quantize:
+                names.append("int8_matmul")
+            run = run_engine(torch, cfg, params, kind, n_req, 64, 32,
+                             {n: kernels_of[n] for n in names}, quantize=quantize)
+            n = run["launches"]
+            what = f"{'quantized ' if quantize else ''}{kind} engine"
+            if min(n.values()) < 1:
+                raise AssertionError(f"{what} skipped a kernel: {n}")
+            if kind == "paged" and n["paged_decode_attention"] < need:
+                raise AssertionError(f"{what}: paged decode kernel launched {n} < {need} times")
+            if quantize:
+                if kind == "paged" and n["int8_matmul"] < k6_per_layer(cfg) * need:
+                    raise AssertionError(f"{what} launched {n}: want int8_matmul >= "
+                                         f"{k6_per_layer(cfg) * need}")
+                r = run["launches_by_route"]["int8_matmul"]
+                if r != {"mma_bf16": n["int8_matmul"], "simt": 0}:
+                    raise AssertionError(f"{what}: K6 routes {r}")
+            yield run
+
+
 def train_config(torch):
     from ray_tpu_torch.models.transformer import TransformerConfig
 
@@ -913,6 +1018,24 @@ def named_leaves(tree, prefix=""):
     if isinstance(tree, dict):
         return [x for k, v in tree.items() for x in named_leaves(v, f"{prefix}{k}/")]
     return [(prefix[:-1], tree)]
+
+
+def grad_rel_errs(grads_k, grads_p, of_largest: bool = False) -> dict:
+    """{leaf: ||g_k - g_p|| / ||g_p||}, or with ``of_largest`` {leaf:
+    max|g_k - g_p| / max|g_p|}; raises unless every leaf of ``grads_k`` is
+    finite."""
+    import torch
+
+    rel = {}
+    for (name, a), (_, b) in zip(named_leaves(grads_k), named_leaves(grads_p)):
+        if not torch.isfinite(a).all():
+            raise AssertionError(f"non-finite grad {name}")
+        a, b = a.float(), b.float()
+        if of_largest:
+            rel[name] = float((a - b).abs().max() / b.abs().max())
+        else:
+            rel[name] = float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
+    return rel
 
 
 def train_parity(torch, cfg, params):
@@ -946,20 +1069,13 @@ def train_parity(torch, cfg, params):
         loss_err = abs(float(loss_k) - float(loss_p))
         if not (torch.isfinite(loss_k) and loss_err <= (1e-4 if dt == "float32" else 1e-2)):
             raise AssertionError(f"train_parity {dt}: loss {float(loss_k)} vs {float(loss_p)}")
-        rel = {}
-        for (name, a), (_, b) in zip(named_leaves(grads_k), named_leaves(grads_p)):
-            if not torch.isfinite(a).all():
-                raise AssertionError(f"train_parity {dt}: non-finite grad {name}")
-            a, b = a.float(), b.float()
-            if dt == "float32":  # max error over the leaf's largest element
-                rel[name] = float((a - b).abs().max() / b.abs().max())
-                limit = 1e-3
-            else:  # bf16: relative Frobenius error
-                rel[name] = float(torch.linalg.vector_norm(a - b) / torch.linalg.vector_norm(b))
-                limit = 2e-2
-            if rel[name] > limit:
-                raise AssertionError(f"train_parity {dt}: grad {name} off by {rel[name]:.3e} "
-                                     f"(limit {limit})")
+        # f32: max error over the leaf's largest element; bf16: relative
+        # Frobenius error
+        rel = grad_rel_errs(grads_k, grads_p, of_largest=dt == "float32")
+        limit = 1e-3 if dt == "float32" else 2e-2
+        bad = {name: e for name, e in rel.items() if e > limit}
+        if bad:
+            raise AssertionError(f"train_parity {dt}: grads off by {bad} (limit {limit})")
         key = "" if dt == "float32" else "bf16_"
         report.update({f"{key}loss_flash": float(loss_k), f"{key}loss_dense": float(loss_p),
                        f"{key}loss_abs_err": loss_err, f"{key}grad_max_rel_err": max(rel.values()),
@@ -1050,6 +1166,176 @@ def run_train(torch, cfg, params, counters: dict, steps: int = 5, batch: int = 6
     }
 
 
+def vit_config(torch):
+    from ray_tpu_torch.models.vit import ViTConfig
+
+    # ViT-B/16 (Dosovitskiy et al. 2021, Table 1) in the repo's recipe
+    # (RMSNorm, SwiGLU, CLS token): 114,775,296 params; the flash kernels
+    # non-causal at T = 197
+    return ViTConfig(image_size=224, patch_size=16, channels=3, num_classes=1000,
+                     d_model=768, n_layers=12, n_heads=12, d_ff=3072,
+                     dtype=torch.bfloat16, attention="flash", remat=False)
+
+
+def run_vit_train(torch, cfg, counters: dict, steps: int = 5, batch: int = 128):
+    """One bf16 step's loss and gradients through the flash kernels against
+    the einsum attention, both also against the f32 truth (f32 activations,
+    einsum attention, TF32 off): the flash loss within 1e-2 of the einsum
+    one, and each leaf's relative Frobenius error against the truth within
+    2e-2 or within 1.5x the bf16 einsum path's own error, whichever is
+    larger (at this depth and batch the bf16 einsum path itself is more
+    than 2e-2 from the truth: PERF.md section 2). Then ``steps`` AdamW steps
+    on a repeated batch:
+    counters zeroed before and read after each (K3, K4 and K5 once a layer,
+    all on the tensor cores), losses finite and falling; step ms (CUDA
+    events), images/s and the model FLOP share of 989 TFLOP/s."""
+    from ray_tpu_torch.models.transformer import new_train_state, value_and_grad
+    from ray_tpu_torch.models.vit import init_vit_params, make_vit_train_step, vit_loss_fn
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    params = init_vit_params(cfg, g)
+    n_params = sum(p.numel() for _, p in named_leaves(params))
+    images = torch.randn(batch, cfg.image_size, cfg.image_size, cfg.channels, generator=g,
+                         device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=g, device="cuda")
+    L = cfg.n_layers
+    want = {name: {"wgmma_bf16": L, "simt_f32": 0} for name in counters}
+
+    zero_counters(counters)
+    loss_k, grads_k = value_and_grad(lambda p: vit_loss_fn(cfg, p, images, labels), params)
+    torch.cuda.synchronize()
+    _, by_route = read_counters(counters)
+    if by_route != want:
+        raise AssertionError(f"vit parity step: routes {by_route}, want {want}")
+    dense = dataclasses.replace(cfg, attention="dense")
+    loss_p, grads_p = value_and_grad(lambda p: vit_loss_fn(dense, p, images, labels), params)
+    loss_err = abs(float(loss_k) - float(loss_p))
+    rel = grad_rel_errs(grads_k, grads_p)
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
+    truth = dataclasses.replace(dense, dtype=torch.float32)
+    loss_t, grads_t = value_and_grad(lambda p: vit_loss_fn(truth, p, images, labels), params)
+    rel_flash, rel_dense = grad_rel_errs(grads_k, grads_t), grad_rel_errs(grads_p, grads_t)
+    worse = {n: (rel_flash[n], rel_dense[n]) for n in rel_flash
+             if rel_flash[n] > max(2e-2, 1.5 * rel_dense[n])}
+    if not (math.isfinite(float(loss_k)) and loss_err <= 1e-2 and not worse):
+        raise AssertionError(f"vit parity: loss {float(loss_k)} vs {float(loss_p)}; leaves "
+                             f"whose flash error against f32 exceeds the limit: {worse}")
+    del grads_k, grads_p, grads_t
+    torch.cuda.empty_cache()
+
+    _, train_step = make_vit_train_step(cfg, device="cuda")
+    state = new_train_state(params)
+    losses, step_ms, routes = [], [], []
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(steps):
+        zero_counters(counters)
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        state, loss = train_step(state, images, labels)
+        t1.record()
+        torch.cuda.synchronize()
+        _, by_route = read_counters(counters)
+        if by_route != want:
+            raise AssertionError(f"vit step {i + 1}: routes {by_route}, want {want}")
+        losses.append(float(loss))
+        step_ms.append(t0.elapsed_time(t1))
+        routes.append(by_route)
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"vit_train: losses {losses}")
+    T = cfg.num_patches + 1
+    ms = statistics.median(step_ms)
+    # bench.py model_mfu's count per token (6 x params + attention), T tokens an image
+    flops_per_step = batch * T * (6 * n_params + 12 * L * cfg.d_model * T)
+    return {
+        "params": n_params, "batch": batch, "seq": T, "remat": cfg.remat,
+        "parity_loss_flash": float(loss_k), "parity_loss_dense": float(loss_p),
+        "parity_loss_f32": float(loss_t), "parity_loss_abs_err": loss_err,
+        "parity_grad_max_rel_err": max(rel.values()), "parity_grad_rel_err": rel,
+        "parity_grad_rel_err_flash_vs_f32": rel_flash,
+        "parity_grad_rel_err_dense_vs_f32": rel_dense,
+        "losses": losses, "step_ms": step_ms, "step_ms_median": ms,
+        "images_per_s": batch / (ms / 1e3), "model_flops_per_step": flops_per_step,
+        "flop_share_of_989_tflops": flops_per_step / (ms / 1e3) / PEAK_FLOPS["bfloat16"],
+        "launches_by_route_per_step": routes,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+
+
+def dit_config(torch):
+    from ray_tpu_torch.models.dit import DiTConfig
+
+    # DiT-S/2 (Peebles & Xie 2023, Table 1) on 32x32x4 latents (256-pixel
+    # images), 1000 classes: 32,914,560 params
+    return DiTConfig(image_size=32, patch_size=2, channels=4, num_classes=1000, d_model=384,
+                     n_layers=12, n_heads=6, mlp_ratio=4, dtype=torch.bfloat16)
+
+
+def run_dit(torch, cfg, steps: int = 3, batch: int = 32, num: int = 8, ddim_steps: int = 10,
+            guidance: float = 4.0):
+    """``steps`` train steps and a guided DDIM sample (CUDA events; losses
+    and samples finite), then the f32 forward on the card against the same
+    on the CPU, on 2 images with every adaLN-Zero leaf drawn non-zero
+    (atol 1e-4; no kernel is on this path)."""
+    from ray_tpu_torch.models.dit import ddim_sample, dit_forward, make_dit_train_step
+    from ray_tpu_torch.models.transformer import _leaves, _rebuild
+
+    init_state, step = make_dit_train_step(cfg, device="cuda")
+    state = init_state(5)
+    params = state["params"]
+    n_params = sum(p.numel() for _, p in named_leaves(params))
+    g = torch.Generator(device="cuda").manual_seed(6)
+    shape = (cfg.image_size, cfg.image_size, cfg.channels)
+    images = torch.randn(batch, *shape, generator=g, device="cuda")
+    labels = torch.randint(0, cfg.num_classes, (batch,), generator=g, device="cuda")
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0.record()
+        state, loss = step(state, images, labels, g)
+        t1.record()
+        torch.cuda.synchronize()
+        losses.append(float(loss))
+        step_ms.append(t0.elapsed_time(t1))
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"dit: losses {losses}")
+    sample_labels = torch.arange(num, device="cuda") % cfg.num_classes
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0.record()
+    x = ddim_sample(cfg, params, g, num=num, steps=ddim_steps, labels=sample_labels,
+                    guidance_scale=guidance)
+    t1.record()
+    torch.cuda.synchronize()
+    if x.shape != (num, *shape) or not torch.isfinite(x).all():
+        raise AssertionError(f"dit: ddim sample {tuple(x.shape)}, finite "
+                             f"{bool(torch.isfinite(x).all())}")
+    sample_ms = t0.elapsed_time(t1)
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    ref = dict(params)
+    layers = dict(params["layers"])
+    for name in ("ada", "ada_b"):
+        layers[name] = torch.randn(layers[name].shape, generator=g, device="cuda") * 0.02
+    for name in ("final_ada", "final_ada_b", "head"):
+        ref[name] = torch.randn(ref[name].shape, generator=g, device="cuda") * 0.02
+    ref["layers"] = layers
+    xs, ts = images[:2], torch.tensor([3, 700], device="cuda")
+    with torch.no_grad():
+        on_card = dit_forward(f32, ref, xs, ts, labels[:2])
+        on_cpu = dit_forward(f32, _rebuild(ref, [t.cpu() for t in _leaves(ref)]), xs.cpu(),
+                             ts.cpu(), labels[:2].cpu())
+    err = max_err(on_card, on_cpu.cuda(), 1e-4, 0.0, "dit forward card vs cpu")
+    if float(on_cpu.abs().max()) < 0.1:
+        raise AssertionError("dit: the forward's output is too small to compare")
+    return {
+        "params": n_params, "batch": batch, "tokens_per_image": cfg.num_patches,
+        "losses": losses, "step_ms": step_ms, "step_ms_median": statistics.median(step_ms),
+        "ddim_images": num, "ddim_steps": ddim_steps, "guidance_scale": guidance,
+        "ddim_ms": sample_ms, "ddim_ms_per_step": sample_ms / ddim_steps,
+        "sample_abs_max": float(x.abs().max()), "forward_card_vs_cpu_max_abs_err": err,
+    }
+
+
 def profile_train_step(torch, cfg, params, batch: int = 6):
     """One train step (after a warm-up step) under ``torch.profiler``:
     device time by kernel, by group and by PyTorch op, and the device's busy
@@ -1127,6 +1413,15 @@ def main(argv=None) -> int:
     from ray_tpu_torch.ops.decode_attention import decode_attention, paged_decode_attention
     from ray_tpu_torch.ops.quantization import int8_matmul
 
+    kernels_of = {"paged_decode_attention": paged_decode_attention,
+                  "decode_attention": decode_attention,
+                  "flash_attention_forward": flash_attention_with_lse,
+                  "flash_attention_backward_dq": flash_attention_backward_dq,
+                  "flash_attention_backward_dkv": flash_attention_backward_dkv,
+                  "int8_matmul": int8_matmul}
+    attention_kernels = {n: kernels_of[n] for n in ("flash_attention_forward",
+                                                      "flash_attention_backward_dq",
+                                                      "flash_attention_backward_dkv")}
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     t0 = time.perf_counter()
@@ -1148,12 +1443,15 @@ def main(argv=None) -> int:
                 emit({"phase": "kernel", "ok": True, "card": card, **r})
             torch.cuda.empty_cache()
 
-    launches = {}  # kernel -> launches over the engine and train runs
+    launches = {}  # kernel -> launches over the main-path runs
+    by_path = {}  # kernel -> {phase: launches}
     by_route = {}  # K3, K4, K5, K6 -> {route: launches} over the same runs
 
-    def count(n: dict, routes: dict) -> None:
+    def count(path: str, n: dict, routes: dict) -> None:
         for name, x in n.items():
             launches[name] = launches.get(name, 0) + x
+            by_path.setdefault(name, {}).setdefault(path, 0)
+            by_path[name][path] += x
         for name, per in routes.items():
             for r, x in per.items():
                 by_route.setdefault(name, {}).setdefault(r, 0)
@@ -1173,42 +1471,9 @@ def main(argv=None) -> int:
             emit({"phase": "forward_parity", "ok": True, "params": n_params,
                   "init_s": init_s, **rep})
         if "engine" in phases:
-            paged = run_engine(torch, cfg, params, "paged", 8, 64, 32,
-                               {"paged_decode_attention": paged_decode_attention})
-            need = cfg.n_layers * 31
-            if paged["launches"]["paged_decode_attention"] < need:
-                raise AssertionError(f"paged decode kernel launched "
-                                     f"{paged['launches']} < {need} times")
-            emit({"phase": "engine", "ok": True, "card": card, "params": n_params, **paged})
-            dense_kernels = {"decode_attention": decode_attention,
-                             "flash_attention_forward": flash_attention_with_lse}
-            dense = run_engine(torch, cfg, params, "dense", 2, 64, 32, dense_kernels)
-            if min(dense["launches"].values()) < 1:
-                raise AssertionError(f"dense engine skipped a kernel: {dense['launches']}")
-            emit({"phase": "engine", "ok": True, "card": card, **dense})
-            # int8 weight-only serving: six int8_matmul launches a layer
-            # per forward, 31 decode steps after the prefill's first token
-            paged_q = run_engine(torch, cfg, params, "paged", 8, 64, 32,
-                                 {"paged_decode_attention": paged_decode_attention,
-                                  "int8_matmul": int8_matmul}, quantize=True)
-            n = paged_q["launches"]
-            if (n["int8_matmul"] < 6 * need
-                    or n["paged_decode_attention"] < need):
-                raise AssertionError(f"quantized paged engine launched {n}: want int8_matmul "
-                                     f">= {6 * need}, paged_decode_attention >= {need}")
-            emit({"phase": "engine", "ok": True, "card": card, **paged_q})
-            dense_q = run_engine(torch, cfg, params, "dense", 2, 64, 32,
-                                 {**dense_kernels, "int8_matmul": int8_matmul}, quantize=True)
-            if min(dense_q["launches"].values()) < 1:
-                raise AssertionError(f"quantized dense engine skipped a kernel: "
-                                     f"{dense_q['launches']}")
-            emit({"phase": "engine", "ok": True, "card": card, **dense_q})
-            for run in (paged_q, dense_q):  # bf16 activations: every K6 launch on the tensor cores
-                r = run["launches_by_route"]["int8_matmul"]
-                if r != {"mma_bf16": run["launches"]["int8_matmul"], "simt": 0}:
-                    raise AssertionError(f"quantized {run['cache_kind']} engine: K6 routes {r}")
-            for run in (paged, dense, paged_q, dense_q):
-                count(run["launches"], run["launches_by_route"])
+            for run in run_engines(torch, cfg, params, kernels_of):
+                emit({"phase": "engine", "ok": True, "card": card, "params": n_params, **run})
+                count("engine", run["launches"], run["launches_by_route"])
         del params
         torch.cuda.empty_cache()
     if phases & {"train_parity", "train", "profile"}:
@@ -1225,28 +1490,58 @@ def main(argv=None) -> int:
             emit({"phase": "profile", "ok": True, "card": card, **rep})
             params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
         if "train" in phases:
-            rep = run_train(torch, cfg, params, {
-                "flash_attention_forward": flash_attention_with_lse,
-                "flash_attention_backward_dq": flash_attention_backward_dq,
-                "flash_attention_backward_dkv": flash_attention_backward_dkv,
-            })
+            rep = run_train(torch, cfg, params, attention_kernels)
             emit({"phase": "train", "ok": True, "card": card, **rep})
             for n, routes in zip(rep["launches_per_step"], rep["launches_by_route_per_step"]):
-                count(n, routes)
+                count("train", n, routes)
         del params
+        torch.cuda.empty_cache()
+    if phases & {"moe_parity", "moe_engine"}:
+        cfg = moe_config(torch)
+        from ray_tpu_torch.models.transformer import init_params
+
+        t0 = time.perf_counter()
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(7))
+        torch.cuda.synchronize()
+        n_params = sum(p.numel() for _, p in named_leaves(params))
+        init_s = time.perf_counter() - t0
+        if "moe_parity" in phases:
+            rep = forward_parity(torch, dataclasses.replace(cfg, dtype=torch.float32), params)
+            emit({"phase": "moe_parity", "ok": True, "card": card, "params": n_params,
+                  "init_s": init_s, **rep})
+            torch.cuda.empty_cache()
+        if "moe_engine" in phases:
+            for run in run_engines(torch, cfg, params, kernels_of):
+                emit({"phase": "moe_engine", "ok": True, "card": card, "params": n_params,
+                      "num_experts": cfg.num_experts, "expert_top_k": cfg.expert_top_k, **run})
+                count("moe_engine", run["launches"], run["launches_by_route"])
+        del params
+        torch.cuda.empty_cache()
+    if "vit_train" in phases:
+        rep = run_vit_train(torch, vit_config(torch), attention_kernels)
+        emit({"phase": "vit_train", "ok": True, "card": card, **rep})
+        for routes in rep["launches_by_route_per_step"]:
+            count("vit_train", {n: sum(r.values()) for n, r in routes.items()}, routes)
+        torch.cuda.empty_cache()
+    if "dit" in phases:
+        rep = run_dit(torch, dit_config(torch))
+        emit({"phase": "dit", "ok": True, "card": card, **rep})
     if kernels:
         # the K3 entry's ms/bound are its serving prefill shape; train_* keys
-        # hold the same numbers at the train step's shape. K6's are its w1
+        # hold the same numbers at the train step's shape, vit_* (K3, K4,
+        # K5) at the ViT train step's. K6's are its w1
         # decode shape, with prefill_* at a prompt-64 prefill beside them.
         # K1's and K2's are the serving decode shape, warm, with each timed
         # shape (main, long, wide) cold and warm in timed_shapes.
         emit({"kernels": [
             {"name": n, "route": "cuda", "source": r["source"], "replaces": r["replaces"],
-             "launches": launches.get(n), "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
+             "launches": launches.get(n), "launches_by_path": by_path.get(n),
+             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"],
              "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "library_ms": r["library_ms"],
              **{k: x for k, x in r.items()
-                if k.startswith(("train_", "prefill_")) and not k.endswith("_shape")},
+                if k.startswith(("train_", "prefill_", "vit_"))
+                and not k.endswith(("_shape", "_call"))},
              # K1/K2: the event floor, the main shape cold, every timed shape
              **{k: r[k] for k in ("event_floor_ms", "cold_ms", "timed_shapes") if k in r},
              # K3-K6: each route's worst error and its launches on the main path

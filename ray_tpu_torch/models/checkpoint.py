@@ -84,9 +84,12 @@ def load_model(path: str, device=None) -> Tuple[Any, Any]:
 
 
 def _register_builtin():
+    from ray_tpu_torch.models.dit import DiTConfig
     from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.models.vit import ViTConfig
 
-    register_config(TransformerConfig)
+    for c in (TransformerConfig, ViTConfig, DiTConfig):
+        register_config(c)
 
 
 _register_builtin()

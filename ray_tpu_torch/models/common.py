@@ -26,3 +26,30 @@ def default_device(device, what: str) -> torch.device:
             "pass device='cpu' to run on the CPU"
         )
     return torch.device("cuda")
+
+
+def as_generator(seed_or_generator, device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device``: the one given, or a new one
+    seeded with the integer given (the ``init_state`` argument of the train
+    steps)."""
+    if isinstance(seed_or_generator, torch.Generator):
+        return seed_or_generator
+    return torch.Generator(device=device).manual_seed(int(seed_or_generator))
+
+
+def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """[B, H, W, C] -> [B, (H/p)*(W/p), p*p*C] (ViT/DiT patch embedding)."""
+    B, H, W, C = images.shape
+    p = patch_size
+    x = images.reshape(B, H // p, p, W // p, p, C)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(B, (H // p) * (W // p), p * p * C)
+
+
+def unpatchify(patches: torch.Tensor, image_size: int, patch_size: int,
+               channels: int) -> torch.Tensor:
+    """[B, N, p*p*C] -> [B, H, W, C] — inverse of :func:`patchify`."""
+    B = patches.shape[0]
+    p = patch_size
+    g = image_size // p
+    x = patches.reshape(B, g, g, p, p, channels)
+    return x.permute(0, 1, 3, 2, 4, 5).reshape(B, image_size, image_size, channels)

@@ -11,10 +11,13 @@ Attention: the flash kernels (:mod:`ray_tpu_torch.ops.attention`, forward
 and backward) on CUDA tensors, the grouped einsum elsewhere. The FFN's
 products (and, in cached generation, every layer product) go through
 ``_product``, which also takes int8 leaves with their scales (int8
-weight-only serving: the int8 matmul kernel, or dequantization). Training:
-:func:`loss_fn` and :func:`make_train_step` (AdamW as ``optax.adamw``), with
-per-layer rematerialisation. Not in this package yet: ring attention, MoE
-FFNs (``num_experts > 0``) and the sharding rules (one device only).
+weight-only serving: the int8 matmul kernel, or dequantization). The FFN is
+SwiGLU, or with ``num_experts > 0`` a top-k mixture of SwiGLU experts, in
+dense dispatch or, with ``moe_capacity_factor > 0``, capacity dispatch.
+Training: :func:`loss_fn` and :func:`make_train_step` (AdamW as
+``optax.adamw``), with per-layer rematerialisation. Not in this package
+yet: ring attention and the sharding rules, expert parallelism included
+(one device only).
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from ray_tpu_torch.models.common import default_device
+from ray_tpu_torch.models.common import as_generator, default_device
 from ray_tpu_torch.ops.attention import NEG_INF, flash_attention
 from ray_tpu_torch.ops.quantization import dequantize_int8, int8_matmul
 
@@ -47,7 +50,12 @@ class TransformerConfig:
     d_ff: int = 2048
     max_seq_len: int = 2048
     rope_theta: float = 10000.0
-    num_experts: int = 0  # > 0 (MoE) is not ported yet: raises
+    num_experts: int = 0          # 0 => dense FFN
+    expert_top_k: int = 2
+    # 0 => dense dispatch (every expert computes every token; exact);
+    # > 0 => capacity dispatch: ceil(top_k * T * factor / E) slots an
+    # expert, overflow tokens fall through the residual
+    moe_capacity_factor: float = 0.0
     dtype: torch.dtype = torch.bfloat16     # activation dtype
     param_dtype: torch.dtype = torch.float32
     attention: str = "auto"  # auto | flash | dense (ring: not ported yet)
@@ -96,19 +104,25 @@ def init_params(cfg: TransformerConfig, generator: torch.Generator) -> Dict[str,
         return _dinit(generator, shape, fan_in, pd)
 
     def one_layer():
-        if cfg.num_experts > 0:
-            raise NotImplementedError("MoE layers (num_experts > 0) are not ported yet")
-        return {
+        layer = {
             "attn_norm": torch.ones(d, dtype=pd, device=dev),
             "wq": dense_init((d, h, dh), d),
             "wk": dense_init((d, hkv, dh), d),
             "wv": dense_init((d, hkv, dh), d),
             "wo": dense_init((h, dh, d), d),
             "ffn_norm": torch.ones(d, dtype=pd, device=dev),
-            "w1": dense_init((d, ff), d),
-            "w3": dense_init((d, ff), d),
-            "w2": dense_init((ff, d), ff),
         }
+        if cfg.num_experts > 0:
+            e = cfg.num_experts
+            layer["router"] = dense_init((d, e), d)
+            layer["we1"] = dense_init((e, d, ff), d)
+            layer["we3"] = dense_init((e, d, ff), d)
+            layer["we2"] = dense_init((e, ff, d), ff)
+        else:
+            layer["w1"] = dense_init((d, ff), d)
+            layer["w3"] = dense_init((d, ff), d)
+            layer["w2"] = dense_init((ff, d), ff)
+        return layer
 
     embed = dense_init((cfg.vocab_size, d), d)
     per_layer = [one_layer() for _ in range(cfg.n_layers)]
@@ -267,9 +281,70 @@ def _dense_ffn(cfg: TransformerConfig, layer, x, scales=None):
     return _product(cfg, layer, scales, "w2", h)
 
 
+def _route(cfg: TransformerConfig, layer, x, scales):
+    """The router's gates in f32 and its top-k: (topv, topi) [B, T, k]."""
+    router = _dequantized(cfg, layer, scales, "router")
+    gates = torch.softmax(torch.einsum("btd,de->bte", x.float(), router.float()), dim=-1)
+    return torch.topk(gates, cfg.expert_top_k, dim=-1)
+
+
+def _experts(cfg: TransformerConfig, layer, scales, dtype):
+    """we1, we3, we2 in ``dtype``, as the expert products take them. Their
+    int8-serving scales come from quantizing along the expert axis, so they
+    vary along the contracted d / d_ff and the int8 kernel cannot take them:
+    each is dequantized (one layer at a time), as the JAX code does."""
+    return [_dequantized(cfg, layer, scales, n).to(dtype) for n in ("we1", "we3", "we2")]
+
+
+def _moe_ffn(cfg: TransformerConfig, layer, x, scales=None):
+    """Top-k MoE. ``moe_capacity_factor > 0`` routes through
+    :func:`_moe_ffn_capacity`; otherwise dense dispatch: every expert
+    computes every token and the normalised top-k gates select."""
+    if cfg.moe_capacity_factor > 0:
+        return _moe_ffn_capacity(cfg, layer, x, scales)
+    topv, topi = _route(cfg, layer, x, scales)
+    mask = torch.sum(F.one_hot(topi, cfg.num_experts).to(topv.dtype) * topv[..., None], dim=-2)
+    mask = (mask / (torch.sum(mask, -1, keepdim=True) + 1e-9)).to(x.dtype)  # [B, T, E]
+    we1, we3, we2 = _experts(cfg, layer, scales, x.dtype)
+    h = torch.einsum("btd,edf->betf", x, we1)
+    g = torch.einsum("btd,edf->betf", x, we3)
+    out = torch.einsum("betf,efd->betd", F.silu(g) * h, we2)
+    return torch.einsum("betd,bte->btd", out, mask)
+
+
+def _moe_ffn_capacity(cfg: TransformerConfig, layer, x, scales=None):
+    """Capacity-based top-k MoE (GShard/Switch): each expert takes at most
+    ``C = ceil(top_k * T * factor / E)`` tokens a row, its slots filled in
+    the flattened (token, choice) order; overflow tokens are dropped (they
+    pass through the residual). ``C`` depends on the T of the call, padding
+    included; padded tokens come after the real ones in that order, so
+    they never take a real token's slot."""
+    B, T, _ = x.shape
+    E, k = cfg.num_experts, cfg.expert_top_k
+    C = max(1, math.ceil(k * T * cfg.moe_capacity_factor / E))
+    topv, topi = _route(cfg, layer, x, scales)
+    topv = topv / (torch.sum(topv, -1, keepdim=True) + 1e-9)
+    sel = F.one_hot(topi, E).float()                             # [B,T,k,E]
+    # a choice's slot: how many earlier choices went to its expert
+    flat = sel.reshape(B, T * k, E)
+    pos = torch.cumsum(flat, dim=1) - flat
+    slot = torch.sum(pos.reshape(B, T, k, E) * sel, dim=-1).long()  # [B,T,k]
+    keep = (slot < C).float()
+    # an overflowing slot is clamped into range, then zeroed by keep
+    slot_oh = F.one_hot(slot.clamp(max=C - 1), C).float() * keep[..., None]
+    dispatch = torch.einsum("btke,btkc->btec", sel, slot_oh)    # [B,T,E,C]
+    combine = torch.einsum("btk,btke,btkc->btec", topv, sel, slot_oh)
+    xin = torch.einsum("btec,btd->becd", dispatch.to(x.dtype), x)
+    we1, we3, we2 = _experts(cfg, layer, scales, x.dtype)
+    h = torch.einsum("becd,edf->becf", xin, we1)
+    g = torch.einsum("becd,edf->becf", xin, we3)
+    out = torch.einsum("becf,efd->becd", F.silu(g) * h, we2)
+    return torch.einsum("btec,becd->btd", combine.to(x.dtype), out)
+
+
 def _ffn(cfg: TransformerConfig, layer, x, scales=None):
     if cfg.num_experts > 0:
-        raise NotImplementedError("MoE FFNs (num_experts > 0) are not ported yet")
+        return _moe_ffn(cfg, layer, x, scales)
     return _dense_ffn(cfg, layer, x, scales)
 
 
@@ -390,13 +465,32 @@ def _adamw_(params: list, grads: list, mu: list, nu: list, count: int, lr: float
     torch._foreach_add_(params, upd, alpha=-lr)
 
 
-def loss_and_grads(cfg: TransformerConfig, params, tokens: torch.Tensor):
-    """(loss, grads): :func:`loss_fn` and its gradient in every param leaf,
-    as a tree shaped like ``params`` (``jax.value_and_grad`` of it)."""
+def value_and_grad(loss_of: Callable, params):
+    """(loss, grads): ``loss_of(params)`` and its gradient in every param
+    leaf, as a tree shaped like ``params`` (``jax.value_and_grad``; a leaf
+    the loss does not use gets zeros, as there)."""
     live = [p.detach().requires_grad_() for p in _leaves(params)]
-    loss = loss_fn(cfg, _rebuild(params, live), tokens)
-    grads = torch.autograd.grad(loss, live)
+    loss = loss_of(_rebuild(params, live))
+    grads = torch.autograd.grad(loss, live, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for p, g in zip(live, grads)]
     return loss.detach(), _rebuild(params, grads)
+
+
+def loss_and_grads(cfg: TransformerConfig, params, tokens: torch.Tensor):
+    """(loss, grads) of :func:`loss_fn`, by :func:`value_and_grad`."""
+    return value_and_grad(lambda p: loss_fn(cfg, p, tokens), params)
+
+
+def adamw_update_(state, grads, learning_rate: float) -> None:
+    """One ``optax.adamw(learning_rate)`` step of a train state (as
+    :func:`new_train_state` builds it), in place: count and step advance,
+    then :func:`_adamw_` updates params and moments."""
+    opt = state["opt"]
+    opt["count"] += 1
+    state["step"] += 1
+    with torch.no_grad():
+        _adamw_(_leaves(state["params"]), _leaves(grads), _leaves(opt["mu"]),
+                _leaves(opt["nu"]), int(opt["count"]), learning_rate)
 
 
 def make_train_step(
@@ -426,20 +520,12 @@ def make_train_step(
     device = default_device(device, "make_train_step")
 
     def init_state(seed_or_generator=0):
-        g = seed_or_generator
-        if not isinstance(g, torch.Generator):
-            g = torch.Generator(device=device).manual_seed(int(g))
-        params = init_params(cfg, g)
+        params = init_params(cfg, as_generator(seed_or_generator, device))
         return new_train_state(_rebuild(params, [t.to(device) for t in _leaves(params)]))
 
     def train_step(state, tokens):
         loss, grads = loss_and_grads(cfg, state["params"], tokens.to(device))
-        opt = state["opt"]
-        opt["count"] += 1
-        state["step"] += 1
-        with torch.no_grad():
-            _adamw_(_leaves(state["params"]), _leaves(grads), _leaves(opt["mu"]),
-                    _leaves(opt["nu"]), int(opt["count"]), learning_rate)
+        adamw_update_(state, grads, learning_rate)
         return state, loss
 
     return init_state, train_step

@@ -37,10 +37,14 @@ embedding stay float). Every forward of the engine passes the scales as
 ``layer_scales=``, so on a CUDA device the six linears of each layer whose
 scales are per output column (``wq``, ``wk``, ``wv``, ``w1``, ``w3``,
 ``w2``) run the int8 matmul kernel, and ``wo`` is dequantized one layer at
-a time, as the JAX engine does every leaf.
+a time, as the JAX engine does every leaf. A MoE config (``num_experts >
+0``) serves the same way: ``wq``, ``wk`` and ``wv`` run the kernel, and
+``wo``, the router and the experts (``we1``, ``we3``, ``we2``, quantized
+along the expert axis, so their scales vary along the contracted axis) are
+dequantized one layer at a time.
 
-Not in this engine yet (ROADMAP): ``mesh=`` and MoE configs
-(``num_experts > 0``) raise ``NotImplementedError``; disaggregated
+Not in this engine yet (ROADMAP): ``mesh=`` raises
+``NotImplementedError``; disaggregated
 prefill/decode, metrics, latency sketches, request traces and the flight
 recorder, tenant and deadline read from the request context (pass
 ``tenant=``/``deadline_ts=``), and the Serve deployment wrappers.
@@ -179,8 +183,6 @@ class LLMEngine:
     ):
         if mesh is not None:
             raise NotImplementedError("multi-device (mesh) serving is not ported yet")
-        if cfg.num_experts > 0:
-            raise NotImplementedError("MoE layers (num_experts > 0) are not ported yet")
         if cache_kind not in ("dense", "paged"):
             raise ValueError(f"cache_kind must be 'dense' or 'paged', got {cache_kind!r}")
         self.device = default_device(device, "LLMEngine")

@@ -174,6 +174,9 @@ WGMMA_CASES = {  # (B, H, Tq, Tk, D, causal, window)
     "window_causal": (2, 4, 77, 77, 64, True, 16),
     "window_causal_d128": (1, 4, 200, 200, 128, True, 16),
     "window_noncausal_empty_rows": (1, 4, 150, 60, 64, False, 40),  # rows >= 99 see no key
+    # the ViT train step's length (196 patches and the CLS token): a 5-row
+    # second query block and a 5-key tail tile
+    "vit_noncausal": (2, 4, 197, 197, 64, False, None),
 }
 
 
@@ -390,6 +393,92 @@ def test_engine_on_gpu_matches_engine_on_cpu(cuda, cache_kind, quantize):
             eng.shutdown()
         assert (tq.int8_matmul.launches > n) == (quantize and dev == "cuda")
     assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("cache_kind", ["paged", "dense"])
+def test_moe_engine_on_gpu_matches_engine_on_cpu(cuda, cache_kind, quantize):
+    """A MoE config (4 experts, top-2, dense dispatch) served through the
+    kernels gives the plain path's greedy tokens on the CPU (f32); with
+    ``quantize`` K6 runs wq, wk and wv, and the router and the experts are
+    dequantized."""
+    from ray_tpu_torch.models.transformer import TransformerConfig, init_params
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = TransformerConfig(vocab_size=97, d_model=128, n_layers=2, n_heads=2, n_kv_heads=1,
+                            d_ff=256, num_experts=4, expert_top_k=2, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(8))
+    prompts = [[3, 5, 7, 11, 13], [2] * 17, list(range(1, 31)), [8, 9]]
+    decode = tdec.paged_decode_attention if cache_kind == "paged" else tdec.decode_attention
+    out = {}
+    for dev in ("cpu", "cuda"):
+        eng = LLMEngine(cfg, params, device=dev, max_batch_size=4, max_seq_len=64,
+                        cache_kind=cache_kind, quantize=quantize)
+        n, d = tq.int8_matmul.launches, decode.launches
+        try:
+            out[dev] = [f.result(timeout=120) for f in [eng.submit(p, max_tokens=8) for p in prompts]]
+        finally:
+            eng.shutdown()
+        assert (decode.launches > d) == (dev == "cuda")
+        assert (tq.int8_matmul.launches > n) == (quantize and dev == "cuda")
+    assert out["cuda"] == out["cpu"]
+
+
+def _vit_cfg(dtype, attention="auto"):
+    from ray_tpu_torch.models.vit import ViTConfig
+
+    # 16 patches and the CLS token; head_dim 64, as the kernels take it
+    return ViTConfig(image_size=32, patch_size=8, channels=3, num_classes=10, d_model=128,
+                     n_layers=2, n_heads=2, d_ff=256, dtype=dtype, attention=attention)
+
+
+def _vit_step(cfg, dev, params, images, labels):
+    """One ViT AdamW step on ``dev`` from a copy of ``params``: (loss, the
+    first moments, the attention kernels' launches by route)."""
+    from ray_tpu_torch.models import transformer as ttr
+    from ray_tpu_torch.models.vit import make_vit_train_step
+
+    _, train_step = make_vit_train_step(cfg, device=dev)
+    state = ttr.new_train_state(
+        ttr._rebuild(params, [t.to(dev, copy=True) for t in ttr._leaves(params)]))
+    fns = (tattn.flash_attention_with_lse, tattn.flash_attention_backward_dq,
+           tattn.flash_attention_backward_dkv)
+    before = [dict(f.launches_by_route) for f in fns]
+    state, loss = train_step(state, images, labels)
+    torch.cuda.synchronize()
+    return loss, ttr._leaves(state["opt"]["mu"]), [_moved(f, b) for f, b in zip(fns, before)]
+
+
+def test_vit_train_step_on_gpu_matches_cpu(cuda):
+    """One ViT AdamW step through K3, K4 and K5 non-causal (f32: the scalar
+    route) against the same step on the CPU's plain versions: loss atol
+    1e-4, the first moment atol 1e-5."""
+    from ray_tpu_torch.models.vit import init_vit_params
+
+    cfg = _vit_cfg(torch.float32)
+    params = init_vit_params(cfg, torch.Generator().manual_seed(5))
+    g = torch.Generator().manual_seed(6)
+    images, labels = torch.randn(4, 32, 32, 3, generator=g), torch.randint(0, 10, (4,), generator=g)
+    out = {dev: _vit_step(cfg, dev, params, images, labels) for dev in ("cpu", "cuda")}
+    assert out["cpu"][2] == [{}, {}, {}]
+    assert out["cuda"][2] == [{"simt_f32": 2}] * 3  # once a layer each, no recompute
+    assert abs(float(out["cuda"][0]) - float(out["cpu"][0])) <= 1e-4
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)
+
+
+def test_bf16_vit_train_step_matches_dense_attention_on_gpu(cuda):
+    """The same step in bf16 activations, K3, K4 and K5 on the tensor cores,
+    against the einsum attention on the card: loss atol 2e-2."""
+    from ray_tpu_torch.models.vit import init_vit_params
+
+    params = init_vit_params(_vit_cfg(torch.bfloat16), torch.Generator().manual_seed(5))
+    g = torch.Generator().manual_seed(6)
+    images, labels = torch.randn(4, 32, 32, 3, generator=g), torch.randint(0, 10, (4,), generator=g)
+    flash = _vit_step(_vit_cfg(torch.bfloat16, "flash"), cuda, params, images, labels)
+    dense = _vit_step(_vit_cfg(torch.bfloat16, "dense"), cuda, params, images, labels)
+    assert flash[2] == [{"wgmma_bf16": 2}] * 3 and dense[2] == [{}, {}, {}]
+    assert torch.isfinite(flash[0]) and abs(float(flash[0]) - float(dense[0])) <= 2e-2
 
 
 @pytest.mark.parametrize("target", ["dq", "int8", "paged", "dense"])

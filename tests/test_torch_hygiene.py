@@ -86,10 +86,8 @@ def test_unported_engine_options_raise():
     from ray_tpu_torch.serve.llm import LLMEngine
 
     cfg = TransformerConfig(vocab_size=11, d_model=8, n_layers=1, n_heads=2)
-    moe = TransformerConfig(vocab_size=11, d_model=8, n_layers=1, n_heads=2, num_experts=2)
-    for c, kw in ((cfg, {"mesh": object()}), (moe, {})):
-        with pytest.raises(NotImplementedError):
-            LLMEngine(c, {}, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        LLMEngine(cfg, {}, device="cpu", mesh=object())
 
 
 def _no_plain(*a, **k):

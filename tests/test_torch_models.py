@@ -103,8 +103,6 @@ def test_forward_logits_match_jax(params, attention):
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError):
-        ttr.init_params(ttr.TransformerConfig(**SMALL, num_experts=2), torch.Generator())
     cfg = ttr.TransformerConfig(**SMALL, attention="ring", dtype=torch.float32)
     tp = ttr.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError):
@@ -271,6 +269,152 @@ def test_quantized_products_route_by_dtype_and_scale_shape(monkeypatch, qparams)
     if tp["layers"]["wk"].dtype != torch.int8:
         per_layer = [per_layer[0]] + per_layer[3:]
     assert sorted(seen) == sorted(per_layer * SMALL["n_layers"])
+
+
+# --------------------------------------------------------------------------
+# MoE FFNs: dense and capacity dispatch
+# --------------------------------------------------------------------------
+MOE = dict(SMALL, num_experts=4)
+# (top_k, capacity factor): dense dispatch at top-1 and top-2; capacity
+# dispatch with room to spare at 1.25 and at 0.5, where tokens overflow
+DISPATCH = {"top1_dense": (1, 0.0), "top2_dense": (2, 0.0), "top2_capacity1.25": (2, 1.25),
+            "top2_capacity0.5": (2, 0.5)}
+
+
+def _moe_cfgs(case, attention="dense"):
+    k, f = DISPATCH[case]
+    kw = dict(MOE, expert_top_k=k, moe_capacity_factor=f, attention=attention)
+    return (jtr.TransformerConfig(**kw, dtype=jnp.float32),
+            ttr.TransformerConfig(**kw, dtype=torch.float32))
+
+
+@pytest.fixture(scope="module")
+def moe_params():
+    jp = jtr.init_params(_moe_cfgs("top2_dense")[0], jax.random.key(12))
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp))
+
+
+def test_moe_params_keep_the_jax_leaves(moe_params):
+    jp, tp = moe_params
+    tc = _moe_cfgs("top2_dense")[1]
+    fresh = ttr.init_params(tc, torch.Generator().manual_seed(0))
+    for tree in (tp, fresh):
+        assert {k: tuple(v.shape) for k, v in tree["layers"].items()} == {
+            k: v.shape for k, v in jp["layers"].items()}
+    assert {"router", "we1", "we3", "we2"} <= set(fresh["layers"])
+    assert not {"w1", "w3", "w2"} & set(fresh["layers"])
+
+
+@pytest.mark.parametrize("case", list(DISPATCH))
+@pytest.mark.parametrize("attention", ["dense", "flash"])
+def test_moe_forward_logits_match_jax(moe_params, case, attention):
+    jp, tp = moe_params
+    jc, tc = _moe_cfgs(case, attention)
+    toks = np.random.default_rng(1).integers(0, 89, size=(2, 12))
+    ref = jtr.forward(jc, jp, jnp.asarray(toks))
+    got = ttr.forward(tc, tp, torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("case", ["top2_capacity1.25", "top2_capacity0.5"])
+def test_moe_capacity_padding_never_takes_a_real_tokens_slot(moe_params, case):
+    """Slots fill in token order, so tokens padded after the real ones
+    change nothing for the real ones, whatever they hold (C is that of the
+    padded T); the FFN on the padded input matches the JAX code's. At 0.5
+    some real tokens overflow (their output is 0)."""
+    jp, tp = moe_params
+    jc, tc = _moe_cfgs(case)
+    rng = np.random.default_rng(6)
+    x = rng.normal(size=(2, 16, 32)).astype(np.float32)
+    layer_j = jax.tree.map(lambda a: a[0], jp["layers"])
+    layer_t = ttr.layer_params(tp, 0)
+    outs = []
+    for pad in (np.zeros((2, 6, 32), np.float32), rng.normal(size=(2, 6, 32)).astype(np.float32) * 3):
+        xp = np.concatenate([x[:, :10], pad], axis=1)
+        got = ttr._moe_ffn(tc, layer_t, torch.from_numpy(xp))
+        ref = jtr._moe_ffn(jc, layer_j, jnp.asarray(xp))
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+        outs.append(got[:, :10])
+    assert torch.equal(outs[0], outs[1])
+    dropped = (outs[0].abs().amax(-1) == 0).sum()
+    assert (int(dropped) > 0) == (case == "top2_capacity0.5")
+
+
+def _greedy_run(gen, mk, cfg, params, kind, scales=None):
+    """Prefill PROMPT, then 3 greedy decode steps on the row's own argmax:
+    the logits of each step (as numpy), dense or paged cache."""
+    kw = {} if scales is None else {"layer_scales": scales}
+    bt = np.random.default_rng(2).permutation(np.arange(1, 9)).reshape(2, 4).astype(np.int32)
+    if kind == "dense":
+        cache = gen.init_cache(cfg, 2, 16)
+        last, cache = gen.prefill(cfg, params, cache, mk(PROMPT), mk(LENS), **kw)
+    else:
+        cache = gen.init_paged_cache(cfg, 9, 4)
+        positions = np.tile(np.arange(8), (2, 1))
+        lg, cache = gen.paged_forward_with_cache(
+            cfg, params, cache, mk(bt), mk(PROMPT), mk(positions),
+            valid=mk(positions < LENS[:, None]), **kw)
+        last = lg[mk(np.arange(2)), mk(LENS - 1)]
+    out = [np.array(last, np.float32)]
+    for t in range(3):
+        tok, pos = out[-1].argmax(-1), LENS + t
+        if kind == "dense":
+            lg, cache = gen.decode_step(cfg, params, cache, mk(tok), mk(pos), **kw)
+        else:
+            lg, cache = gen.paged_decode_step(cfg, params, cache, mk(tok), mk(pos), mk(bt), **kw)
+        out.append(np.array(lg, np.float32))
+    return out
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("case", ["top2_dense", "top2_capacity1.25"])
+@pytest.mark.parametrize("kind", ["dense", "paged"])
+def test_moe_cached_forward_matches_jax(moe_params, kind, case, quantize):
+    """Prefill + 3 greedy decode steps: logits atol 1e-4 and the same
+    tokens. Under ``quantize`` every linear of at least 256 elements is int8
+    (the router and the experts dequantized, wq/wk/wv through the plain
+    version of the int8 matmul)."""
+    from ray_tpu.ops.quantization import quantize_layers as jquantize_layers
+    from ray_tpu_torch.ops.quantization import quantize_layers as tquantize_layers
+
+    jp, tp = moe_params
+    jc, tc = _moe_cfgs(case)
+    js = ts = None
+    if quantize:
+        jl, js = jquantize_layers(jp["layers"], min_size=256)
+        tl, ts = tquantize_layers(tp["layers"], min_size=256)
+        assert {k for k, w in tl.items() if w.dtype == torch.int8} == {
+            "wq", "wk", "wv", "wo", "router", "we1", "we3", "we2"}
+        jp, tp = {**jp, "layers": jl}, {**tp, "layers": tl}
+    ref = _greedy_run(jgen, jnp.asarray, jc, jp, kind, js)
+    got = _greedy_run(tgen, torch.from_numpy, tc, tp, kind, ts)
+    for i, (a, b) in enumerate(zip(got, ref)):
+        np.testing.assert_allclose(a, b, atol=ATOL, err_msg=f"step {i}")
+        np.testing.assert_array_equal(a.argmax(-1), b.argmax(-1), err_msg=f"step {i}")
+
+
+def test_moe_quantized_products_route_by_scale_shape(monkeypatch, moe_params):
+    """Under int8 serving of a MoE config only wq, wk and wv go through
+    ``int8_matmul`` (their scales are per output column); wo, the router and
+    the experts are dequantized."""
+    from ray_tpu_torch.models import transformer as ttr_mod
+    from ray_tpu_torch.ops.quantization import quantize_layers as tquantize_layers
+
+    _, tp = moe_params
+    tl, ts = tquantize_layers(tp["layers"], min_size=256)
+    seen = []
+    real = ttr_mod.int8_matmul
+
+    def spy(x, w, s, **kw):
+        seen.append(tuple(w.shape))
+        return real(x, w, s, **kw)
+
+    monkeypatch.setattr(ttr_mod, "int8_matmul", spy)
+    tc = _moe_cfgs("top2_dense")[1]
+    tgen.prefill(tc, {**tp, "layers": tl}, tgen.init_cache(tc, 2, 16), torch.from_numpy(PROMPT),
+                 torch.from_numpy(LENS), layer_scales=ts)
+    d, kv = SMALL["d_model"], SMALL["d_model"] // SMALL["n_heads"] * SMALL["n_kv_heads"]
+    assert sorted(seen) == sorted([(d, d), (d, kv), (d, kv)] * SMALL["n_layers"])
 
 
 def test_scatter_paged_kv_routes_invalid_writes_to_page_zero():

@@ -154,6 +154,67 @@ def test_quantized_engine_matches_jax(params, cache_kind):
         eng.shutdown()
 
 
+# --------------------------------------------------------------------------
+# MoE configs
+# --------------------------------------------------------------------------
+MOE = dict(SMALL, num_experts=4, expert_top_k=2)
+
+
+@pytest.fixture(scope="module")
+def moe_params():
+    jp = jax_init_params(JaxConfig(**MOE, dtype=jnp.float32), jax.random.key(13))
+    return jp, params_from_numpy(jax.tree.map(np.asarray, jp))
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("factor", [0.0, 1.25], ids=["dense_dispatch", "capacity1.25"])
+@pytest.mark.parametrize("cache_kind", ["paged", "dense"])
+def test_moe_engine_matches_jax(moe_params, cache_kind, factor, quantize):
+    """A MoE config served by both engines, chunked prefill on: the same
+    greedy tokens, float and int8 (every linear of at least 256 elements,
+    the router and the experts included). Capacity dispatch sizes its slots
+    from the padded length of each call, so it holds only if the two
+    engines pad prompts and chunks to the same buckets."""
+    jp, tp = moe_params
+    kw = dict(max_batch_size=4, max_seq_len=64, cache_kind=cache_kind, quantize=quantize,
+              quantize_min_size=256, prefill_chunk_tokens=7)
+    ref_eng = JaxEngine(JaxConfig(**MOE, moe_capacity_factor=factor, attention="dense",
+                                  dtype=jnp.float32), jp, **kw)
+    eng = LLMEngine(TransformerConfig(**MOE, moe_capacity_factor=factor, attention="dense",
+                                      dtype=torch.float32), tp, device="cpu", **kw)
+    try:
+        if quantize:
+            assert eng.params["layers"]["we1"].dtype == torch.int8
+            assert eng.params["layers"]["router"].dtype == torch.int8
+        assert _serve(eng) == _serve(ref_eng)
+        if cache_kind == "paged":
+            assert eng.stats()["prefill_chunks"] > len(PROMPTS)
+            _assert_no_leak(eng)
+    finally:
+        ref_eng.shutdown()
+        eng.shutdown()
+
+
+def test_moe_prefix_hit_with_cow_matches_jax(moe_params):
+    """Prefix reuse and copy-on-write on a MoE config: a repeated prompt of
+    exactly 4 blocks of 8 is served from the cache, its last block copied."""
+    jp, tp = moe_params
+    prompt = list(range(40, 8, -1))
+    ref_eng = JaxEngine(JaxConfig(**MOE, attention="dense", dtype=jnp.float32), jp,
+                        max_batch_size=4, max_seq_len=64, kv_block_size=8)
+    eng = LLMEngine(TransformerConfig(**MOE, attention="dense", dtype=torch.float32), tp,
+                    device="cpu", max_batch_size=4, max_seq_len=64, kv_block_size=8)
+    try:
+        ref = ref_eng.generate(prompt, max_tokens=6)
+        assert eng.generate(prompt, max_tokens=6) == ref == eng.generate(prompt, max_tokens=6)
+        st = eng.stats()
+        assert st["prefix_cache_hits"] == 1 and st["cow_copies"] == 1
+        _assert_no_leak(eng)
+    finally:
+        ref_eng.shutdown()
+        eng.shutdown()
+
+
 def test_quantized_engine_equals_generate_on_dequantized_weights(params):
     """The JAX test's contract (tests/test_serve_llm.py:144-174): greedy
     output of the quantized engine equals ``generate()`` on the dequantized

@@ -117,6 +117,58 @@ def test_remat_gives_bitwise_equal_loss_and_grads(jax_run, remat):
         assert torch.equal(a, b)
 
 
+# --------------------------------------------------------------------------
+# MoE: loss, gradients and AdamW steps, dense and capacity dispatch
+# --------------------------------------------------------------------------
+MOE_DISPATCH = {"dense_dispatch": 0.0, "capacity0.5": 0.5}
+
+
+def _moe_cfgs(factor, remat=False):
+    kw = dict(SMALL, num_experts=4, expert_top_k=2, moe_capacity_factor=factor,
+              attention="flash", remat=remat)
+    return (jtr.TransformerConfig(**kw, dtype=jnp.float32),
+            ttr.TransformerConfig(**kw, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("dispatch", list(MOE_DISPATCH))
+def test_moe_loss_and_grads_match_jax(dispatch):
+    jc, tc = _moe_cfgs(MOE_DISPATCH[dispatch])
+    jp = jtr.init_params(jc, jax.random.key(4))
+    toks = jnp.asarray(TOKENS)
+    ref_loss, ref_grads = jax.value_and_grad(lambda p: jtr.loss_fn(jc, p, toks))(jp)
+    tp = train_state_from_numpy(_np_tree(jp), _np_tree(jp), _np_tree(jp), 0, 0)["params"]
+    loss, grads = ttr.loss_and_grads(tc, tp, torch.from_numpy(TOKENS))
+    assert abs(float(loss) - float(ref_loss)) <= 1e-5
+    _assert_tree_close(grads, ref_grads, 1e-5, "grad")
+    assert float(grads["layers"]["router"].abs().max()) > 0  # the gates are trained
+
+
+@pytest.mark.parametrize("dispatch", list(MOE_DISPATCH))
+@pytest.mark.parametrize("remat", [False, "dots"], ids=["no_remat", "dots"])
+def test_moe_train_steps_match_jax(dispatch, remat):
+    """Three AdamW steps from the JAX init on both sides, under the same
+    remat policy: losses atol 1e-5, moments atol 1e-6, params atol 1e-4 (a
+    tenth of a step at lr 1e-3). The params' limit is wider than the dense
+    decoder's because a few expert weights (2 of 16,384 here) see a gradient
+    that sums to almost zero over the batch (~1e-5 against a median of
+    ~1e-4); there the summation order can flip the first moment's sign, and
+    Adam's normalised step follows it."""
+    jc, tc = _moe_cfgs(MOE_DISPATCH[dispatch], remat)
+    init_state, train_step = jtr.make_train_step(jc, learning_rate=LR)
+    jstate = init_state(jax.random.key(5))
+    state = _port_state(_np_tree(jstate))
+    _, port_step = ttr.make_train_step(tc, learning_rate=LR, device="cpu")
+    for i in range(3):
+        jstate, ref_loss = train_step(jstate, jnp.asarray(TOKENS))
+        state, loss = port_step(state, torch.from_numpy(TOKENS))
+        assert abs(float(loss) - float(ref_loss)) <= 1e-5, i
+    jstate = _np_tree(jstate)
+    _assert_tree_close(state["params"], jstate["params"], 1e-4, "params")
+    adam = jstate["opt"][0]
+    _assert_tree_close(state["opt"]["mu"], adam.mu, 1e-6, "mu")
+    _assert_tree_close(state["opt"]["nu"], adam.nu, 1e-6, "nu")
+
+
 def test_remat_and_unported_options_are_validated(monkeypatch):
     with pytest.raises(ValueError, match="remat"):
         ttr.TransformerConfig(**SMALL, remat="Dots")
