@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases build,kernels
     python3 chip_smoke.py --phases build,kernels,train_parity,train   # the training slice
     python3 chip_smoke.py --phases build,kernels,moe_parity,moe_engine,vit_train,dit
+    python3 chip_smoke.py --phases build,server,disagg   # the serving front
     python3 chip_smoke.py --phases build,profile   # one profiled train step (not in the default run)
 
 Phases, each printing one JSON line; any failure exits non-zero:
@@ -52,6 +53,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
    launch counters are zeroed just before each run and read just after, and
    every kernel of the run must have launched; every K6 launch on the
    tensor cores.
+4b. ``server`` — ``LLMServer`` on the same decoder in bf16 answers the
+   engine phase's burst from 8 streaming clients, paged (its tokens must
+   equal the paged engine phase's), dense (K2, K3; one blocking and one
+   streaming request must give the burst's tokens) and paged with
+   ``quantize=True`` (every K6 launch on the tensor cores); tokens/s and
+   client TTFT beside the engine's own sketches (TTFT, inter-token and
+   queue-wait p50/p99 over the burst) and the median of each phase of the
+   burst's request traces, which the server starts. Then ``OpenAICompatLLMServer`` with
+   the JAX tests' toy tokenizer: a completion, a chat and a streamed chat
+   (envelopes, usage counts, finish reasons), and ``top_p=0.5`` refused.
+4c. ``disagg`` — disaggregated prefill/decode on the same decoder: (a) a
+   ``role="prefill"`` and a ``role="decode"`` engine in this process, f32
+   activations with TF32 off, eight 64-token prompts exported, pulled and
+   adopted: greedy tokens identical to one co-located engine's, every rung
+   the in-process ``"host"`` one, K1 on the decode side only (16 a decode
+   step); the first prompt again pulls zero blocks (the decode side's
+   prefix cache). (b) The prefill engine in a spawned process, pulls over
+   the CUDA IPC transfer server: every rung ``"device"``, tokens equal to
+   (a)'s, every block over one connection; pull ms and GB/s a block, split
+   into connecting, opening the peer's block (IPC handle) and copying it. (c) The bf16 burst through an
+   in-process pair of ``LLMServer`` instances, float and int8: tokens/s and TTFT
+   beside the co-located paged server's, migration ms a request and a
+   block, GB/s; the export alone launches no K1 (and, under int8, K6 six
+   times a layer), its decode K1 16 times a decode step.
 5. ``train_parity`` — the 602M train-step decoder of ``bench.py`` (vocab
    32000, d_model 2048, 8 layers, 16 heads, d_ff 8192, T 2048), batch 1:
    loss and every gradient leaf through the flash kernels
@@ -88,8 +113,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    on the card against the CPU's on 2 images (atol 1e-4). No kernel runs
    here: its attention is the plain one, as in the JAX package.
 11. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
-   replaces, launches in the main-path runs (engine, train, moe_engine,
-   vit_train) in all and by phase, max error, device ms, plain ms, bound
+   replaces, launches in the main-path runs (engine, server, disagg, train,
+   moe_engine, vit_train) in all and by phase, max error, device ms, plain ms, bound
    ms and what bounds it, library ms; K1/K2 also the event floor and each
    timed shape.
 
@@ -118,8 +143,8 @@ import time
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
-PHASES = ("build", "kernels", "forward_parity", "engine", "train_parity", "train",
-          "moe_parity", "moe_engine", "vit_train", "dit")
+PHASES = ("build", "kernels", "forward_parity", "engine", "server", "disagg", "train_parity",
+          "train", "moe_parity", "moe_engine", "vit_train", "dit")
 OPTIONAL_PHASES = ("profile",)
 
 
@@ -927,8 +952,7 @@ def run_engine(torch, cfg, params, cache_kind: str, n_req: int, prompt_len: int,
         }
         eng.generate([5] * prompt_len, max_tokens=2)  # warm-up: cuBLAS handles, kernel load
         torch.cuda.synchronize()
-        prompts = [[(7 * i + j) % (cfg.vocab_size - 2) + 1 for j in range(prompt_len)]
-                   for i in range(n_req)]
+        prompts = burst_prompts(cfg, n_req, prompt_len)
         results = [None] * n_req
         ttft = [None] * n_req
 
@@ -965,7 +989,14 @@ def run_engine(torch, cfg, params, cache_kind: str, n_req: int, prompt_len: int,
         "tokens_per_s": n_tok / wall,
         "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft),
         "launches": launches, "launches_by_route": by_route, **weight_bytes,
+        "request_tokens": results,
     }
+
+
+def burst_prompts(cfg, n_req: int, prompt_len: int):
+    """The engine phase's burst: ``n_req`` distinct prompts (no shared prefix)."""
+    return [[(7 * i + j) % (cfg.vocab_size - 2) + 1 for j in range(prompt_len)]
+            for i in range(n_req)]
 
 
 def run_engines(torch, cfg, params, kernels_of: dict):
@@ -999,6 +1030,527 @@ def run_engines(torch, cfg, params, kernels_of: dict):
                 if r != {"mma_bf16": n["int8_matmul"], "simt": 0}:
                     raise AssertionError(f"{what}: K6 routes {r}")
             yield run
+
+
+# ---------------------------------------------------------------------------
+# the serving front: LLMServer, OpenAICompatLLMServer, disaggregated pairs
+# ---------------------------------------------------------------------------
+class ToyTokenizer:
+    """The JAX tests' toy tokenizer (tests/test_serve_llm.py): 1 char = 1 id."""
+
+    def encode(self, s):
+        return [ord(c) % 80 + 1 for c in s]
+
+    def decode(self, ids):
+        return "".join(chr((i - 1) % 80 + 97) for i in ids)
+
+
+def sketch_delta(before: dict, after: dict) -> dict:
+    """Percentiles of the observations an engine sketch took between two
+    ``to_dict()`` readings (the max is the later reading's)."""
+    from ray_tpu_torch.observability.sketch import LatencySketch
+
+    return LatencySketch.from_dict({
+        "boundaries": after["boundaries"],
+        "counts": [a - b for a, b in zip(after["counts"], before["counts"])],
+        "total": after["total"] - before["total"], "sum": after["sum"] - before["sum"],
+        "max": after["max"],
+    }).percentiles()
+
+
+def engine_sketches(eng) -> dict:
+    return {name: sk.to_dict() for name, sk in eng._sketches.items()}
+
+
+def trace_phases(store, n: int, max_tokens: int) -> dict:
+    """Median ms of each request-trace phase over the ``n`` traces ``store``
+    finished last (the server starts one a request), after checking each:
+    outcome ``ok``, ``max_tokens`` tokens, phases summing to e2e."""
+    done = [store.find(d["id"]) for d in store.snapshot(limit=n)["recent"]]
+    by_phase = {}
+    for t in done:
+        spans = t.phases()
+        if (t.outcome != "ok" or t.tokens != max_tokens
+                or abs(sum(b - a for _, a, b in spans) - t.e2e_s) > 1e-9):
+            raise AssertionError(f"request trace {t.to_dict()}")
+        for phase, a, b in spans:
+            by_phase.setdefault(phase, []).append((b - a) * 1e3)
+    if len(done) != n:
+        raise AssertionError(f"{len(done)} request traces finished, not {n}")
+    return {p: statistics.median(v) for p, v in by_phase.items()}
+
+
+def stream_burst(prompts, max_tokens: int, ask):
+    """One client thread a prompt; ``ask(i)`` returns request i's event
+    iterator (``{"token": t}`` events, then ``{"done": ...}``). Returns
+    (tokens per request, client TTFT per request, wall seconds)."""
+    n = len(prompts)
+    results, ttft, done = [None] * n, [None] * n, [None] * n
+
+    def client(i):
+        t0 = time.perf_counter()
+        toks = []
+        for ev in ask(i):
+            if "token" in ev:
+                if not toks:
+                    ttft[i] = time.perf_counter() - t0
+                toks.append(ev["token"])
+            else:
+                done[i] = ev
+        results[i] = toks
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    for i, (r, d) in enumerate(zip(results, done)):
+        if r is None or len(r) != max_tokens or d != {"done": True, "num_generated": max_tokens}:
+            raise AssertionError(f"request {i} returned {r!r}, then {d!r}")
+    return results, ttft, wall
+
+
+def check_openai(torch, cfg, params) -> dict:
+    """A completion, a chat and a streamed chat through
+    ``OpenAICompatLLMServer`` (toy tokenizer, greedy): envelopes, usage
+    counts, finish reasons; ``top_p=0.5`` is refused."""
+    from ray_tpu_torch.serve.llm import OpenAICompatLLMServer
+
+    tok = ToyTokenizer()
+    srv = OpenAICompatLLMServer(lambda: (cfg, params, tok), device="cuda", max_batch_size=8,
+                                max_seq_len=cfg.max_seq_len)
+    try:
+        text = "once upon a time"
+        comp = srv({"model": "llm_bench", "prompt": text, "max_tokens": 16, "temperature": 0})
+        msgs = [{"role": "user", "content": "tell me a story"}]
+        chat = srv({"model": "llm_bench", "messages": msgs, "max_tokens": 16, "temperature": 0})
+        chunks = list(srv({"model": "llm_bench", "messages": msgs, "max_tokens": 16,
+                           "temperature": 0, "stream": True}))
+        try:
+            srv({"model": "llm_bench", "prompt": text, "top_p": 0.5, "temperature": 0})
+            refused = None
+        except ValueError as exc:
+            refused = str(exc)
+    finally:
+        srv.engine.shutdown()
+    chat_prompt = len(tok.encode("user: tell me a story\nassistant:"))
+    for resp, obj, prefix, n_prompt in ((comp, "text_completion", "cmpl-", len(text)),
+                                        (chat, "chat.completion", "chatcmpl-", chat_prompt)):
+        c = resp["choices"][0]
+        body = c["text"] if obj == "text_completion" else c["message"]["content"]
+        if (resp["object"] != obj or not resp["id"].startswith(prefix)
+                or resp["model"] != "llm_bench" or c["finish_reason"] != "length"
+                or len(c["token_ids"]) != 16 or body != tok.decode(c["token_ids"])
+                or resp["usage"] != {"prompt_tokens": n_prompt, "completion_tokens": 16,
+                                     "total_tokens": n_prompt + 16}):
+            raise AssertionError(f"{obj}: envelope {resp}")
+    if chat["choices"][0]["message"]["role"] != "assistant":
+        raise AssertionError(f"chat message {chat['choices'][0]}")
+    ids = {c["id"] for c in chunks}
+    pieces = [c["choices"][0]["delta"].get("content") for c in chunks[:-1]]
+    if (len(ids) != 1 or not ids.pop().startswith("chatcmpl-") or len(pieces) != 16
+            or any(c["object"] != "chat.completion.chunk" for c in chunks)
+            or chunks[-1]["choices"][0] != {"delta": {}, "index": 0, "finish_reason": "length"}):
+        raise AssertionError(f"streamed chat chunks {chunks}")
+    if refused is None or "top_p=0.5" not in refused:
+        raise AssertionError(f"top_p=0.5 was not refused: {refused!r}")
+    return {"completion_text": comp["choices"][0]["text"],
+            "chat_content": chat["choices"][0]["message"]["content"],
+            "streamed_chat_content": "".join(pieces),
+            "streamed_equals_blocking_chat": "".join(pieces) == chat["choices"][0]["message"]["content"],
+            "usage": {"completion": comp["usage"], "chat": chat["usage"]},
+            "top_p_refused": refused}
+
+
+def run_servers(torch, cfg, params, kernels_of: dict, engine_tokens: dict):
+    """``LLMServer`` at full width in bf16 answers the engine phase's burst
+    (8 streaming clients, prompt 64, 32 tokens, greedy): paged, dense and
+    paged with ``quantize=True``, each yielded after its checks (every
+    kernel of the run launched; K1 at least once a layer in each of 31
+    decode steps; every K6 launch on the tensor cores). The paged server's
+    tokens must equal the paged engine phase's; on the dense server one
+    blocking and one streaming request for the first prompt must give its
+    burst tokens. Each burst's request traces (started by the server) give
+    the median of every phase. Then ``check_openai``."""
+    from ray_tpu_torch.observability import reqtrace
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    prompts = burst_prompts(cfg, 8, 64)
+    need = cfg.n_layers * 31
+    for kind, quantize in (("paged", False), ("dense", False), ("paged", True)):
+        names = (["paged_decode_attention"] if kind == "paged"
+                 else ["decode_attention", "flash_attention_forward"])
+        if quantize:
+            names.append("int8_matmul")
+        counters = {n: kernels_of[n] for n in names}
+        srv = LLMServer(lambda: (cfg, params), device="cuda", max_batch_size=8,
+                        max_seq_len=cfg.max_seq_len, kv_block_size=16, cache_kind=kind,
+                        quantize=quantize)
+        try:
+            srv({"prompt": [5] * 64, "max_tokens": 2})  # warm-up: the loop's cuBLAS handle
+            torch.cuda.synchronize()
+            before = engine_sketches(srv.engine)
+            reqtrace.global_trace_store().reset()
+            zero_counters(counters)
+            tokens, ttft, wall = stream_burst(
+                prompts, 32, lambda i: srv({"prompt": prompts[i], "max_tokens": 32,
+                                            "stream": True}))
+            torch.cuda.synchronize()
+            launches, by_route = read_counters(counters)
+            lat = {k: sketch_delta(before[k], v) for k, v in engine_sketches(srv.engine).items()}
+            phases = trace_phases(reqtrace.global_trace_store(), len(prompts), 32)
+            extra = {}
+            if kind == "dense":
+                blocking = srv({"prompt": prompts[0], "max_tokens": 32})
+                events = list(srv({"prompt": prompts[0], "max_tokens": 32, "stream": True}))
+                streamed = [e["token"] for e in events if "token" in e]
+                if not (blocking["tokens"] == streamed == tokens[0]
+                        and events[-1] == {"done": True, "num_generated": 32}):
+                    raise AssertionError(f"dense server: stream {streamed} vs blocking "
+                                         f"{blocking['tokens']} vs burst {tokens[0]}")
+                extra["stream_equals_blocking"] = True
+            stats = srv.stats()
+        finally:
+            srv.engine.shutdown()
+        what = f"{'quantized ' if quantize else ''}{kind} server"
+        if min(launches.values()) < 1:
+            raise AssertionError(f"{what} skipped a kernel: {launches}")
+        if kind == "paged" and launches["paged_decode_attention"] < need:
+            raise AssertionError(f"{what}: K1 launched {launches} < {need} times")
+        if quantize and by_route["int8_matmul"] != {"mma_bf16": launches["int8_matmul"],
+                                                    "simt": 0}:
+            raise AssertionError(f"{what}: K6 routes {by_route['int8_matmul']}")
+        ref = engine_tokens.get((kind, quantize))
+        if (kind, quantize) == ("paged", False) and tokens != ref:
+            raise AssertionError(f"{what}: tokens differ from the paged engine's {tokens} vs {ref}")
+        if any(not all(0 <= t < cfg.vocab_size for t in r) for r in tokens):
+            raise AssertionError(f"{what}: token out of range")
+        n_tok = sum(len(r) for r in tokens)
+        yield {
+            "server": "LLMServer", "cache_kind": kind, "quantize": quantize, "requests": 8,
+            "prompt_len": 64, "max_tokens": 32, "tokens": n_tok, "wall_s": wall,
+            "tokens_per_s": n_tok / wall, "ttft_s_median": statistics.median(ttft),
+            "ttft_s_max": max(ttft),
+            "engine_ttft_s": {k: lat["ttft"][k] for k in ("count", "p50", "p99")},
+            "engine_inter_token_s": {k: lat["inter_token"][k] for k in ("count", "p50", "p99")},
+            "engine_queue_wait_s": {k: lat["queue_wait"][k] for k in ("count", "p50", "p99")},
+            "trace_phase_ms_median": phases,
+            "equal_to_engine_phase": None if ref is None else (
+                tokens == ref if kind == "paged" else tokens[:len(ref)] == ref),
+            "launches": launches, "launches_by_route": by_route,
+            "prefix_cache_blocks": stats["prefix_cache_blocks"], **extra,
+        }
+    yield {"server": "OpenAICompatLLMServer", **check_openai(torch, cfg, params)}
+
+
+def run_disagg(torch, cfg, params, kernels_of: dict, colocated: dict):
+    """The disagg phase: (a) in process and (b) over CUDA IPC in f32 with TF32
+    off, (c) the bf16 burst through an in-process pair, float and int8.
+    Yields one report each, with its K1 (and K6) launches."""
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = dataclasses.replace(cfg, dtype=torch.float32)
+    a = disagg_in_process(torch, f32, params, kernels_of["paged_decode_attention"])
+    tokens = a.pop("tokens")
+    yield {"part": "a_in_process_f32", **a,
+           "launches": {"paged_decode_attention": a["k1_launches_decode_side"]}}
+    torch.cuda.empty_cache()
+    yield {"part": "b_cuda_ipc_f32",
+           **disagg_cuda_ipc(torch, f32, params, tokens, kernels_of["paged_decode_attention"])}
+    torch.cuda.empty_cache()
+    for quantize in (False, True):
+        yield {"part": "c_burst_bf16", **disagg_burst(
+            torch, cfg, params, kernels_of, quantize, colocated.get(quantize))}
+        torch.cuda.empty_cache()
+
+
+def _prefill_worker(cfg, prompts, mig_prefix, conn):
+    """The prefill engine of a spawned process (disagg phase, part b): the
+    serving decoder's weights from the same seed, f32 with TF32 off; export
+    every prompt, send the tickets, keep the staged blocks until the parent
+    names the migrations to release, report, exit."""
+    import torch
+
+    from ray_tpu_torch.models.transformer import init_params
+    from ray_tpu_torch.runtime import device_plane
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    eng = LLMEngine(cfg, params, device="cuda", max_batch_size=8,
+                    max_seq_len=cfg.max_seq_len, kv_block_size=16, role="prefill")
+    try:
+        futs = [eng.prefill_export(p, mig_id=f"{mig_prefix}/{i}") for i, p in enumerate(prompts)]
+        conn.send([f.result(timeout=300) for f in futs])
+        for mig_id in conn.recv():
+            eng.release_migration(mig_id)
+        server = device_plane.transfer_server()
+        conn.send({"pulls_served": server.pulls_served, "staged_left": server.staged_count(),
+                   "stats": eng.stats()})
+    finally:
+        eng.shutdown()
+
+
+def migrate_burst(prompts, prefix: str, p_eng, d_eng, max_tokens: int):
+    """Every prompt through export → pulls of the blocks ``d_eng`` lacks →
+    adoption, one client thread a prompt. Returns (tokens, rungs per
+    request, pull seconds per request)."""
+    from ray_tpu_torch.serve import disagg
+
+    n = len(prompts)
+    tokens, rungs, pull_s = [None] * n, [None] * n, [None] * n
+
+    def client(i):
+        ticket = p_eng.prefill_export(prompts[i], mig_id=f"{prefix}/{i}").result(timeout=300)
+        t0 = time.perf_counter()
+        arrays, r = {}, []
+        for b in range(d_eng.peek_prefix_match(prompts[i]) // d_eng.kv_block_size,
+                       ticket["n_blocks"]):
+            arrays[b], rung = disagg.pull_block(ticket, b)
+            r.append(rung)
+        pull_s[i] = time.perf_counter() - t0
+        rungs[i] = r
+        tokens[i] = d_eng.adopt_migration(ticket, arrays,
+                                          max_tokens=max_tokens).future.result(timeout=300)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    for i in range(n):
+        p_eng.release_migration(f"{prefix}/{i}")
+    if any(t is None for t in tokens):
+        raise AssertionError(f"{prefix}: a migrated request failed: {tokens}")
+    return tokens, rungs, pull_s
+
+
+def assert_no_leak(eng, what: str) -> None:
+    st = eng.stats()
+    if st["kv_blocks_in_use"] != st["prefix_cache_blocks"] or st["staged_migrations"]:
+        raise AssertionError(f"{what}: pages held outside the prefix cache: {st}")
+    eng.flush_prefix_cache()
+    if eng.stats()["kv_blocks_in_use"]:
+        raise AssertionError(f"{what}: pages leaked: {eng.stats()}")
+
+
+def disagg_in_process(torch, cfg, params, k1) -> dict:
+    """(a) A prefill and a decode engine in this process, f32 activations
+    with TF32 off: eight 64-token prompts exported, pulled (every rung the
+    in-process ``"host"`` one) and adopted; greedy tokens identical to one
+    co-located engine's; K1 only on the decode side, 16 a decode step. Then
+    the first prompt again: zero blocks pulled (the decode side's prefix
+    cache), the same tokens."""
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    prompts = burst_prompts(cfg, 8, 64)
+    kw = dict(device="cuda", max_batch_size=8, max_seq_len=cfg.max_seq_len, kv_block_size=16)
+    co = LLMEngine(cfg, params, **kw)
+    try:
+        futs = [co.submit(p, max_tokens=32) for p in prompts]
+        ref = [f.result(timeout=300) for f in futs]
+    finally:
+        co.shutdown()
+    p_eng = LLMEngine(cfg, params, role="prefill", **kw)
+    d_eng = LLMEngine(cfg, params, role="decode", **kw)
+    try:
+        k1.launches = 0  # an export alone (another prompt): no decode on this side
+        p_eng.prefill_export(prompts[0][::-1], mig_id="probe").result(timeout=300)
+        torch.cuda.synchronize()
+        k1_prefill = k1.launches
+        p_eng.release_migration("probe")
+        k1.launches = 0
+        tokens, rungs, _ = migrate_burst(prompts, "a", p_eng, d_eng, 32)
+        torch.cuda.synchronize()
+        k1_burst = k1.launches
+        again, again_rungs, _ = migrate_burst(prompts[:1], "a2", p_eng, d_eng, 32)
+        if tokens != ref:
+            raise AssertionError(f"migrated tokens differ from co-located: {tokens} vs {ref}")
+        if {r for rr in rungs for r in rr} != {"host"} or any(len(rr) != 4 for rr in rungs):
+            raise AssertionError(f"in-process rungs {rungs}")
+        if again != ref[:1] or again_rungs != [[]]:
+            raise AssertionError(f"warm prefix: pulled {again_rungs}, tokens {again} vs {ref[:1]}")
+        if k1_prefill != 0 or k1_burst % cfg.n_layers or k1_burst < cfg.n_layers * 31:
+            raise AssertionError(f"K1 launches: prefill side {k1_prefill}, decode {k1_burst}")
+        assert_no_leak(p_eng, "prefill engine")
+        assert_no_leak(d_eng, "decode engine")
+        return {"tokens_equal_colocated": True, "rungs": sorted({r for rr in rungs for r in rr}),
+                "blocks_pulled": sum(len(rr) for rr in rungs), "warm_prefix_blocks_pulled": 0,
+                "k1_launches_prefill_side": k1_prefill, "k1_launches_decode_side": k1_burst,
+                "k1_per_decode_step": cfg.n_layers, "tokens": tokens}
+    finally:
+        p_eng.shutdown()
+        d_eng.shutdown()
+
+
+def disagg_cuda_ipc(torch, cfg, params, want_tokens, k1) -> dict:
+    """(b) The prefill engine in a spawned process; this process's decode
+    engine pulls every block over the transfer server (CUDA IPC): every rung
+    ``"device"``, the tokens equal (a)'s, one connection for every block.
+    Pull ms and GB/s a block; connect, IPC-open and copy ms apart."""
+    import multiprocessing
+
+    from ray_tpu_torch.runtime import device_plane
+    from ray_tpu_torch.serve import disagg
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    prompts = burst_prompts(cfg, 8, 64)
+    ctx = multiprocessing.get_context("spawn")
+    parent, child = ctx.Pipe()
+    proc = ctx.Process(target=_prefill_worker, args=(cfg, prompts, "b", child), daemon=True)
+    t0 = time.perf_counter()
+    proc.start()
+    d_eng = LLMEngine(cfg, params, device="cuda", max_batch_size=8,
+                      max_seq_len=cfg.max_seq_len, kv_block_size=16, role="decode")
+    try:
+        if not parent.poll(600):
+            raise AssertionError("the prefill process sent no tickets")
+        tickets = parent.recv()
+        child_s = time.perf_counter() - t0
+        k1.launches = 0
+        stats0 = device_plane.stats.snapshot()
+        pull_ms, rungs, futs = [], [], []
+        for t in tickets:
+            arrays = {}
+            for b in range(t["n_blocks"]):
+                t1 = time.perf_counter()
+                arrays[b], rung = disagg.pull_block(t, b)
+                pull_ms.append((time.perf_counter() - t1) * 1e3)
+                rungs.append(rung)
+            futs.append(d_eng.adopt_migration(t, arrays, max_tokens=32).future)
+        tokens = [f.result(timeout=300) for f in futs]
+        torch.cuda.synchronize()
+        k1_decode = k1.launches
+        pulled = {k: v - stats0[k] for k, v in device_plane.stats.snapshot().items()}
+        parent.send([t["mig_id"] for t in tickets])
+        if not parent.poll(300):
+            raise AssertionError("the prefill process did not report")
+        report = parent.recv()
+        assert_no_leak(d_eng, "decode engine (CUDA IPC)")
+    finally:
+        d_eng.shutdown()
+        proc.join(timeout=120)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(timeout=30)
+    if proc.exitcode != 0:
+        raise AssertionError(f"the prefill process exited with {proc.exitcode}")
+    if set(rungs) != {"device"}:
+        raise AssertionError(f"CUDA IPC rungs {rungs}")
+    if k1_decode % cfg.n_layers or k1_decode < cfg.n_layers * 31:
+        raise AssertionError(f"CUDA IPC decode engine: K1 launched {k1_decode} times")
+    if tokens != want_tokens:
+        raise AssertionError(f"CUDA IPC tokens differ from in-process: {tokens} vs {want_tokens}")
+    if report["pulls_served"] != len(rungs) or report["staged_left"]:
+        raise AssertionError(f"prefill process report {report}")
+    if pulled["connects"] != 1 or pulled["ici_pulls"] != len(rungs):
+        raise AssertionError(f"the pulls did not ride one connection: {pulled}")
+    shape = tickets[0]["block_shape"]
+    block_bytes = math.prod(shape) * getattr(torch, tickets[0]["block_dtype"]).itemsize
+    med = statistics.median(pull_ms)
+    return {"rungs": sorted(set(rungs)), "tokens_equal_in_process": True,
+            "blocks_pulled": len(rungs), "block_shape": list(shape),
+            "block_dtype": tickets[0]["block_dtype"], "block_bytes": block_bytes,
+            "pull_ms_median": med, "pull_ms_max": max(pull_ms),
+            "pull_gb_per_s_median": block_bytes / med / 1e6,
+            "child_start_to_tickets_s": child_s, "device_pulls": pulled,
+            "connect_ms": pulled["connect_s"] * 1e3,
+            "open_ms_per_block": pulled["open_s"] * 1e3 / len(rungs),
+            "copy_ms_per_block": pulled["copy_s"] * 1e3 / len(rungs),
+            "launches": {"paged_decode_attention": k1_decode},
+            "prefill_process": {"pulls_served": report["pulls_served"],
+                                "migrations_out": report["stats"]["migrations_out"]}}
+
+
+def disagg_burst(torch, cfg, params, kernels_of: dict, quantize: bool, colocated):
+    """(c) The engine phase's bf16 burst through an in-process pair of
+    ``LLMServer`` instances (``disagg_prefill`` → ``disagg_decode`` streaming →
+    ``disagg_release``): tokens/s and client TTFT (to the first token the
+    decode side streams) beside the co-located paged server's, migration ms
+    a request and a block (ticket in hand → first streamed token: pulls,
+    admission, the write into the pool) and GB/s. Then the halves alone:
+    one export (K1 none; under int8 K6 on the prefill forward) and its
+    decode (K1 16 a decode step; under int8 K6 too)."""
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    names = ["paged_decode_attention"] + (["int8_matmul"] if quantize else [])
+    counters = {n: kernels_of[n] for n in names}
+    kw = dict(device="cuda", max_batch_size=8, max_seq_len=cfg.max_seq_len, kv_block_size=16,
+              quantize=quantize)
+    srv_p = LLMServer(lambda: (cfg, params), role="prefill", **kw)
+    srv_d = LLMServer(lambda: (cfg, params), role="decode", **kw)
+    prompts = burst_prompts(cfg, 8, 64)
+    mig_s = [None] * 8
+    try:
+        warm = {"prompt": [5] * 64, "max_tokens": 2}
+        srv_d.disagg_decode(warm, srv_p.disagg_prefill(warm, "c/warm"))
+        srv_p.disagg_release("c/warm")
+        torch.cuda.synchronize()
+
+        def ask(i):
+            req = {"prompt": prompts[i], "max_tokens": 32, "stream": True}
+            ticket = srv_p.disagg_prefill(req, f"c/{i}")
+            t0 = time.perf_counter()
+            resp = srv_d.disagg_decode(req, ticket)
+            if resp.get("_migration_rung") != "host":
+                raise AssertionError(f"in-process pair rung {resp}")
+            first = True
+            for ev in resp["_stream"]:
+                if first:
+                    mig_s[i] = time.perf_counter() - t0
+                    first = False
+                yield ev
+            srv_p.disagg_release(f"c/{i}")
+
+        zero_counters(counters)
+        tokens, ttft, wall = stream_burst(prompts, 32, ask)
+        torch.cuda.synchronize()
+        launches, by_route = read_counters(counters)
+        # the halves alone: the export, then its decode
+        zero_counters(counters)
+        ticket = srv_p.disagg_prefill({"prompt": prompts[0][::-1]}, "c/half")
+        torch.cuda.synchronize()
+        prefill_half = read_counters(counters)[0]
+        zero_counters(counters)
+        srv_d.disagg_decode({"prompt": prompts[0][::-1], "max_tokens": 32}, ticket)
+        torch.cuda.synchronize()
+        decode_half = read_counters(counters)[0]
+        srv_p.disagg_release("c/half")
+        block_bytes = 2 * cfg.n_layers * 16 * cfg.kv_heads * cfg.head_dim * 2  # bf16
+        assert_no_leak(srv_p.engine, "prefill server")
+        assert_no_leak(srv_d.engine, "decode server")
+    finally:
+        srv_p.engine.shutdown()
+        srv_d.engine.shutdown()
+    per_layer = k6_per_layer(cfg) * cfg.n_layers
+    if prefill_half.get("paged_decode_attention") != 0 or \
+            decode_half.get("paged_decode_attention") != cfg.n_layers * 31:
+        raise AssertionError(f"K1 by half: prefill {prefill_half}, decode {decode_half}")
+    if quantize and (prefill_half["int8_matmul"] != per_layer
+                     or decode_half["int8_matmul"] != per_layer * 31
+                     or by_route["int8_matmul"] != {"mma_bf16": launches["int8_matmul"],
+                                                    "simt": 0}):
+        raise AssertionError(f"K6 by half: prefill {prefill_half}, decode {decode_half}, "
+                             f"routes {by_route}")
+    if launches["paged_decode_attention"] % cfg.n_layers:
+        raise AssertionError(f"K1 launches {launches} not 16 a decode step")
+    n_tok = sum(len(r) for r in tokens)
+    med = statistics.median(mig_s)
+    return {
+        "pair": "LLMServer prefill + LLMServer decode, in process", "quantize": quantize,
+        "requests": 8, "prompt_len": 64, "max_tokens": 32, "tokens": n_tok, "wall_s": wall,
+        "tokens_per_s": n_tok / wall, "ttft_s_median": statistics.median(ttft),
+        "ttft_s_max": max(ttft), "colocated": colocated,
+        "migration_ms_per_request_median": med * 1e3, "migration_ms_per_request_max":
+        max(mig_s) * 1e3, "migration_ms_per_block_median": med * 1e3 / 4,
+        "block_bytes": block_bytes, "migration_gb_per_s": 4 * block_bytes / med / 1e9,
+        "launches_burst": launches, "launches_by_route": by_route,
+        "launches_prefill_half": prefill_half, "launches_decode_half": decode_half,
+        "launches": {n: launches[n] + prefill_half[n] + decode_half[n] for n in launches},
+    }
 
 
 def train_config(torch):
@@ -1456,7 +2008,7 @@ def main(argv=None) -> int:
             for r, x in per.items():
                 by_route.setdefault(name, {}).setdefault(r, 0)
                 by_route[name][r] += x
-    if phases & {"forward_parity", "engine"}:
+    if phases & {"forward_parity", "engine", "server", "disagg"}:
         cfg = serving_config(torch)
         from ray_tpu_torch.models.transformer import init_params
 
@@ -1470,10 +2022,29 @@ def main(argv=None) -> int:
             rep = forward_parity(torch, dataclasses.replace(cfg, dtype=torch.float32), params)
             emit({"phase": "forward_parity", "ok": True, "params": n_params,
                   "init_s": init_s, **rep})
+        engine_tokens = {}  # (cache kind, quantize) -> the burst's tokens
         if "engine" in phases:
             for run in run_engines(torch, cfg, params, kernels_of):
+                engine_tokens[(run["cache_kind"], run["quantize"])] = run.pop("request_tokens")
                 emit({"phase": "engine", "ok": True, "card": card, "params": n_params, **run})
                 count("engine", run["launches"], run["launches_by_route"])
+        colocated = {}  # quantize -> the paged server's burst numbers
+        if "server" in phases:
+            if ("paged", False) not in engine_tokens:  # the reference the server is held to
+                engine_tokens[("paged", False)] = run_engine(
+                    torch, cfg, params, "paged", 8, 64, 32, {})["request_tokens"]
+            for run in run_servers(torch, cfg, params, kernels_of, engine_tokens):
+                emit({"phase": "server", "ok": True, "card": card, **run})
+                if "launches" in run:
+                    count("server", run["launches"], run["launches_by_route"])
+                if run.get("cache_kind") == "paged":
+                    colocated[run["quantize"]] = {k: run[k] for k in (
+                        "tokens_per_s", "ttft_s_median", "ttft_s_max")}
+            torch.cuda.empty_cache()
+        if "disagg" in phases:
+            for rep in run_disagg(torch, cfg, params, kernels_of, colocated):
+                emit({"phase": "disagg", "ok": True, "card": card, **rep})
+                count("disagg", rep["launches"], rep.get("launches_by_route", {}))
         del params
         torch.cuda.empty_cache()
     if phases & {"train_parity", "train", "profile"}:

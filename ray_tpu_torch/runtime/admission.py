@@ -1,12 +1,18 @@
 """Admission control for the serving engine: typed sheds and fair queuing.
 
 The port's own copy of the part of ``ray_tpu/runtime/admission.py`` that the
-engine uses (the port imports nothing of ``ray_tpu``):
+serving path uses (the port imports nothing of ``ray_tpu``):
 
   * :func:`shed` / :func:`record_shed` — the one way a layer rejects: build
-    the typed :class:`OverloadedError` and count the shed per
-    ``(layer, reason)``.  The JAX package also feeds metrics, an audit log
-    and the flight recorder here; the port keeps only the count.
+    the typed :class:`OverloadedError`, count
+    ``requests_shed_total{layer,reason}`` and the process totals, and
+    flight-record the shed (throttled per layer and reason).  The JAX
+    package also appends each shed to its cluster's overload log when a
+    runtime is up; the port has no runtime, so there is no log to append to.
+  * :func:`tenant_tags` / :func:`tenant_label` — bounded tenant metric
+    labels (the first ``MAX_TENANT_LABELS`` ids, then ``"other"``).
+  * :func:`register_admission_source` / :func:`sources_snapshot` — layers
+    with live queues (LLM engines) register a snapshot callable.
   * :class:`WeightedFairQueue` — tenant-keyed weighted fair queuing (stride
     scheduling over per-tenant FIFOs; deterministic).
 """
@@ -15,13 +21,11 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict, deque
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
+from ray_tpu_torch.core.config import get_config
 from ray_tpu_torch.exceptions import OverloadedError
-
-#: retry-after hint stamped on a shed with no better estimate (the JAX
-#: package's ``Config.overload_retry_after_s`` default)
-RETRY_AFTER_S = 1.0
+from ray_tpu_torch.observability import metric_defs
 
 _stats_lock = threading.Lock()
 _shed_totals: Dict[Tuple[str, str], int] = {}
@@ -34,20 +38,37 @@ def shed(
     retry_after_s: Optional[float] = None,
     message: Optional[str] = None,
 ) -> OverloadedError:
-    """Build (and count) the typed shed error for ``layer``; the caller
-    raises it."""
+    """Build (and fully account) the typed shed error for ``layer``; the
+    caller raises it."""
+    if retry_after_s is None:
+        retry_after_s = get_config().overload_retry_after_s
     record_shed(layer, reason)
-    return OverloadedError(
-        layer, reason, RETRY_AFTER_S if retry_after_s is None else retry_after_s, message
-    )
+    return OverloadedError(layer, reason, retry_after_s, message)
 
 
 def record_shed(layer: str, reason: str) -> None:
-    """Count a shed whose typed signal the caller raises itself (e.g. an
+    """Account a shed whose typed signal the caller raises itself (e.g. an
     expired-deadline shed that surfaces ``DeadlineExceededError``)."""
+    metric_defs.REQUESTS_SHED.inc(tags={"layer": layer, "reason": reason})
     with _stats_lock:
         key = (layer, reason)
         _shed_totals[key] = _shed_totals.get(key, 0) + 1
+    # flight-record the shed, throttled per (layer, reason) so a shed storm
+    # costs one snapshot a second, not one per rejected request
+    try:
+        from ray_tpu_torch.observability import reqtrace
+
+        if reqtrace.snapshot_due(f"shed:{layer}:{reason}"):
+            reqtrace.flight_record(
+                "request_shed",
+                f"admission shed at {layer}: {reason}",
+                severity="WARNING",
+                state={"shed_totals": shed_totals()},
+                layer=layer,
+                reason=reason,
+            )
+    except Exception:  # noqa: BLE001 — observability must never fail a shed
+        pass
 
 
 def shed_totals() -> Dict[str, Dict[str, int]]:
@@ -56,6 +77,72 @@ def shed_totals() -> Dict[str, Dict[str, int]]:
     with _stats_lock:
         for (layer, reason), n in _shed_totals.items():
             out.setdefault(layer, {})[reason] = n
+    return out
+
+
+# bounded tenant metric labels: tenant ids are client-supplied, and every
+# distinct tag value mints a permanent metric series.  The first
+# MAX_TENANT_LABELS distinct ids get their own series; the rest aggregate
+# under "other" (per-tenant truth stays in the fair-queue snapshots).
+MAX_TENANT_LABELS = 64
+_tenant_labels_lock = threading.Lock()
+_tenant_tags: Dict[str, Dict[str, str]] = {}
+_DEFAULT_TENANT_TAGS = {"tenant": "default"}
+_OTHER_TENANT_TAGS = {"tenant": "other"}
+
+
+def tenant_tags(tenant: Optional[str]) -> Dict[str, str]:
+    """Prebuilt (cached) metric tags dict for a tenant; the lock is taken
+    only on the first sight of a new tenant."""
+    if not tenant:
+        return _DEFAULT_TENANT_TAGS
+    tags = _tenant_tags.get(tenant)
+    if tags is not None:
+        return tags
+    with _tenant_labels_lock:
+        tags = _tenant_tags.get(tenant)
+        if tags is None and len(_tenant_tags) < MAX_TENANT_LABELS:
+            tags = _tenant_tags[tenant] = {"tenant": tenant}
+    return tags if tags is not None else _OTHER_TENANT_TAGS
+
+
+def tenant_label(tenant: Optional[str]) -> str:
+    return tenant_tags(tenant)["tenant"]
+
+
+# admission sources: layers with live queues register a snapshot callable
+_sources_lock = threading.Lock()
+_sources: "OrderedDict[int, Tuple[str, Callable[[], dict]]]" = OrderedDict()
+
+
+def register_admission_source(name: str, snapshot_fn: Callable[[], dict]) -> int:
+    """Register a snapshot callable; returns its token.  Tokens are the
+    smallest free integer, not a counter: they label metric series (one
+    gauge series per live engine), so a process replacing engines reuses
+    labels and the series stay bounded by the engines alive at once."""
+    with _sources_lock:
+        token = 1
+        while token in _sources:
+            token += 1
+        _sources[token] = (name, snapshot_fn)
+        return token
+
+
+def unregister_admission_source(token: int) -> None:
+    with _sources_lock:
+        _sources.pop(token, None)
+
+
+def sources_snapshot() -> List[dict]:
+    with _sources_lock:
+        items = list(_sources.values())
+    out = []
+    for name, fn in items:
+        try:
+            snap = fn()
+        except Exception as exc:  # noqa: BLE001 — a dying source must not fail the snapshot
+            snap = {"error": f"{type(exc).__name__}: {exc}"}
+        out.append({"source": name, **snap})
     return out
 
 

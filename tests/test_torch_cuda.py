@@ -424,6 +424,161 @@ def test_moe_engine_on_gpu_matches_engine_on_cpu(cuda, cache_kind, quantize):
     assert out["cuda"] == out["cpu"]
 
 
+_PAIR_CFG = dict(vocab_size=97, d_model=128, n_layers=2, n_heads=2, n_kv_heads=1, d_ff=256)
+_PAIR_PROMPTS = [[3, 5, 7, 11, 13], [2] * 17, list(range(1, 31)), [8, 9] * 20]
+
+
+def _pair_migrate(p_eng, d_eng, prompt, mig_id, max_tokens):
+    """Export on ``p_eng``, pull the blocks ``d_eng`` lacks, adopt:
+    ``(tokens, rungs)``."""
+    from ray_tpu_torch.serve import disagg
+
+    ticket = p_eng.prefill_export(prompt, mig_id=mig_id).result(timeout=120)
+    matched = d_eng.peek_prefix_match(prompt)
+    arrays, rungs = {}, []
+    for bidx in range(matched // d_eng.kv_block_size, ticket["n_blocks"]):
+        arrays[bidx], rung = disagg.pull_block(ticket, bidx)
+        rungs.append(rung)
+    out = d_eng.adopt_migration(ticket, arrays, max_tokens=max_tokens).future.result(timeout=120)
+    return out, rungs
+
+
+@pytest.mark.parametrize("quantize", [False, True], ids=["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_prefill_decode_pair_on_gpu_matches_colocated(cuda, dtype, quantize):
+    """A prefill engine and a decode engine on the card, blocks migrated in
+    process: the decode engine's greedy tokens equal one co-located engine's
+    (the same arithmetic on the same blocks), every rung is the in-process
+    one, K1 runs on the decode engine only, and neither engine leaks a page."""
+    from ray_tpu_torch.models.transformer import TransformerConfig, init_params
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = TransformerConfig(**_PAIR_CFG, dtype=dtype)
+    params = init_params(cfg, torch.Generator().manual_seed(5))
+    kw = dict(device="cuda", max_batch_size=4, max_seq_len=64, quantize=quantize)
+    co = LLMEngine(cfg, params, **kw)
+    p_eng = LLMEngine(cfg, params, role="prefill", **kw)
+    d_eng = LLMEngine(cfg, params, role="decode", **kw)
+    try:
+        ref = [co.generate(p, max_tokens=8) for p in _PAIR_PROMPTS]
+        k1, k6 = tdec.paged_decode_attention.launches, tq.int8_matmul.launches
+        tickets = [p_eng.prefill_export(p, mig_id=f"pair/{i}").result(timeout=120)
+                   for i, p in enumerate(_PAIR_PROMPTS)]
+        assert tdec.paged_decode_attention.launches == k1  # no decode on the prefill side
+        assert (tq.int8_matmul.launches > k6) == quantize
+        for i, (p, ticket) in enumerate(zip(_PAIR_PROMPTS, tickets)):
+            assert ticket["block_dtype"] == str(dtype).removeprefix("torch.")
+            assert p_eng.release_migration(f"pair/{i}")
+        got = [_pair_migrate(p_eng, d_eng, p, f"pair/b{i}", 8) for i, p in enumerate(_PAIR_PROMPTS)]
+        assert [g[0] for g in got] == ref
+        assert {r for g in got for r in g[1]} == {"host"}
+        assert tdec.paged_decode_attention.launches > k1
+        for i in range(len(_PAIR_PROMPTS)):
+            p_eng.release_migration(f"pair/b{i}")
+        for eng in (p_eng, d_eng):
+            st = eng.stats()
+            assert st["kv_blocks_in_use"] == st["prefix_cache_blocks"]
+            eng.flush_prefix_cache()
+            assert eng.stats()["kv_blocks_in_use"] == 0
+    finally:
+        for eng in (co, p_eng, d_eng):
+            eng.shutdown()
+
+
+def _prefill_worker(cfg, seed, prompts, conn):
+    """The prefill engine of another process: export every prompt, send the
+    tickets, keep the staged blocks until the parent names the migrations
+    to release, then report and exit."""
+    from ray_tpu_torch.models.transformer import init_params
+    from ray_tpu_torch.runtime import device_plane
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    eng = LLMEngine(cfg, init_params(cfg, torch.Generator().manual_seed(seed)), device="cuda",
+                    max_batch_size=4, max_seq_len=64, role="prefill")
+    try:
+        conn.send([eng.prefill_export(p, mig_id=f"ipc/{i}").result(timeout=120)
+                   for i, p in enumerate(prompts)])
+        for mig_id in conn.recv():
+            eng.release_migration(mig_id)
+        conn.send({"pulls_served": device_plane.transfer_server().pulls_served,
+                   "staged_left": device_plane.transfer_server().staged_count(),
+                   **eng.stats()})
+    finally:
+        eng.shutdown()
+
+
+def test_cuda_ipc_rung_across_a_spawned_process(cuda):
+    """The prefill engine lives in a spawned child; this process's decode
+    engine pulls every block over the transfer server (CUDA IPC), all over
+    one connection: the rung is ``"device"``, the tokens equal a co-located
+    engine's here."""
+    import multiprocessing
+
+    from ray_tpu_torch.models.transformer import TransformerConfig, init_params
+    from ray_tpu_torch.runtime import device_plane
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = TransformerConfig(**_PAIR_CFG, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(5))
+    co = LLMEngine(cfg, params, device="cuda", max_batch_size=4, max_seq_len=64)
+    d_eng = LLMEngine(cfg, params, device="cuda", max_batch_size=4, max_seq_len=64,
+                      role="decode")
+    ctx = multiprocessing.get_context("spawn")
+    parent, child = ctx.Pipe()
+    proc = ctx.Process(target=_prefill_worker, args=(cfg, 5, _PAIR_PROMPTS, child), daemon=True)
+    proc.start()
+    try:
+        assert isinstance(device_plane.transfer_server(), device_plane.CudaIpcTransferServer)
+        ref = [co.generate(p, max_tokens=8) for p in _PAIR_PROMPTS]
+        assert parent.poll(300), "the prefill process sent no tickets"
+        tickets = parent.recv()
+        from ray_tpu_torch.serve import disagg
+
+        out, rungs = [], []
+        connects = device_plane.stats.snapshot()["connects"]
+        for t in tickets:
+            assert t["transfer_addr"] and t["transfer_addr"] != device_plane.transfer_address()
+            arrays = {}
+            for b in range(t["n_blocks"]):
+                arrays[b], rung = disagg.pull_block(t, b)
+                assert arrays[b].device.type == "cuda"
+                rungs.append(rung)
+            out.append(d_eng.adopt_migration(t, arrays, max_tokens=8).future.result(timeout=120))
+        assert set(rungs) == {"device"}
+        assert device_plane.stats.snapshot()["connects"] == connects + 1  # one for every block
+        assert out == ref
+        parent.send([t["mig_id"] for t in tickets])
+        assert parent.poll(120)
+        report = parent.recv()
+        assert report["pulls_served"] == len(rungs) and report["staged_left"] == 0
+        assert report["migrations_out"] == len(tickets) and report["staged_migrations"] == 0
+    finally:
+        proc.join(timeout=60)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join(timeout=10)
+        co.shutdown()
+        d_eng.shutdown()
+    assert proc.exitcode == 0
+
+
+def test_server_without_device_lands_on_cuda(cuda):
+    from ray_tpu_torch.models.transformer import TransformerConfig, init_params
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    cfg = TransformerConfig(**_PAIR_CFG, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(5))
+    srv = LLMServer(lambda: (cfg, params), max_batch_size=2, max_seq_len=64)
+    try:
+        assert srv.engine.device.type == "cuda"
+        assert srv.engine.params["embed"].device.type == "cuda"
+        n = tdec.paged_decode_attention.launches
+        resp = srv({"prompt": [3, 5, 7], "max_tokens": 4})
+        assert len(resp["tokens"]) == 4 and tdec.paged_decode_attention.launches > n
+    finally:
+        srv.engine.shutdown()
+
+
 def _vit_cfg(dtype, attention="auto"):
     from ray_tpu_torch.models.vit import ViTConfig
 

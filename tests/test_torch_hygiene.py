@@ -59,6 +59,40 @@ def test_importing_the_engine_and_trainer_loads_no_jax():
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
+def test_importing_the_serving_front_loads_no_jax():
+    code = (
+        "import sys, ray_tpu_torch.serve.llm, ray_tpu_torch.serve.disagg, "
+        "ray_tpu_torch.observability.metrics, ray_tpu_torch.observability.metric_defs, "
+        "ray_tpu_torch.observability.sketch, ray_tpu_torch.observability.events, "
+        "ray_tpu_torch.observability.reqtrace, ray_tpu_torch.runtime.device_plane, "
+        "ray_tpu_torch.runtime.fake_transfer, ray_tpu_torch.runtime.data_plane, "
+        "ray_tpu_torch.runtime.context, ray_tpu_torch.core.config\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu', 'optax', 'orbax'))\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_server_without_device_refuses_to_fall_back_to_cpu(monkeypatch):
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.runtime import device_plane
+    from ray_tpu_torch.serve.llm import LLMServer, OpenAICompatLLMServer
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TransformerConfig(vocab_size=11, d_model=8, n_layers=1, n_heads=2)
+    for cls in (LLMServer, OpenAICompatLLMServer):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(lambda: (cfg, {}))
+    # and with no CUDA device there is no transfer server to offer blocks on
+    device_plane.install_transfer_server(None)
+    try:
+        assert device_plane.transfer_server() is None
+        assert device_plane.transfer_address() is None
+    finally:
+        device_plane.install_transfer_server(None)
+
+
 def test_engine_without_device_refuses_to_fall_back_to_cpu(monkeypatch):
     from ray_tpu_torch.models.transformer import TransformerConfig
     from ray_tpu_torch.serve.llm import LLMEngine

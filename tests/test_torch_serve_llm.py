@@ -293,7 +293,7 @@ def test_head_of_line_waits_for_blocks(params):
         a = eng.submit([1] * 40, max_tokens=20)  # needs all 4 blocks
         _wait(lambda: eng.stats()["kv_blocks_in_use"] == 4)
         b = eng.submit([2] * 40, max_tokens=20)
-        _wait(lambda: eng.stats()["waiting_for_blocks"] == 1)
+        _wait(lambda: eng.admission_snapshot()["waiting_for_blocks"] == 1)
         assert len(a.result(timeout=120)) == 20
         assert len(b.result(timeout=120)) == 20
         _assert_no_leak(eng)
