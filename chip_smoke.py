@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,kernels,moe_parity,moe_engine,vit_train,dit
     python3 chip_smoke.py --phases build,server,disagg   # the serving front
     python3 chip_smoke.py --phases build,profile   # one profiled train step (not in the default run)
+    python3 chip_smoke.py --phases build,parallel  # the parallel layer, ranks sharing the card
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -112,11 +113,36 @@ Phases, each printing one JSON line; any failure exits non-zero:
    DDIM sample of 8 images with guidance 4.0 (finite), and the f32 forward
    on the card against the CPU's on 2 images (atol 1e-4). No kernel runs
    here: its attention is the plain one, as in the JAX package.
-11. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
+11. ``parallel`` — the parallel layer (``ray_tpu_torch/parallel``), ranks
+   that share the card as processes over gloo (NCCL refuses two ranks on
+   one GPU; gloo carries the collectives, and ``ppermute``'s staged
+   send/receive, through host memory, so step times measure the mechanism,
+   not scaling): (a) K3 causal and non-causal, K4 and K5 at the ``{"sp":
+   2}`` shard ``[6,16,1024,128]``, and causal at the ``{"tp": 2}`` shard
+   ``[6,8,2048,128]``, bf16, against their plain versions (atol = rtol =
+   2e-2) on the tensor cores, timed beside SDPA and the bound; (b)
+   ``ring_attention_sharded`` on 2 ranks, causal bf16 global
+   ``[6,16,2048,128]``: rank r launches r + 1 of each of K3, K4, K5; the
+   output (2e-2) and the gradients (relative Frobenius 2e-2) against
+   ``flash_attention`` on the full tensors; (c) the train phase's 602M step
+   (its seed and tokens) for 3 steps on ``{"sp": 2}`` (ring) and ``{"tp":
+   2}`` (flash): losses within ``LOSS_RTOL`` (2e-3) relative of the one-device steps',
+   K3/K4/K5 launches a step per rank, step ms (median after each rank's
+   first step), tokens/s, peak memory and the bytes carried through the
+   host; (d) the same widths at 2 layers on ``{"dp": 2, "sp": 2}`` (4
+   ranks) and with 8 experts, top-2, dense dispatch, on ``{"ep": 2}``, each
+   within ``LOSS_RTOL`` of one device's, and the collective layer's ops on a
+   world-size-1 NCCL group; (e) a planted fault the limit must catch: (d)'s
+   widths on ``{"sp": 2}`` (ring) with the gradient sum over sp left out of
+   ``sum_replicas_`` in the rank processes, so each rank updates its
+   replicated params with its own half-sequence's gradient; each rank's
+   losses must stray from one device's by more than ``LOSS_RTOL``.
+12. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
    replaces, launches in the main-path runs (engine, server, disagg, train,
-   moe_engine, vit_train) in all and by phase, max error, device ms, plain ms, bound
-   ms and what bounds it, library ms; K1/K2 also the event floor and each
-   timed shape.
+   moe_engine, vit_train, parallel) in all and by phase, max error, device
+   ms, plain ms, bound ms and what bounds it, library ms; K1/K2 also the
+   event floor and each timed shape; K3/K4/K5 also the parallel phase's
+   shard shapes (``parallel_<shape>_*``).
 
 Then the card's name and power limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when no
@@ -138,13 +164,14 @@ import sys
 import tempfile
 import threading
 import time
+from typing import Optional
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense FLOP/s
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 PHASES = ("build", "kernels", "forward_parity", "engine", "server", "disagg", "train_parity",
-          "train", "moe_parity", "moe_engine", "vit_train", "dit")
+          "train", "moe_parity", "moe_engine", "vit_train", "dit", "parallel")
 OPTIONAL_PHASES = ("profile",)
 
 
@@ -1934,6 +1961,391 @@ def profile_train_step(torch, cfg, params, batch: int = 6):
             "top": [{"name": n[:120], "device_ms": t, "calls": c} for n, t, c in rows[:15]]}
 
 
+# ---------------------------------------------------------------------------
+# the parallel layer: ranks sharing the card over gloo
+# ---------------------------------------------------------------------------
+# the attention shards of the parallel phase's meshes on the train step of
+# bench.py: {"sp": 2} gives each rank T/2 = 1024 rows of all 16 heads (the
+# ring's steps), {"tp": 2} all 2048 rows of 8 heads
+SHARD_ATTN = {"sp_causal": ((6, 16, 1024, 128), True),
+              "sp_noncausal": ((6, 16, 1024, 128), False),
+              "tp_causal": ((6, 8, 2048, 128), True)}
+RING_GLOBAL = (6, 16, 2048, 128)  # part (b): the ring's global q/k/v
+PARALLEL_TIMEOUT_S = 600.0
+# the sharded steps' losses against one device's, relative: the sound runs
+# read at most 4.6e-4 (the bf16 {"tp": 2} step 3, whose wo/w2 partial sums
+# meet in a different order); the planted fault of part (e) must read above
+# it
+LOSS_RTOL = 2e-3
+
+
+def attention_counters():
+    from ray_tpu_torch.ops.attention import (
+        flash_attention_backward_dkv,
+        flash_attention_backward_dq,
+        flash_attention_with_lse,
+    )
+
+    return {"flash_attention_forward": flash_attention_with_lse,
+            "flash_attention_backward_dq": flash_attention_backward_dq,
+            "flash_attention_backward_dkv": flash_attention_backward_dkv}
+
+
+def shard_shape_kernels(torch, g) -> dict:
+    """(a) K3, K4 and K5 at the parallel meshes' shard shapes, bf16: each
+    launch against its plain version (atol = rtol = 2e-2, lse 1e-4), on the
+    tensor-core route, timed beside SDPA (forward, and its backward for K4
+    and K5) and the bound."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention as A
+
+    atol, rtol = TOLS["bfloat16"]
+    out = {}
+    for name, ((B, H, T, D), causal) in SHARD_ATTN.items():
+        q, k, v, g_out = (torch.randn(B, H, T, D, generator=g, device="cuda").to(torch.bfloat16)
+                          for _ in range(4))
+        scale = D ** -0.5
+        before = dict(A.flash_attention_with_lse.launches_by_route)
+        o, lse = A.flash_attention_with_lse(q, k, v, None, causal)
+        check_route(A.flash_attention_with_lse, before, "bfloat16", f"parallel {name} K3")
+        o_p, lse_p = A.flash_attention_with_lse(q, k, v, None, causal, use_kernel=False)
+        err3 = max_err(o, o_p, atol, rtol, f"parallel {name} K3")
+        max_err(lse, lse_p, 1e-4, 1e-5, f"parallel {name} K3 lse")
+        a = (q, k, v, g_out, lse, A._delta(o, g_out, None), scale, causal, None)
+        before = dict(A.flash_attention_backward_dq.launches_by_route)
+        dq = A.flash_attention_backward_dq(*a)
+        check_route(A.flash_attention_backward_dq, before, "bfloat16", f"parallel {name} K4")
+        before = dict(A.flash_attention_backward_dkv.launches_by_route)
+        dk, dv = A.flash_attention_backward_dkv(*a)
+        check_route(A.flash_attention_backward_dkv, before, "bfloat16", f"parallel {name} K5")
+        err4 = max_err(dq, A._bwd_dq_plain(*a), atol, rtol, f"parallel {name} K4")
+        dk_p, dv_p = A._bwd_dkv_plain(*a)
+        err5 = max(max_err(dk, dk_p, atol, rtol, f"parallel {name} K5 dk"),
+                   max_err(dv, dv_p, atol, rtol, f"parallel {name} K5 dv"))
+        del o_p, lse_p, dk_p, dv_p
+        pairs, elem, side = attention_work(B, H, T, D, causal)
+        ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+        o_lib = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+        sdpa_bwd = device_ms(
+            lambda: torch.autograd.grad(o_lib, (ql, kl, vl), g_out, retain_graph=True))
+        out[name] = {
+            "shape": f"q/k/v[{B},{H},{T},{D}] {'causal' if causal else 'non-causal'} bf16",
+            "flash_attention_forward": dict(
+                max_abs_err=err3,
+                kernel_ms=device_ms(lambda: A.flash_attention_with_lse(q, k, v, None, causal)),
+                plain_ms=device_ms(lambda: A._flash_forward_plain(q, k, v, scale, causal)),
+                library_ms=device_ms(
+                    lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal)),
+                bound=bound(4 * elem + side, 4 * D * pairs, "bfloat16")),
+            "flash_attention_backward_dq": dict(
+                max_abs_err=err4, kernel_ms=device_ms(lambda: A.flash_attention_backward_dq(*a)),
+                plain_ms=device_ms(lambda: A._bwd_dq_plain(*a)), library_ms=sdpa_bwd,
+                bound=bound(5 * elem + 2 * side, 6 * D * pairs, "bfloat16")),
+            "flash_attention_backward_dkv": dict(
+                max_abs_err=err5,
+                kernel_ms=device_ms(lambda: A.flash_attention_backward_dkv(*a)),
+                plain_ms=device_ms(lambda: A._bwd_dkv_plain(*a)), library_ms=sdpa_bwd,
+                bound=bound(6 * elem + 2 * side, 8 * D * pairs, "bfloat16")),
+        }
+        for r in out[name].values():
+            if isinstance(r, dict):
+                r["bound_ms"], r["bound_by"] = r.pop("bound")
+        del q, k, v, g_out, o, lse, a, dq, dk, dv, ql, kl, vl, o_lib
+        torch.cuda.empty_cache()
+    return out
+
+
+def rel_frobenius(torch, got, want) -> float:
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite values")
+    return float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want))
+
+
+def _ring_rank(shape, seed: int):
+    """(b) One rank of ``ring_attention_sharded`` on a causal bf16 global
+    q/k/v: forward and backward with the launches counted, then (rank 0)
+    the gathered output and gradients against ``flash_attention`` on the
+    full tensors in this process."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.ops.attention import flash_attention
+    from ray_tpu_torch.parallel import MeshManager, collective, gather_array, shard_array
+    from ray_tpu_torch.parallel import ring_attention_sharded
+
+    counters = attention_counters()
+    mesh = MeshManager().create_mesh({"sp": dist.get_world_size()})
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, g_out = (torch.randn(shape, generator=g, device="cuda").to(torch.bfloat16)
+                      for _ in range(4))
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    with mesh:
+        g_local = shard_array(g_out, mesh, None, None, "sp", None)
+    collective.reset_staged()
+    zero_counters(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ring_attention_sharded(*ins, mesh, "sp", causal=True)
+    out.backward(g_local)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, routes = read_counters(counters)
+    staged = dict(collective.staged)
+    with mesh:  # each rank holds its share of each full gradient
+        grads = [collective.allreduce(t.grad.float(), "sp") for t in ins]
+    full = gather_array(out.detach(), mesh, None, None, "sp", None)
+    rep = {"rank": dist.get_rank(), "launches": launches, "launches_by_route": routes,
+           "staged_bytes": staged, "fwd_bwd_s": seconds}
+    if dist.get_rank() == 0:
+        ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        ref = flash_attention(*ref_ins, None, True)
+        ref.backward(g_out)
+        atol, rtol = TOLS["bfloat16"]
+        rep["out_max_abs_err"] = max_err(full, ref.detach(), atol, rtol, "ring output")
+        rep["grad_rel_err"] = {n: rel_frobenius(torch, gr, r.grad)
+                               for n, gr, r in zip("qkv", grads, ref_ins)}
+    return rep
+
+
+def _train_rank(cfg_kw: dict, axes: dict, step_kw: dict, steps: int, batch: int,
+                skip_axis: Optional[str] = None):
+    """(c), (d) One rank of the sharded train step: the params drawn from
+    the train phase's seed (cuda generator 0), the train phase's tokens
+    (cuda generator 3), ``steps`` AdamW steps with the counters zeroed
+    before and read after each. ``skip_axis`` plants a fault: the step's
+    gradient sum over the replicas of each leaf leaves that axis out."""
+    import types
+
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models import transformer
+    from ray_tpu_torch.models.transformer import TransformerConfig, make_train_step
+    from ray_tpu_torch.parallel import MeshManager, collective
+
+    if skip_axis is not None:
+        sound = transformer.sum_replicas_
+
+        def without_axis(grads, specs, mesh):
+            names = tuple(a for a in mesh.axis_names if a != skip_axis)
+            sound(grads, specs, types.SimpleNamespace(axis_names=names, shape=mesh.shape,
+                                                      group=mesh.group))
+
+        transformer.sum_replicas_ = without_axis
+
+    free_before = torch.cuda.mem_get_info()[0]
+    counters = attention_counters()
+    cfg = TransformerConfig(**cfg_kw, dtype=torch.bfloat16)
+    mesh = MeshManager().create_mesh(axes)
+    init_state, step = make_train_step(cfg, mesh=mesh, **step_kw)
+    state = init_state(0)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len), generator=g,
+                           device="cuda")
+    local = step.shard_batch(tokens)
+    torch.cuda.reset_peak_memory_stats()
+    collective.reset_staged()
+    losses, step_ms, launches, routes = [], [], [], []
+    for _ in range(steps):
+        zero_counters(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = step(state, local)
+        losses.append(float(loss))  # synchronises
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        n, r = read_counters(counters)
+        launches.append(n)
+        routes.append(r)
+    return {"rank": dist.get_rank(), "coords": mesh.coords(), "losses": losses,
+            "step_ms": step_ms, "launches_per_step": launches,
+            "launches_by_route_per_step": routes,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "free_gb_before": free_before / 1e9,
+            "staged_bytes_per_step": {k: x / steps for k, x in collective.staged.items()}}
+
+
+def _nccl_rank():
+    """(d) The collective layer's ops on a world-size-1 NCCL group."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import MeshManager, collective as C
+
+    if dist.get_backend() != "nccl":
+        raise AssertionError(f"backend {dist.get_backend()}")
+    mesh = MeshManager().create_mesh({"x": 1})
+    x = torch.arange(8.0, device="cuda").reshape(2, 4)
+    with mesh:
+        got = {"allreduce": C.allreduce(x, "x"), "allreduce_mean": C.allreduce_mean(x, "x"),
+               "allgather": C.allgather(x, "x"), "reducescatter": C.reducescatter(x, "x"),
+               "broadcast": C.broadcast(x, "x"), "all_to_all": C.all_to_all(x, "x", 0, 1),
+               "ppermute": C.ppermute(x, "x", [(0, 0)]), "send_recv": C.send_recv(x, "x")}
+        barrier = int(C.barrier("x"))
+    torch.cuda.synchronize()
+    bad = [n for n, y in got.items() if not (y.is_cuda and torch.equal(y, x))]
+    if bad or barrier != 0:
+        raise AssertionError(f"nccl world size 1: {bad}, barrier {barrier}")
+    return {"backend": "nccl", "ops": sorted(got) + ["barrier"]}
+
+
+def one_device_losses(torch, cfg_kw: dict, steps: int, batch: int) -> list:
+    """The losses of ``steps`` one-device steps from the parallel ranks'
+    seed and tokens."""
+    from ray_tpu_torch.models.transformer import TransformerConfig, make_train_step
+
+    cfg = TransformerConfig(**cfg_kw, dtype=torch.bfloat16)
+    init_state, step = make_train_step(cfg, device="cuda")
+    state = init_state(0)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (batch, cfg.max_seq_len), generator=g,
+                           device="cuda")
+    losses = [float(step(state, tokens)[1]) for _ in range(steps)]
+    del state
+    torch.cuda.empty_cache()
+    return losses
+
+
+def check_launches(rep: dict, want: dict, what: str) -> None:
+    """Every step of a rank launched K3/K4/K5 ``want`` times, all on the
+    tensor cores."""
+    for n, routes in zip(rep["launches_per_step"], rep["launches_by_route_per_step"]):
+        if n != want or any(r["simt_f32"] for r in routes.values()):
+            raise AssertionError(f"{what} rank {rep['rank']}: launches {n} {routes}, want {want}")
+
+
+def warm_median(reps: list) -> float:
+    """The median step ms over every rank's steps after its first (the
+    first also sets up the group's connections and the allocator)."""
+    return statistics.median(x for rep in reps for x in rep["step_ms"][1:])
+
+
+def loss_gaps(got: list, want: list) -> list:
+    return [abs(a - b) / abs(b) for a, b in zip(got, want)]
+
+
+def check_losses(got: list, want: list, what: str) -> list:
+    rel = loss_gaps(got, want)
+    if len(got) != len(want) or not all(math.isfinite(x) for x in got) or max(rel) > LOSS_RTOL:
+        raise AssertionError(f"{what}: losses {got} vs one device {want}")
+    return rel
+
+
+def run_parallel(torch, train_losses=None):
+    """The parallel phase: (a) the shard shapes' kernels; (b) ring attention
+    on 2 ranks; (c) the full-width 602M step on {"sp": 2} (ring) and
+    {"tp": 2} (flash); (d) {"dp": 2, "sp": 2} at 2 layers, a 2-rank
+    {"ep": 2} MoE step, and a world-size-1 NCCL group; (e) a planted fault
+    the loss limit must catch. The ranks are
+    processes sharing ``cuda:0`` over gloo (the caller names the backend:
+    NCCL refuses two ranks on one GPU); gloo carries their collectives
+    through host memory, so the step times measure the mechanism, not
+    scaling. Yields each part's report as it ends."""
+    from ray_tpu_torch.parallel import run_ranks
+
+    g = torch.Generator(device="cuda").manual_seed(11)
+    t0 = time.perf_counter()
+    shards = shard_shape_kernels(torch, g)
+    yield {"part": "a", "shard_shapes": shards, "seconds": time.perf_counter() - t0}
+
+    def ranks(fn, n, *args):
+        torch.cuda.empty_cache()
+        print(f"backend: gloo, {n} ranks on one card", flush=True)
+        return run_ranks(fn, n, *args, timeout_s=PARALLEL_TIMEOUT_S, device="cuda",
+                         backend="gloo")
+
+    def show(rep: dict) -> None:
+        print(f"rank {rep['rank']}: launches by route "
+              f"{rep.get('launches_by_route', rep.get('launches_by_route_per_step'))}, "
+              f"bytes staged through the host {rep.get('staged_bytes', rep.get('staged_bytes_per_step'))}",
+              flush=True)
+
+    # (b) ring attention: rank r launches r + 1 of K3, K4 and K5
+    t0 = time.perf_counter()
+    ring = ranks(_ring_rank, 2, RING_GLOBAL, 5)
+    for rep in ring:
+        show(rep)
+        r = rep["rank"]
+        want = {k: r + 1 for k in attention_counters()}
+        if rep["launches"] != want or any(x["simt_f32"] for x in rep["launches_by_route"].values()):
+            raise AssertionError(f"ring rank {r}: launches {rep['launches_by_route']}, want {want}")
+    if max(ring[0]["grad_rel_err"].values()) > 2e-2:
+        raise AssertionError(f"ring gradients: {ring[0]['grad_rel_err']}")
+    yield {"part": "b", "global_shape": "q/k/v[{},{},{},{}] causal bf16".format(*RING_GLOBAL),
+           "ranks": ring, "seconds": time.perf_counter() - t0}
+
+    # (c) the 602M train step on two meshes
+    tc = dataclasses.asdict(train_config(torch))
+    tc.pop("dtype")
+    tc.pop("param_dtype")
+    L, T, batch, steps = tc["n_layers"], tc["max_seq_len"], 6, 3
+    if train_losses is None or len(train_losses) < steps:
+        train_losses = one_device_losses(torch, dict(tc, attention="flash"), steps, batch)
+    for axes, attention in (({"sp": 2}, "ring"), ({"tp": 2}, "flash")):
+        t0 = time.perf_counter()
+        reps = ranks(_train_rank, 2, dict(tc, attention=attention), axes, {}, steps, batch)
+        for rep in reps:
+            show(rep)
+            j = rep["coords"].get("sp", 0) + 1 if attention == "ring" else 1
+            check_launches(rep, {"flash_attention_forward": 2 * j * L,
+                                 "flash_attention_backward_dq": j * L,
+                                 "flash_attention_backward_dkv": j * L}, f"{axes}")
+        rel = check_losses(reps[0]["losses"], train_losses[:steps], f"{axes} {attention}")
+        ms = warm_median(reps)
+        yield {"part": "c", "mesh": axes, "attention": attention, "layers": L, "batch": batch,
+               "seq": T, "losses": reps[0]["losses"], "one_device_losses": train_losses[:steps],
+               "loss_rel_err": rel, "step_ms_median": ms, "tokens_per_s": batch * T / (ms / 1e3),
+               "ranks": reps, "seconds": time.perf_counter() - t0,
+               "note": "two ranks share one card and gloo carries the collectives through "
+                       "host memory: the mechanism, not scaling"}
+
+    # (d) four ranks at 2 layers, the expert-parallel MoE step, NCCL
+    small = dict(tc, n_layers=2)
+    t0 = time.perf_counter()
+    ring_want = one_device_losses(torch, dict(small, attention="flash"), steps, batch)
+    reps = ranks(_train_rank, 4, dict(small, attention="ring"), {"dp": 2, "sp": 2}, {},
+                 steps, batch)
+    for rep in reps:
+        show(rep)
+        j = rep["coords"]["sp"] + 1
+        check_launches(rep, {"flash_attention_forward": 4 * j, "flash_attention_backward_dq": 2 * j,
+                             "flash_attention_backward_dkv": 2 * j}, "dp2 sp2")
+    rel = check_losses(reps[0]["losses"], ring_want, "dp2 sp2 ring")
+    ms = warm_median(reps)
+    yield {"part": "d", "mesh": {"dp": 2, "sp": 2}, "attention": "ring", "layers": 2,
+           "losses": reps[0]["losses"], "one_device_losses": ring_want, "loss_rel_err": rel,
+           "step_ms_median": ms, "ranks": reps, "seconds": time.perf_counter() - t0}
+    moe = dict(small, attention="flash", num_experts=8, expert_top_k=2)
+    t0 = time.perf_counter()
+    want = one_device_losses(torch, moe, steps, batch)
+    reps = ranks(_train_rank, 2, moe, {"ep": 2}, {"ep": "ep"}, steps, batch)
+    for rep in reps:
+        show(rep)
+        check_launches(rep, {"flash_attention_forward": 4, "flash_attention_backward_dq": 2,
+                             "flash_attention_backward_dkv": 2}, "ep2 moe")
+    rel = check_losses(reps[0]["losses"], want, "ep2 moe")
+    ms = warm_median(reps)
+    yield {"part": "d", "mesh": {"ep": 2}, "attention": "flash", "layers": 2, "num_experts": 8,
+           "expert_top_k": 2, "dispatch": "dense", "losses": reps[0]["losses"],
+           "one_device_losses": want, "loss_rel_err": rel, "step_ms_median": ms,
+           "ranks": reps, "seconds": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+    nccl = run_ranks(_nccl_rank, 1, timeout_s=120.0, device="cuda", backend="nccl")[0]
+    yield {"part": "d", "nccl_world_size_1": nccl}
+    # (e) the planted fault; its launches stay out of the main path's counts
+    t0 = time.perf_counter()
+    reps = ranks(_train_rank, 2, dict(small, attention="ring"), {"sp": 2}, {}, steps, batch,
+                 "sp")
+    gaps = [loss_gaps(rep["losses"], ring_want) for rep in reps]
+    if not all(max(g) > LOSS_RTOL for g in gaps):
+        raise AssertionError(f"the planted fault passed the {LOSS_RTOL} limit: {gaps}")
+    yield {"part": "e", "mesh": {"sp": 2}, "attention": "ring", "layers": 2,
+           "fault": "no gradient sum over sp", "one_device_losses": ring_want,
+           "losses_by_rank": [rep["losses"] for rep in reps], "loss_rel_err_by_rank": gaps,
+           "loss_rtol": LOSS_RTOL, "seconds": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -1995,6 +2407,7 @@ def main(argv=None) -> int:
                 emit({"phase": "kernel", "ok": True, "card": card, **r})
             torch.cuda.empty_cache()
 
+    train_losses = None  # the train phase's, which the parallel phase is held to
     launches = {}  # kernel -> launches over the main-path runs
     by_path = {}  # kernel -> {phase: launches}
     by_route = {}  # K3, K4, K5, K6 -> {route: launches} over the same runs
@@ -2062,6 +2475,7 @@ def main(argv=None) -> int:
             params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
         if "train" in phases:
             rep = run_train(torch, cfg, params, attention_kernels)
+            train_losses = rep["losses"]
             emit({"phase": "train", "ok": True, "card": card, **rep})
             for n, routes in zip(rep["launches_per_step"], rep["launches_by_route_per_step"]):
                 count("train", n, routes)
@@ -2097,6 +2511,20 @@ def main(argv=None) -> int:
     if "dit" in phases:
         rep = run_dit(torch, dit_config(torch))
         emit({"phase": "dit", "ok": True, "card": card, **rep})
+    shard_shapes = {}  # the parallel phase's (a): {shape: {kernel: numbers}}
+    if "parallel" in phases:
+        t0 = time.perf_counter()
+        for rep in run_parallel(torch, train_losses):
+            emit({"phase": "parallel", "ok": True, "card": card, **rep})
+            shard_shapes.update(rep.get("shard_shapes", {}))
+            for r in rep.get("ranks", []):
+                if "launches_per_step" in r:
+                    for n, routes in zip(r["launches_per_step"], r["launches_by_route_per_step"]):
+                        count("parallel", n, routes)
+                else:
+                    count("parallel", r["launches"], r["launches_by_route"])
+        emit({"phase": "parallel", "ok": True, "card": card,
+              "seconds": time.perf_counter() - t0})
     if kernels:
         # the K3 entry's ms/bound are its serving prefill shape; train_* keys
         # hold the same numbers at the train step's shape, vit_* (K3, K4,
@@ -2115,6 +2543,9 @@ def main(argv=None) -> int:
                 and not k.endswith(("_shape", "_call"))},
              # K1/K2: the event floor, the main shape cold, every timed shape
              **{k: r[k] for k in ("event_floor_ms", "cold_ms", "timed_shapes") if k in r},
+             # K3/K4/K5 at the parallel meshes' shard shapes
+             **{f"parallel_{shape}_{k}": x for shape, per in shard_shapes.items()
+                if n in per for k, x in {"shape": per["shape"], **per[n]}.items()},
              # K3-K6: each route's worst error and its launches on the main path
              **({"by_route": {rt: {**e, "launches": by_route.get(n, {}).get(rt)}
                               for rt, e in r["by_route"].items()}} if "by_route" in r else {})}

@@ -37,6 +37,23 @@ def as_generator(seed_or_generator, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed_or_generator))
 
 
+class JittedStep:
+    """A callable train step carrying its batch placement, the reference's
+    wrapper of a jitted step under a mesh (``common.py:33``):
+    ``shard_batch(...)`` returns this rank's block of a full batch, and
+    ``shard_state(state)`` this rank's shards of a full train state (every
+    rank holding the same one, e.g. a JAX state converted by
+    :func:`ray_tpu_torch.convert.train_state_from_numpy`)."""
+
+    def __init__(self, fn, shard_batch, shard_state=None):
+        self._fn = fn
+        self.shard_batch = shard_batch
+        self.shard_state = shard_state
+
+    def __call__(self, *args):
+        return self._fn(*args)
+
+
 def patchify(images: torch.Tensor, patch_size: int) -> torch.Tensor:
     """[B, H, W, C] -> [B, (H/p)*(W/p), p*p*C] (ViT/DiT patch embedding)."""
     B, H, W, C = images.shape

@@ -13,8 +13,8 @@ Attention is the plain :func:`ray_tpu_torch.ops.attention.mha`
 Random draws come from a ``torch.Generator`` where the JAX code takes a key,
 and each function that draws is split into the draw and the computation on
 the draws (:func:`_dit_loss_at`, :func:`_ddim_loop`), so the same draws can
-be fed to both packages. Not in this package yet: ``mesh=`` (one device
-only).
+be fed to both packages. Under a mesh (``make_dit_train_step(mesh=)``) the
+batch shards over dp and the params are replicated, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -26,15 +26,20 @@ from typing import Any, Callable, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ray_tpu_torch.models.common import as_generator, default_device, dense_init
+from ray_tpu_torch.models.common import JittedStep, as_generator, default_device, dense_init
 from ray_tpu_torch.models.common import patchify as _patchify, unpatchify as _unpatchify
 from ray_tpu_torch.models.transformer import (
+    _check_mesh,
     _leaves,
     _rebuild,
     adamw_update_,
     new_train_state,
+    shard_train_state,
+    sum_replicas_,
     value_and_grad,
 )
+from ray_tpu_torch.parallel import collective
+from ray_tpu_torch.parallel.mesh import P, shard_array
 from ray_tpu_torch.ops.attention import mha
 
 
@@ -239,19 +244,28 @@ def _dit_loss_at(cfg: DiTConfig, params, images, labels, t, eps, drop=None) -> t
     return torch.mean(torch.square(pred - eps))
 
 
+def _draws(cfg: DiTConfig, shape, dev, generator: torch.Generator, conditional: bool,
+           label_dropout: float = 0.1):
+    """(t, noise, label dropout) for a batch of ``shape`` from ``generator``
+    (the dropout None when there is none)."""
+    B = shape[0]
+    t = torch.randint(0, cfg.timesteps, (B,), generator=generator, device=dev)
+    eps = torch.randn(shape, generator=generator, device=dev, dtype=torch.float32)
+    drop = None
+    if cfg.num_classes and conditional and label_dropout > 0:
+        drop = torch.rand(B, generator=generator, device=dev) < label_dropout
+    return t, eps, drop
+
+
 def dit_loss_fn(
     cfg: DiTConfig, params, images, labels, generator: torch.Generator, *,
     label_dropout: float = 0.1,
 ) -> torch.Tensor:
     """Draws t, the noise and the label dropout from ``generator`` (on the
     images' device), then :func:`_dit_loss_at`."""
-    B, dev = images.shape[0], images.device
-    t = torch.randint(0, cfg.timesteps, (B,), generator=generator, device=dev)
-    eps = torch.randn(images.shape, generator=generator, device=dev, dtype=torch.float32)
-    drop = None
-    if cfg.num_classes and labels is not None and label_dropout > 0:
-        drop = torch.rand(B, generator=generator, device=dev) < label_dropout
-    return _dit_loss_at(cfg, params, images, labels, t, eps, drop)
+    draws = _draws(cfg, images.shape, images.device, generator, labels is not None,
+                   label_dropout)
+    return _dit_loss_at(cfg, params, images, labels, *draws)
 
 
 def make_dit_train_step(
@@ -259,33 +273,75 @@ def make_dit_train_step(
     *,
     mesh=None,
     learning_rate: float = 1e-4,
-    dp: str = "dp",
+    dp: Optional[str] = "dp",
     device=None,
 ) -> Tuple[Callable, Callable]:
-    """``(init_state, step(state, images, labels, generator))`` on one device,
-    the decoder's train state and optimizer (``optax.adamw(learning_rate)``):
+    """``(init_state, step(state, images, labels, generator))``, the
+    decoder's train state and optimizer (``optax.adamw(learning_rate)``):
     the step updates the state's tensors in place and returns ``(state,
     loss)``; ``generator`` (on ``device``) takes the place of the JAX key.
-    ``dp`` names a mesh axis and matters only with ``mesh=``, which is not
-    ported yet."""
-    del dp
-    if mesh is not None:
-        raise NotImplementedError("sharded training (mesh=) is not ported yet")
+
+    With ``mesh`` (every rank builds and calls it): the batch shards over
+    ``dp`` and the params are replicated. The step is a
+    :class:`JittedStep` whose ``shard_batch(images, labels)`` gives this
+    rank's rows; its generator draws for the whole batch (the same on every
+    rank) and each rank takes its rows of the draws, so the step is the
+    one-device step on the same generator. In place of the generator it
+    also takes the whole batch's draws ``(t, eps, drop)`` (as
+    :func:`_dit_loss_at` does; ``drop`` may be None)."""
     device = default_device(device, "make_dit_train_step")
 
     def init_state(seed_or_generator=0):
         params = init_dit_params(cfg, as_generator(seed_or_generator, device))
         return new_train_state(_rebuild(params, [t.to(device) for t in _leaves(params)]))
 
-    def step(state, images, labels, generator):
+    if mesh is None:
+        def step(state, images, labels, generator):
+            images = images.to(device)
+            labels = None if labels is None else labels.to(device)
+            loss, grads = value_and_grad(
+                lambda p: dit_loss_fn(cfg, p, images, labels, generator), state["params"])
+            adamw_update_(state, grads, learning_rate)
+            return state, loss
+
+        return init_state, step
+
+    _check_mesh(mesh)
+    dp_ax = dp if dp in mesh.shape else None
+    n_dp = mesh.shape[dp_ax] if dp_ax else 1
+
+    def spec_tree(tree):
+        return {k: spec_tree(v) for k, v in tree.items()} if isinstance(tree, dict) else P()
+
+    def sharded_step(state, images, labels, draws):
         images = images.to(device)
         labels = None if labels is None else labels.to(device)
-        loss, grads = value_and_grad(
-            lambda p: dit_loss_fn(cfg, p, images, labels, generator), state["params"])
+        B = images.shape[0]
+        lo = (collective.axis_index(dp_ax, mesh=mesh) if dp_ax else 0) * B
+        if isinstance(draws, torch.Generator):
+            draws = _draws(cfg, (B * n_dp, *images.shape[1:]), images.device, draws,
+                           labels is not None)
+        t, eps, drop = (None if d is None else d.to(device)[lo:lo + B] for d in draws)
+
+        def loss_of(p):
+            # this rank's rows' mean over the dp ranks, divided among the
+            # ranks holding the same rows
+            share = _dit_loss_at(cfg, p, images, labels, t, eps, drop) / mesh.size
+            return collective.replicated_sum(share, mesh.axis_names, mesh=mesh)
+
+        loss, grads = value_and_grad(loss_of, state["params"])
+        sum_replicas_(grads, spec_tree(grads), mesh)
         adamw_update_(state, grads, learning_rate)
         return state, loss
 
-    return init_state, step
+    def shard_batch(images, labels):
+        images = shard_array(images.to(device), mesh, dp_ax, None, None, None)
+        return images, None if labels is None else shard_array(labels.to(device), mesh, dp_ax)
+
+    def shard_state(state):
+        return shard_train_state(spec_tree(state["params"]), mesh, state)
+
+    return init_state, JittedStep(sharded_step, shard_batch, shard_state)
 
 
 # ---------------------------------------------------------------------------

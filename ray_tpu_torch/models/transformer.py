@@ -15,9 +15,15 @@ weight-only serving: the int8 matmul kernel, or dequantization). The FFN is
 SwiGLU, or with ``num_experts > 0`` a top-k mixture of SwiGLU experts, in
 dense dispatch or, with ``moe_capacity_factor > 0``, capacity dispatch.
 Training: :func:`loss_fn` and :func:`make_train_step` (AdamW as
-``optax.adamw``), with per-layer rematerialisation. Not in this package
-yet: ring attention and the sharding rules, expert parallelism included
-(one device only).
+``optax.adamw``), with per-layer rematerialisation.
+
+Under a mesh (``mesh=``; one process a rank) the same layer math runs on
+this rank's shards under a :class:`_Layout`: explicit tensor parallelism
+over tp (column-parallel wq/wk/wv, w1/w3 and a vocab-parallel embedding
+and log-softmax; row-parallel wo and w2 summed over tp), activations
+sharded over T on sp (ring attention, or K/V all-gathered), the batch over
+dp and the experts over ep. On one device the layout has no axes and every
+collective is skipped.
 """
 
 from __future__ import annotations
@@ -33,11 +39,16 @@ from torch.utils.checkpoint import (
     CheckpointPolicy,
     checkpoint,
     create_selective_checkpoint_contexts,
+    set_checkpoint_early_stop,
 )
 
-from ray_tpu_torch.models.common import as_generator, default_device
-from ray_tpu_torch.ops.attention import NEG_INF, flash_attention
+from ray_tpu_torch.models.common import JittedStep, as_generator, default_device
+from ray_tpu_torch.ops.attention import NEG_INF, flash_attention, flash_attention_with_lse
 from ray_tpu_torch.ops.quantization import dequantize_int8, int8_matmul
+from ray_tpu_torch.parallel import collective
+from ray_tpu_torch.parallel._compat import spmd_roll
+from ray_tpu_torch.parallel.mesh import Mesh, P, block_start, shard_array, shard_tree, spec_axes
+from ray_tpu_torch.parallel.ring import merge_partials, ring_attention
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,7 +69,7 @@ class TransformerConfig:
     moe_capacity_factor: float = 0.0
     dtype: torch.dtype = torch.bfloat16     # activation dtype
     param_dtype: torch.dtype = torch.float32
-    attention: str = "auto"  # auto | flash | dense (ring: not ported yet)
+    attention: str = "auto"  # auto | flash | dense | ring (ring needs an sp mesh axis)
     # Rematerialisation per layer, as the JAX package's: False => save
     # everything; True/"full" => recompute the whole layer in the backward;
     # "dots" => save the matmul outputs, recompute the rest (the policy of
@@ -171,10 +182,12 @@ def _repeat_kv(x, n_rep: int):
     return x[:, :, :, None, :].expand(B, T, Hkv, n_rep, Dh).reshape(B, T, Hkv * n_rep, Dh)
 
 
-def _gqa_mha(qt, k, v, *, causal: bool, sm_scale: float):
+def _gqa_mha(qt, k, v, *, causal: bool, sm_scale: float, q_offset: int = 0):
     """Grouped-query attention with K/V kept at kv-head width.
 
-    qt: [B, H, T, Dh]; k, v: [B, T, Hkv, Dh]."""
+    qt: [B, H, T, Dh]; k, v: [B, S, Hkv, Dh]. Under ``causal`` query i
+    sits at position ``q_offset + i`` of the keys (a sequence shard's
+    queries against every key)."""
     B, H, T, Dh = qt.shape
     Hkv = k.shape[2]
     qg = qt.reshape(B, Hkv, H // Hkv, T, Dh)
@@ -183,7 +196,8 @@ def _gqa_mha(qt, k, v, *, causal: bool, sm_scale: float):
     s = torch.einsum("bgrtd,bgsd->bgrts", qg.float(), kt.float()) * sm_scale
     if causal:
         S = s.shape[-1]
-        mask = torch.arange(S, device=qt.device)[None, :] <= torch.arange(T, device=qt.device)[:, None]
+        mask = (torch.arange(S, device=qt.device)[None, :]
+                <= q_offset + torch.arange(T, device=qt.device)[:, None])
         s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bgrts,bgsd->bgrtd", p, vt.float())
@@ -229,20 +243,116 @@ def scatter_paged_kv(
     return pages
 
 
-def _attention(cfg: TransformerConfig, q, k, v, use_flash: bool):
-    # q: [B, T, H, Dh]; k, v: [B, T, Hkv, Dh] (unrepeated under GQA)
-    if cfg.attention == "ring":
-        raise NotImplementedError("ring attention is not ported yet")
+# ---------------------------------------------------------------------------
+# the layout: how a model lies on a mesh (one device: no axes)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class _Layout:
+    """How a model lies on a mesh: the batch (dp), sequence (sp) and tensor
+    (tp) axes this mesh has (None where it lacks one), and the fitted spec
+    of every param leaf (``specs``). On one device (:data:`_ONE_DEVICE`)
+    there is no mesh, every axis is None and every leaf whole, so the
+    layer math below runs unchanged and every collective it names is
+    skipped. Collectives take the mesh from here, never from the mesh
+    entered around a call: a checkpointed layer's recompute runs in the
+    backward, after the call has returned."""
+    mesh: Any = None
+    dp: Optional[str] = None
+    sp: Optional[str] = None
+    tp: Optional[str] = None
+    specs: Optional[Dict[str, Any]] = None
+    seq_len: int = 0  # the unpadded T of the call (capacity dispatch); 0: the T it sees
+
+    def entry(self, name: str, dim: int):
+        """The spec entry of dimension ``dim`` of leaf ``name`` (top level
+        or a layer leaf); None on one device."""
+        if self.specs is None:
+            return None
+        spec = self.specs[name] if name in self.specs else self.specs["layers"][name]
+        return spec[dim]
+
+    def block(self, name: str, dim: int, size: int) -> int:
+        """Where this rank's block of that dimension (of full ``size``) starts."""
+        return block_start(self.mesh, self.entry(name, dim), size)
+
+    def size(self, axis) -> int:
+        return math.prod(self.mesh.shape[a] for a in spec_axes(axis))
+
+    def index(self, axis) -> int:
+        return self.mesh.axis_index(axis) if axis else 0
+
+    @property
+    def axes(self) -> Tuple[str, ...]:
+        return () if self.mesh is None else self.mesh.axis_names
+
+    @property
+    def replicas(self) -> int:
+        """Ranks that compute the same rows of the loss (tp, and any axis
+        that shards neither the batch nor the sequence)."""
+        if self.mesh is None:
+            return 1
+        return self.mesh.size // (self.size(self.dp) * self.size(self.sp))
+
+    def reduce(self, x, entry):
+        """Sum ``x`` over the axes of a sharded dim it has contracted."""
+        for a in spec_axes(entry):
+            if self.mesh.shape[a] > 1:
+                x = collective.allreduce(x, a, mesh=self.mesh)
+        return x
+
+
+_ONE_DEVICE = _Layout()
+
+
+def _local_kv(cfg: TransformerConfig, lay: _Layout, q, k, v):
+    """K/V for this rank's query heads: its own kv heads when wk/wv are
+    sharded like wq; the kv head of each local query head (the GQA group)
+    when they are replicated while wq is split."""
+    q_entry = lay.entry("wq", 2)
+    if not spec_axes(q_entry) or spec_axes(lay.entry("wk", 2)):
+        return k, v
     n_rep = cfg.n_heads // cfg.kv_heads
+    lo = lay.block("wq", 2, cfg.n_heads)
+    idx = torch.arange(lo, lo + q.shape[2], device=q.device) // n_rep
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _attention(cfg: TransformerConfig, lay: _Layout, q, k, v, use_flash: bool):
+    """Causal attention of this rank's block: q [B, T_l, H_l, Dh], k/v
+    [B, T_l, Hk, Dh] (unrepeated under GQA). Without a sequence axis: the
+    flash kernel, or the grouped einsum (``attention="ring"`` without one
+    is the einsum attention, as in the JAX package). Under sp: ring
+    attention under ``attention="ring"``; otherwise K/V all-gathered over
+    sp (one buffer) and each query shard at its causal offset, as the
+    reference's GSPMD computes it."""
+    k, v = _local_kv(cfg, lay, q, k, v)
+    H, Hk = q.shape[2], k.shape[2]
+    scale = 1.0 / math.sqrt(cfg.head_dim)
     qt = q.permute(0, 2, 1, 3)
-    if not use_flash:
-        o = _gqa_mha(qt, k, v, causal=True, sm_scale=1.0 / math.sqrt(cfg.head_dim))
+
+    def heads_first(k, v):  # full heads, [B, H, T, Dh], for the kernels
+        return (_repeat_kv(x, H // Hk).permute(0, 2, 1, 3) for x in (k, v))
+
+    if lay.sp is None:
+        o = (flash_attention(qt, *heads_first(k, v), None, True) if use_flash
+             else _gqa_mha(qt, k, v, causal=True, sm_scale=scale))
         return o.permute(0, 2, 1, 3)
-    # the flash kernel takes [B, H, T, Dh] with full heads
-    k, v = _repeat_kv(k, n_rep), _repeat_kv(v, n_rep)
-    kt, vt = (x.permute(0, 2, 1, 3) for x in (k, v))
-    o = flash_attention(qt, kt, vt, None, True)
-    return o.permute(0, 2, 1, 3)
+    if cfg.attention == "ring":
+        o = ring_attention(qt, *heads_first(k, v), lay.sp, causal=True, mesh=lay.mesh)
+        return o.permute(0, 2, 1, 3)
+    kv = collective.allgather(torch.stack([k, v]), lay.sp, axis=2, mesh=lay.mesh)
+    Tl = q.shape[1]
+    off = lay.index(lay.sp) * Tl
+    if not use_flash:
+        o = _gqa_mha(qt, kv[0], kv[1], causal=True, sm_scale=scale, q_offset=off)
+        return o.permute(0, 2, 1, 3)
+    kt, vt = heads_first(kv[0], kv[1])
+    parts = []
+    if off:  # the earlier shards' keys, all visible
+        parts.append(flash_attention_with_lse(qt, kt[:, :, :off], vt[:, :, :off], scale, False))
+    parts.append(flash_attention_with_lse(qt, kt[:, :, off:off + Tl], vt[:, :, off:off + Tl],
+                                          scale, True))
+    return merge_partials(parts).to(q.dtype).permute(0, 2, 1, 3)
 
 
 def _dequantized(cfg: TransformerConfig, layer, scales, name: str) -> torch.Tensor:
@@ -296,42 +406,69 @@ def _experts(cfg: TransformerConfig, layer, scales, dtype):
     return [_dequantized(cfg, layer, scales, n).to(dtype) for n in ("we1", "we3", "we2")]
 
 
-def _moe_ffn(cfg: TransformerConfig, layer, x, scales=None):
+def _moe_ffn(cfg: TransformerConfig, layer, x, scales=None, lay: _Layout = _ONE_DEVICE):
     """Top-k MoE. ``moe_capacity_factor > 0`` routes through
     :func:`_moe_ffn_capacity`; otherwise dense dispatch: every expert
-    computes every token and the normalised top-k gates select."""
+    computes every token and the normalised top-k gates select.
+
+    Under a mesh the experts are split over their axis (and d_ff over tp)
+    and each rank runs its own. Where the expert axis also shards the batch
+    (ep = dp), the tokens of the expert group are all-gathered first and a
+    reduce-scatter returns each rank its rows summed over the experts;
+    otherwise each rank runs its experts on its own tokens and the sum over
+    the expert axis completes them."""
+    e_entry, f_entry = lay.entry("we1", 1), lay.entry("we1", 3)
+    batch_ep = lay.dp is not None and spec_axes(e_entry) == (lay.dp,)
+    xin = collective.allgather(x, lay.dp, axis=0, mesh=lay.mesh) if batch_ep else x
+    e0 = lay.block("we1", 1, cfg.num_experts)
+    experts = slice(e0, e0 + layer["we1"].shape[0])
     if cfg.moe_capacity_factor > 0:
-        return _moe_ffn_capacity(cfg, layer, x, scales)
-    topv, topi = _route(cfg, layer, x, scales)
-    mask = torch.sum(F.one_hot(topi, cfg.num_experts).to(topv.dtype) * topv[..., None], dim=-2)
-    mask = (mask / (torch.sum(mask, -1, keepdim=True) + 1e-9)).to(x.dtype)  # [B, T, E]
-    we1, we3, we2 = _experts(cfg, layer, scales, x.dtype)
-    h = torch.einsum("btd,edf->betf", x, we1)
-    g = torch.einsum("btd,edf->betf", x, we3)
-    out = torch.einsum("betf,efd->betd", F.silu(g) * h, we2)
-    return torch.einsum("betd,bte->btd", out, mask)
+        out = _moe_ffn_capacity(cfg, layer, xin, scales, lay, experts)
+    else:
+        topv, topi = _route(cfg, layer, xin, scales)
+        mask = torch.sum(F.one_hot(topi, cfg.num_experts).to(topv.dtype) * topv[..., None],
+                         dim=-2)
+        mask = (mask / (torch.sum(mask, -1, keepdim=True) + 1e-9)).to(x.dtype)  # [B, T, E]
+        we1, we3, we2 = _experts(cfg, layer, scales, x.dtype)
+        h = torch.einsum("btd,edf->betf", xin, we1)
+        g = torch.einsum("btd,edf->betf", xin, we3)
+        out = torch.einsum("betf,efd->betd", F.silu(g) * h, we2)
+        out = torch.einsum("betd,bte->btd", out, mask[..., experts])
+    if batch_ep:
+        out = collective.reducescatter(out, lay.dp, scatter_dimension=0, mesh=lay.mesh)
+    else:
+        out = lay.reduce(out, e_entry)
+    return lay.reduce(out, f_entry)
 
 
-def _moe_ffn_capacity(cfg: TransformerConfig, layer, x, scales=None):
+def _moe_ffn_capacity(cfg: TransformerConfig, layer, x, scales=None,
+                      lay: _Layout = _ONE_DEVICE, experts: slice = slice(None)):
     """Capacity-based top-k MoE (GShard/Switch): each expert takes at most
     ``C = ceil(top_k * T * factor / E)`` tokens a row, its slots filled in
     the flattened (token, choice) order; overflow tokens are dropped (they
     pass through the residual). ``C`` depends on the T of the call, padding
-    included; padded tokens come after the real ones in that order, so
-    they never take a real token's slot."""
+    included (under a mesh: the unpadded T of the whole sequence,
+    ``lay.seq_len``); padded tokens come after the real ones in that order,
+    so they never take a real token's slot. ``experts``: the range of the
+    experts this rank holds. Under sp the slots are numbered over the whole
+    sequence: the earlier sequence blocks' counts offset this block's."""
     B, T, _ = x.shape
     E, k = cfg.num_experts, cfg.expert_top_k
-    C = max(1, math.ceil(k * T * cfg.moe_capacity_factor / E))
+    C = max(1, math.ceil(k * (lay.seq_len or T) * cfg.moe_capacity_factor / E))
     topv, topi = _route(cfg, layer, x, scales)
     topv = topv / (torch.sum(topv, -1, keepdim=True) + 1e-9)
     sel = F.one_hot(topi, E).float()                             # [B,T,k,E]
     # a choice's slot: how many earlier choices went to its expert
     flat = sel.reshape(B, T * k, E)
     pos = torch.cumsum(flat, dim=1) - flat
+    if lay.sp is not None:
+        counts = collective._all_gather(flat.sum(1)[None], lay.mesh.group(lay.sp), 0)
+        pos = pos + counts[:lay.index(lay.sp)].sum(0)[:, None, :]
     slot = torch.sum(pos.reshape(B, T, k, E) * sel, dim=-1).long()  # [B,T,k]
     keep = (slot < C).float()
     # an overflowing slot is clamped into range, then zeroed by keep
     slot_oh = F.one_hot(slot.clamp(max=C - 1), C).float() * keep[..., None]
+    sel = sel[..., experts]
     dispatch = torch.einsum("btke,btkc->btec", sel, slot_oh)    # [B,T,E,C]
     combine = torch.einsum("btk,btke,btkc->btec", topv, sel, slot_oh)
     xin = torch.einsum("btec,btd->becd", dispatch.to(x.dtype), x)
@@ -342,22 +479,26 @@ def _moe_ffn_capacity(cfg: TransformerConfig, layer, x, scales=None):
     return torch.einsum("btec,becd->btd", combine.to(x.dtype), out)
 
 
-def _ffn(cfg: TransformerConfig, layer, x, scales=None):
+def _ffn(cfg: TransformerConfig, layer, x, scales=None, lay: _Layout = _ONE_DEVICE):
     if cfg.num_experts > 0:
-        return _moe_ffn(cfg, layer, x, scales)
-    return _dense_ffn(cfg, layer, x, scales)
+        return _moe_ffn(cfg, layer, x, scales, lay)
+    return lay.reduce(_dense_ffn(cfg, layer, x, scales), lay.entry("w2", 1))
 
 
-def _layer(cfg: TransformerConfig, use_flash: bool, positions, x, layer):
+def _layer(cfg: TransformerConfig, lay: _Layout, use_flash: bool, positions, x, layer):
+    """One decoder layer on this rank's block: under tp, column-parallel
+    wq/wk/wv and w1/w3 (local heads, local d_ff) and row-parallel wo and w2
+    summed over tp."""
     h = _rms_norm(x, layer["attn_norm"])
     q = torch.einsum("btd,dhk->bthk", h, layer["wq"].to(h.dtype))
     k = torch.einsum("btd,dhk->bthk", h, layer["wk"].to(h.dtype))
     v = torch.einsum("btd,dhk->bthk", h, layer["wv"].to(h.dtype))
     q, k = _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta)
-    o = _attention(cfg, q, k, v, use_flash)
-    x = x + torch.einsum("bthk,hkd->btd", o, layer["wo"].to(o.dtype))
+    o = _attention(cfg, lay, q, k, v, use_flash)
+    x = x + lay.reduce(torch.einsum("bthk,hkd->btd", o, layer["wo"].to(o.dtype)),
+                       lay.entry("wo", 1))
     h = _rms_norm(x, layer["ffn_norm"])
-    return x + _ffn(cfg, layer, h)
+    return x + _ffn(cfg, layer, h, lay=lay)
 
 
 # the matrix products as the dispatcher sees them (einsum and @ decompose
@@ -371,57 +512,306 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _remat(cfg: TransformerConfig, fn: Callable) -> Callable:
+def _remat(cfg, fn: Callable, lay: _Layout = _ONE_DEVICE) -> Callable:
     if not cfg.remat or not torch.is_grad_enabled():
         return fn
     kw = {}
     if cfg.remat == "dots":
         kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
-    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+    if lay.mesh is None:
+        return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+    def run(*args):
+        # under a mesh the recompute replays every collective of the layer,
+        # in order, on every rank: no early stop (the flag is read here, as
+        # the checkpoint records the forward)
+        with set_checkpoint_early_stop(False):
+            return checkpoint(fn, *args, use_reentrant=False, **kw)
+
+    return run
 
 
-def forward(cfg: TransformerConfig, params: Dict[str, Any], tokens: torch.Tensor) -> torch.Tensor:
+def forward(cfg: TransformerConfig, params: Dict[str, Any], tokens: torch.Tensor, *,
+            act_spec=None, mesh=None, sp_axis: Optional[str] = None) -> torch.Tensor:
     """tokens [B, T] -> logits [B, T, V] f32. ``attention="auto"`` takes the
     flash kernel when the tokens are on a CUDA device. Differentiable in the
-    params; ``cfg.remat`` sets what each layer keeps for the backward."""
-    use_flash = cfg.attention == "flash" or (
-        cfg.attention == "auto" and tokens.device.type == "cuda"
-    )
-    B, T = tokens.shape
-    x = embed_tokens(cfg, params, tokens)
-    positions = torch.arange(T, device=tokens.device)[None, :].expand(B, T)
-    step = _remat(cfg, functools.partial(_layer, cfg, use_flash, positions))
-    # one unbind per stacked leaf: its backward stacks the layers' grads once
-    names = list(params["layers"])
-    for leaves in zip(*(params["layers"][n].unbind(0) for n in names)):
-        x = step(x, dict(zip(names, leaves)))
-    x = _rms_norm(x, params["final_norm"])
-    logits = torch.einsum("btd,vd->btv", x, params["embed"].to(x.dtype))
-    return logits.float()
+    params; ``cfg.remat`` sets what each layer keeps for the backward.
+
+    With ``mesh`` (a :class:`ray_tpu_torch.parallel.Mesh`; every rank calls
+    it): ``params`` are this rank's shards (:func:`shard_params`), ``tokens``
+    this rank's batch rows (all T), and the result is this rank's block of
+    the logits, ``[B/dp, T_pad/sp, V/tp]`` (T tail-padded to a multiple of
+    the sp size). ``act_spec`` (``P(dp, sp, None)``) and ``sp_axis`` name the
+    batch and sequence axes; tp is the mesh's ``"tp"``."""
+    lay = _call_layout(cfg, mesh, act_spec, sp_axis, tokens)
+    tok, _, positions = _sequence_block(lay, tokens)
+    h = _hidden(cfg, lay, params, tok, positions)
+    return torch.einsum("btd,vd->btv", h, params["embed"].to(h.dtype)).float()
 
 
-def embed_tokens(cfg: TransformerConfig, params, tokens) -> torch.Tensor:
+def embed_tokens(cfg: TransformerConfig, params, tokens, lay: _Layout = _ONE_DEVICE):
     """The tied-embedding input path: rows scaled by sqrt(d_model). JAX
     multiplies by a weakly typed constant, which takes the array's dtype,
     so the scale is rounded to the activation dtype first here too. The
     rows are gathered before the cast (same numbers, one row per token
-    converted instead of the whole table)."""
+    converted instead of the whole table). On a vocab-sharded table each
+    rank looks up the ids of its block (zeros elsewhere) and the sum over
+    tp assembles the rows (one non-zero term a row: exact)."""
     scale = torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype).item()
-    return params["embed"][tokens.long()].to(cfg.dtype) * scale
+    entry = lay.entry("embed", 0)
+    if not spec_axes(entry):
+        return params["embed"][tokens.long()].to(cfg.dtype) * scale
+    ids, inside = _vocab_block(lay, tokens, cfg.vocab_size)
+    rows = params["embed"][ids].to(cfg.dtype) * scale
+    return lay.reduce(torch.where(inside[..., None], rows, 0), entry)
 
 
-def loss_fn(cfg: TransformerConfig, params, tokens: torch.Tensor) -> torch.Tensor:
+def _hidden(cfg: TransformerConfig, lay: _Layout, params, tokens, positions):
+    """The final-normed hidden states [B/dp, T_pad/sp, d] of this rank's
+    block."""
+    use_flash = cfg.attention == "flash" or (
+        cfg.attention == "auto" and tokens.device.type == "cuda")
+    x = embed_tokens(cfg, params, tokens, lay)
+    step = _remat(cfg, functools.partial(_layer, cfg, lay, use_flash, positions), lay)
+    # one unbind per stacked leaf: its backward stacks the layers' grads once
+    names = list(params["layers"])
+    for leaves in zip(*(params["layers"][n].unbind(0) for n in names)):
+        x = step(x, dict(zip(names, leaves)))
+    return _rms_norm(x, params["final_norm"])
+
+
+def loss_fn(cfg: TransformerConfig, params, tokens: torch.Tensor, *, act_spec=None, mesh=None,
+            sp_axis: Optional[str] = None) -> torch.Tensor:
     """Next-token cross entropy: position t predicts tokens[:, t+1]. The
     forward runs on the full [B, T] batch and the last position (whose
     rolled target wraps around) is masked out of the mean, as in the JAX
-    package."""
+    package.
+
+    With ``mesh`` (as :func:`forward`): the loss of the whole batch, the
+    same on every rank. Each rank's share is the sum of its rows' terms
+    over the global count, divided among the ranks that compute the same
+    rows; the shares' sum is the loss, whose cotangent passes through to
+    each share. So its gradient on a rank is that rank's share, which the
+    replicas of each leaf sum (:func:`make_train_step` does)."""
+    return _loss(cfg, _call_layout(cfg, mesh, act_spec, sp_axis, tokens), params, tokens)
+
+
+def _loss(cfg: TransformerConfig, lay: _Layout, params, tokens: torch.Tensor) -> torch.Tensor:
+    """:func:`loss_fn` under ``lay`` (``lay.seq_len``: the call's T)."""
     B, T = tokens.shape
-    logits = forward(cfg, params, tokens)
-    targets = torch.roll(tokens.long(), -1, dims=1)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -torch.gather(logp, -1, targets[..., None])[..., 0]
-    mask = (torch.arange(T, device=tokens.device) < T - 1).to(nll.dtype)[None, :]
-    return torch.sum(nll * mask) / (B * (T - 1))
+    tok, tgt, positions = _sequence_block(lay, tokens)
+    h = _hidden(cfg, lay, params, tok, positions)
+    logits = torch.einsum("btd,vd->btv", h, params["embed"].to(h.dtype)).float()
+    nll = _nll(cfg, lay, logits, tgt)
+    mask = (positions < T - 1).to(nll.dtype)
+    share = torch.sum(nll * mask) / (B * lay.size(lay.dp) * (T - 1) * lay.replicas)
+    return collective.replicated_sum(share, lay.axes, mesh=lay.mesh)
+
+
+def _call_layout(cfg: TransformerConfig, mesh, act_spec, sp_axis, tokens) -> _Layout:
+    """The layout of a :func:`forward` / :func:`loss_fn` call: one device,
+    or dp and sp from ``act_spec`` (``P(dp, sp, None)``) or the reference's
+    names, with the call's T."""
+    if mesh is None:
+        return _ONE_DEVICE
+    _check_mesh(mesh)
+    dp = act_spec[0] if act_spec is not None else "dp"
+    sp = sp_axis or (act_spec[1] if act_spec is not None else "sp")
+    return dataclasses.replace(_layout(cfg, mesh, dp=dp, sp=sp), seq_len=tokens.shape[1])
+
+
+def _sequence_block(lay: _Layout, tokens: torch.Tensor):
+    """(tokens, next-token targets, positions) of this rank's sequence block:
+    T tail-padded (token 0) to a multiple of the sp size, then cut into sp
+    blocks. The reference pads q/k/v inside its ring attention; here the
+    activations are sharded over T through the whole layer, so the pad
+    comes once, at the input. Padded positions come after every real one,
+    so under the causal mask no real query sees them; their rows are
+    masked out of the loss."""
+    B, T = tokens.shape
+    n = lay.size(lay.sp)
+    Tl = -(-T // n)
+    pad = n * Tl - T
+    tokens = tokens.long()
+    targets = spmd_roll(tokens, -1, 1)
+    if pad:
+        tokens, targets = (F.pad(t, (0, pad)) for t in (tokens, targets))
+    lo = lay.index(lay.sp) * Tl
+    positions = torch.arange(lo, lo + Tl, device=tokens.device)[None, :].expand(B, Tl)
+    return tokens[:, lo:lo + Tl], targets[:, lo:lo + Tl], positions
+
+
+def _vocab_block(lay: _Layout, ids: torch.Tensor, V: int):
+    """(ids local to this rank's vocabulary block, in-block mask) of a
+    vocab-sharded table (``embed``'s spec)."""
+    n = V // lay.size(lay.entry("embed", 0))
+    local = ids - lay.block("embed", 0, V)
+    inside = (local >= 0) & (local < n)
+    return local.clamp(0, n - 1), inside
+
+
+def _nll(cfg: TransformerConfig, lay: _Layout, logits, targets):
+    """-log softmax(logits)[target], f32. With the logits sharded over the
+    vocabulary, the distributed log-softmax: the global max subtracted
+    before the sum of exponentials, both sums over tp."""
+    entry = lay.entry("embed", 0)
+    if not spec_axes(entry):
+        logp = torch.log_softmax(logits, dim=-1)
+        return -torch.gather(logp, -1, targets[..., None])[..., 0]
+    with torch.no_grad():
+        m = logits.amax(dim=-1)
+        for a in spec_axes(entry):
+            m = collective._all_reduce(m, lay.mesh.group(a), op=torch.distributed.ReduceOp.MAX)
+    sumexp = lay.reduce(torch.exp(logits - m[..., None]).sum(-1), entry)
+    ids, inside = _vocab_block(lay, targets, cfg.vocab_size)
+    picked = torch.gather(logits, -1, ids[..., None])[..., 0]
+    target_logit = lay.reduce(torch.where(inside, picked, 0.0), entry)
+    return m + torch.log(sumexp) - target_logit
+
+
+# ---------------------------------------------------------------------------
+# sharding rules
+# ---------------------------------------------------------------------------
+def param_specs(cfg: TransformerConfig, *, dp: Optional[str] = "dp", tp: Optional[str] = "tp",
+                ep: Optional[str] = None, kv_tp: bool = True) -> Dict[str, Any]:
+    """Megatron-style TP layout as PartitionSpecs (the leading axis of a
+    stacked layer leaf is the layer dim, unsharded): wq/wk/wv over heads,
+    w1/w3 over d_ff and the embedding over the vocabulary split over tp
+    (column-parallel), wo and w2 over their contracted dim (row-parallel),
+    the experts over ep (default: dp). ``kv_tp=False`` replicates wk/wv
+    across tp, as GQA needs when the kv heads do not divide over it."""
+    ep = ep or dp
+    kv = tp if kv_tp else None
+    layer_specs = {
+        "attn_norm": P(None, None),
+        "wq": P(None, None, tp, None),
+        "wk": P(None, None, kv, None),
+        "wv": P(None, None, kv, None),
+        "wo": P(None, tp, None, None),
+        "ffn_norm": P(None, None),
+    }
+    if cfg.num_experts > 0:
+        layer_specs.update(
+            router=P(None, None, None),
+            we1=P(None, ep, None, tp),
+            we3=P(None, ep, None, tp),
+            we2=P(None, ep, tp, None),
+        )
+    else:
+        layer_specs.update(w1=P(None, None, tp), w3=P(None, None, tp), w2=P(None, tp, None))
+    return {"embed": P(tp, None), "layers": layer_specs, "final_norm": P(None)}
+
+
+def _kv_tp_ok(cfg: TransformerConfig, mesh, tp: Optional[str]) -> bool:
+    """Whether the kv-head axis can shard over tp (GQA may make it too small)."""
+    n = mesh.shape.get(tp, 1)
+    return cfg.kv_heads % n == 0
+
+
+def fit_spec(shape, spec, mesh):
+    """Make a PartitionSpec legal for this tensor and mesh: drop mesh axes
+    on dimensions they do not divide (an odd vocabulary under tp) and
+    repeated axes (MoE specs with ep folded into tp keep the first). A
+    replicated dim beats a crash, but an axis the mesh does not HAVE is a
+    typo and raises, not a silent full replication."""
+    parts = []
+    used = set()
+    for dim, ax in zip(shape, tuple(spec) + (None,) * (len(shape) - len(spec))):
+        if ax is None:
+            parts.append(None)
+            continue
+        named = (ax,) if isinstance(ax, str) else tuple(ax)
+        unknown = [a for a in named if a not in mesh.shape]
+        if unknown:
+            raise ValueError(
+                f"PartitionSpec axis {unknown[0]!r} is not a mesh axis "
+                f"(mesh has {sorted(mesh.shape)}): likely a typo in the "
+                f"dp/tp/ep axis names passed to shard_params/param_specs"
+            )
+        axes = tuple(a for a in named if a not in used)
+        size = 1
+        for a in axes:
+            size *= mesh.shape[a]
+        if not axes or dim % size != 0:
+            parts.append(None)
+            continue
+        used.update(axes)
+        parts.append(axes[0] if len(axes) == 1 else axes)
+    return P(*parts)
+
+
+def param_shapes(cfg: TransformerConfig) -> Dict[str, Any]:
+    """The shape of every param leaf (:func:`init_params`'s tree)."""
+    d, h, hkv, dh, ff, L = (cfg.d_model, cfg.n_heads, cfg.kv_heads, cfg.head_dim, cfg.d_ff,
+                            cfg.n_layers)
+    layers = {"attn_norm": (L, d), "wq": (L, d, h, dh), "wk": (L, d, hkv, dh),
+              "wv": (L, d, hkv, dh), "wo": (L, h, dh, d), "ffn_norm": (L, d)}
+    if cfg.num_experts > 0:
+        e = cfg.num_experts
+        layers.update(router=(L, d, e), we1=(L, e, d, ff), we3=(L, e, d, ff), we2=(L, e, ff, d))
+    else:
+        layers.update(w1=(L, d, ff), w3=(L, d, ff), w2=(L, ff, d))
+    return {"embed": (cfg.vocab_size, d), "layers": layers, "final_norm": (d,)}
+
+
+def fitted_specs(shapes, specs, mesh):
+    """:func:`fit_spec` over a tree of shapes and its tree of specs."""
+    if isinstance(shapes, dict):
+        return {k: fitted_specs(v, specs[k], mesh) for k, v in shapes.items()}
+    return fit_spec(shapes, specs, mesh)
+
+
+def _shard_axes(cfg: TransformerConfig, mesh, axes: dict) -> dict:
+    """The reference's defaults of :func:`shard_params`' axis names."""
+    axes = dict(axes)
+    if "kv_tp" not in axes:
+        axes["kv_tp"] = _kv_tp_ok(cfg, mesh, axes.get("tp", "tp"))
+    if "ep" not in axes and "dp" not in axes and "dp" not in mesh.shape:
+        # param_specs defaults ep to dp; on a dp-less mesh (tp-only) fold
+        # experts into tp instead of raising on the IMPLICIT 'dp' default.
+        # An explicitly-passed dp still goes through fit_spec's typo check.
+        axes["ep"] = axes.get("tp", "tp")
+    return axes
+
+
+def shard_params(params, mesh, cfg: TransformerConfig, **axes):
+    """This rank's shards of the full ``params`` (every rank holds the same
+    tree, e.g. converted from the JAX package by
+    :func:`ray_tpu_torch.convert.params_from_numpy`) under
+    :func:`param_specs` fitted to the mesh (:func:`fit_spec`). ``axes``:
+    ``dp``, ``tp``, ``ep``, ``kv_tp``, as :func:`param_specs` takes them."""
+    specs = fitted_specs(param_shapes(cfg), param_specs(cfg, **_shard_axes(cfg, mesh, axes)),
+                         mesh)
+    return shard_tree(params, specs, mesh)
+
+
+# ---------------------------------------------------------------------------
+# layouts on a mesh
+# ---------------------------------------------------------------------------
+def _layout(cfg: TransformerConfig, mesh, *, dp: Optional[str] = "dp", sp: Optional[str] = "sp",
+            tp: Optional[str] = "tp", ep: Optional[str] = None) -> _Layout:
+    """The layout of ``cfg`` on ``mesh``: axis names the mesh lacks are
+    None (a mesh without tp replicates what tp would split); an ``ep`` given
+    explicitly must be a mesh axis. Experts go over ep, else dp, else tp."""
+    have = lambda a: a if a and a in mesh.shape else None  # noqa: E731
+    dp_ax, sp_ax, tp_ax = have(dp), have(sp), have(tp)
+    specs = fitted_specs(param_shapes(cfg), param_specs(
+        cfg, dp=dp_ax, tp=tp_ax, ep=ep or dp_ax or tp_ax, kv_tp=_kv_tp_ok(cfg, mesh, tp_ax)),
+        mesh)
+    return _Layout(mesh, dp_ax, sp_ax, tp_ax, specs)
+
+
+def mesh_param_specs(cfg: TransformerConfig, mesh, *, dp: Optional[str] = "dp",
+                     tp: Optional[str] = "tp", ep: Optional[str] = None) -> Dict[str, Any]:
+    """The spec of every param leaf as :func:`make_train_step` lays it on
+    ``mesh`` (:func:`param_specs` fitted to the mesh; with it
+    :func:`ray_tpu_torch.parallel.mesh.gather_tree` reads a state back)."""
+    return _layout(cfg, mesh, dp=dp, tp=tp, ep=ep).specs
+
+
+def _check_mesh(mesh) -> None:
+    if not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a ray_tpu_torch.parallel.Mesh, got {type(mesh).__name__}")
 
 
 # ---------------------------------------------------------------------------
@@ -499,12 +889,12 @@ def make_train_step(
     learning_rate: float = 3e-4,
     device=None,
     mesh=None,
-    dp=None,
-    sp=None,
-    tp=None,
-    ep=None,
+    dp: Optional[str] = "dp",
+    sp: Optional[str] = "sp",
+    tp: Optional[str] = "tp",
+    ep: Optional[str] = None,
 ) -> Tuple[Callable, Callable]:
-    """Build ``(init_state, train_step)`` on one device.
+    """Build ``(init_state, train_step)``.
 
     The state is ``{"params", "opt": {"mu", "nu", "count"}, "step"}``:
     params and Adam moments as param-shaped trees, ``count`` and ``step``
@@ -512,23 +902,85 @@ def make_train_step(
     ``(state, loss)`` and updates the state's tensors in place (the JAX step
     donates its state, so a caller never reads the old one either); the loss
     is a 0-dim f32 tensor. The optimizer is ``optax.adamw(learning_rate)``.
-    ``init_state(seed_or_generator=0)`` draws fresh params."""
-    if mesh is not None or any(a is not None for a in (dp, sp, tp, ep)):
-        raise NotImplementedError("sharded training (mesh/dp/sp/tp/ep) is not ported yet")
-    if cfg.attention == "ring":
-        raise NotImplementedError("ring attention is not ported yet")
+    ``init_state(seed_or_generator=0)`` draws fresh params.
+
+    With ``mesh`` (a :class:`ray_tpu_torch.parallel.Mesh`; every rank builds
+    and calls it), ``dp``/``sp``/``tp``/``ep`` name its batch, sequence,
+    tensor and expert axes (a name the mesh lacks is no axis; experts go
+    over dp by default). The state holds this rank's shards
+    (:func:`param_specs` fitted to the mesh); ``init_state`` draws the full
+    params from the seed and keeps them, so every mesh trains the model one
+    device does. ``train_step`` is a :class:`JittedStep` whose
+    ``shard_batch(tokens)`` gives this rank's dp rows of the full ``[B, T]``
+    batch, the ``tokens`` the step takes; its loss is the whole batch's on
+    every rank. Gradients of a leaf's replicas are summed over every axis
+    that replicates it; AdamW then updates each shard as the one-device
+    update updates that slice."""
     device = default_device(device, "make_train_step")
+    if mesh is None:
+        def init_state(seed_or_generator=0):
+            params = init_params(cfg, as_generator(seed_or_generator, device))
+            return new_train_state(_rebuild(params, [t.to(device) for t in _leaves(params)]))
+
+        def train_step(state, tokens):
+            loss, grads = loss_and_grads(cfg, state["params"], tokens.to(device))
+            adamw_update_(state, grads, learning_rate)
+            return state, loss
+
+        return init_state, train_step
+
+    _check_mesh(mesh)
+    lay = _layout(cfg, mesh, dp=dp, sp=sp, tp=tp, ep=ep)
+    if cfg.attention == "ring" and lay.sp is None:
+        raise ValueError(
+            'attention="ring" needs a sequence-parallel mesh axis '
+            f"(sp={sp!r} not in mesh axes {sorted(mesh.axis_names)}); "
+            "silently falling back to dense would lose the memory "
+            "scaling the mode promises"
+        )
 
     def init_state(seed_or_generator=0):
         params = init_params(cfg, as_generator(seed_or_generator, device))
-        return new_train_state(_rebuild(params, [t.to(device) for t in _leaves(params)]))
+        return new_train_state(shard_tree(params, lay.specs, mesh))
 
     def train_step(state, tokens):
-        loss, grads = loss_and_grads(cfg, state["params"], tokens.to(device))
+        tokens = tokens.to(device)
+        call = dataclasses.replace(lay, seq_len=tokens.shape[1])
+        loss, grads = value_and_grad(lambda p: _loss(cfg, call, p, tokens), state["params"])
+        sum_replicas_(grads, lay.specs, mesh)
         adamw_update_(state, grads, learning_rate)
         return state, loss
 
-    return init_state, train_step
+    def shard_batch(tokens):
+        return shard_array(tokens.to(device), mesh, lay.dp, None)
+
+    return init_state, JittedStep(train_step, shard_batch,
+                                  functools.partial(shard_train_state, lay.specs, mesh))
+
+
+def sum_replicas_(grads, specs, mesh) -> None:
+    """Sum, in place, each gradient leaf over every mesh axis its spec does
+    not shard it on: the ranks holding a copy of a leaf each hold their
+    share of its gradient."""
+    if isinstance(grads, dict):
+        for k in grads:
+            sum_replicas_(grads[k], specs[k], mesh)
+        return
+    sharded = {a for entry in specs for a in spec_axes(entry)}
+    with torch.no_grad():
+        for a in mesh.axis_names:
+            if a not in sharded and mesh.shape[a] > 1:
+                grads.copy_(collective._all_reduce(grads, mesh.group(a)))
+
+
+def shard_train_state(specs, mesh, state) -> Dict[str, Any]:
+    """This rank's shards of a full train state (params and both moments
+    under ``specs``; count and step copied)."""
+    return {"params": shard_tree(state["params"], specs, mesh),
+            "opt": {"mu": shard_tree(state["opt"]["mu"], specs, mesh),
+                    "nu": shard_tree(state["opt"]["nu"], specs, mesh),
+                    "count": state["opt"]["count"].clone()},
+            "step": state["step"].clone()}
 
 
 def new_train_state(params) -> Dict[str, Any]:

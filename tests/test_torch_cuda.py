@@ -653,3 +653,86 @@ def test_variant_probe_builds_checks_and_times_the_source_as_it_stands(cuda, tar
         assert built[0]["spill_bytes"] == 0
     timed = [ln for ln in lines if "max_registers" not in ln]
     assert timed and all(ln.get("ms", ln.get("cold_ms")) > 0 for ln in timed)
+
+
+# --------------------------------------------------------------------------
+# the parallel layer: two ranks sharing the card over gloo
+# --------------------------------------------------------------------------
+def _ring_rank():
+    """Ring attention on 2 ranks, causal bf16: launches, and (rank 0) the
+    gathered output and gradients against flash attention on the full
+    tensors in one process."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.parallel import MeshManager, collective, gather_array, shard_array
+    from ray_tpu_torch.parallel import ring_attention_sharded
+
+    mesh = MeshManager().create_mesh({"sp": 2})
+    g = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, g_out = (torch.randn(2, 4, 256, 64, generator=g, device="cuda").to(torch.bfloat16)
+                      for _ in range(4))
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    fns = (tattn.flash_attention_with_lse, tattn.flash_attention_backward_dq,
+           tattn.flash_attention_backward_dkv)
+    before = [f.launches_by_route["wgmma_bf16"] for f in fns]
+    out = ring_attention_sharded(*ins, mesh, "sp", causal=True)
+    with mesh:
+        out.backward(shard_array(g_out, mesh, None, None, "sp", None))
+        grads = [collective.allreduce(t.grad.float(), "sp") for t in ins]
+    launches = [f.launches_by_route["wgmma_bf16"] - b for f, b in zip(fns, before)]
+    full = gather_array(out.detach(), mesh, None, None, "sp", None)
+    if dist.get_rank():
+        return launches, None
+    ref_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = tattn.flash_attention(*ref_ins, None, True)
+    ref.backward(g_out)
+    torch.testing.assert_close(full.float(), ref.detach().float(), atol=2e-2, rtol=2e-2)
+    rel = [float(torch.linalg.vector_norm(a - r.grad.float()) / torch.linalg.vector_norm(
+        r.grad.float())) for a, r in zip(grads, ref_ins)]
+    return launches, rel
+
+
+def test_ring_attention_on_two_ranks_sharing_the_card(cuda):
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.parallel import run_ranks
+
+    _build.build_all()  # the ranks load the libraries, never race to build them
+    (l0, rel), (l1, _) = run_ranks(_ring_rank, 2, timeout_s=300, device="cuda", backend="gloo")
+    assert l0 == [1, 1, 1] and l1 == [2, 2, 2]  # rank r: r full steps and the diagonal
+    assert max(rel) <= 2e-2, rel
+
+
+SHARDED_CFG = dict(vocab_size=256, d_model=256, n_layers=2, n_heads=4, d_ff=512,
+                   max_seq_len=128, remat="dots")
+
+
+def _train_rank(attention, axes):
+    from ray_tpu_torch.models.transformer import TransformerConfig, make_train_step
+    from ray_tpu_torch.parallel import MeshManager
+
+    cfg = TransformerConfig(**SHARDED_CFG, attention=attention, dtype=torch.float32)
+    mesh = MeshManager().create_mesh(axes)
+    init_state, step = make_train_step(cfg, mesh=mesh)
+    state = init_state(0)
+    tokens = torch.randint(0, 256, (4, 128), generator=torch.Generator().manual_seed(1))
+    local = step.shard_batch(tokens)
+    return [float(step(state, local)[1]) for _ in range(3)]
+
+
+@pytest.mark.parametrize("attention,axes", [("ring", {"sp": 2}), ("flash", {"tp": 2})],
+                         ids=["ring_sp2", "flash_tp2"])
+def test_sharded_train_step_on_two_ranks_matches_one_device(cuda, attention, axes):
+    """f32 (the kernels' scalar route): 3 steps' losses within 1e-5
+    relative of one device's (the order of the shards' sums differs)."""
+    from ray_tpu_torch.models.transformer import TransformerConfig, make_train_step
+    from ray_tpu_torch.parallel import run_ranks
+
+    cfg = TransformerConfig(**SHARDED_CFG, attention="flash", dtype=torch.float32)
+    init_state, step = make_train_step(cfg)
+    state = init_state(0)
+    tokens = torch.randint(0, 256, (4, 128), generator=torch.Generator().manual_seed(1))
+    want = [float(step(state, tokens)[1]) for _ in range(3)]
+    for losses in run_ranks(_train_rank, 2, attention, axes, timeout_s=300, device="cuda",
+                            backend="gloo"):
+        for got, ref in zip(losses, want):
+            assert abs(got - ref) <= 1e-5 * abs(ref), (losses, want)

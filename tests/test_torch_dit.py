@@ -176,7 +176,7 @@ def test_dit_train_step_learns_and_draws_from_the_generator():
     a = tdit.dit_loss_fn(TCFG, state["params"], imgs, labels, torch.Generator().manual_seed(4))
     b = tdit.dit_loss_fn(TCFG, state["params"], imgs, labels, torch.Generator().manual_seed(4))
     assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):  # a mesh is the port's Mesh
         tdit.make_dit_train_step(TCFG, mesh=object(), device="cpu")
 
 

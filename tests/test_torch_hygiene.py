@@ -51,7 +51,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 def test_importing_the_engine_and_trainer_loads_no_jax():
     code = (
         "import sys, ray_tpu_torch.serve.llm, ray_tpu_torch.convert, ray_tpu_torch.models, "
-        "ray_tpu_torch.train\n"
+        "ray_tpu_torch.train, ray_tpu_torch.parallel\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'ray_tpu', 'optax', 'orbax'))\n"
         "assert not bad, bad\n"

@@ -102,11 +102,20 @@ def test_forward_logits_match_jax(params, attention):
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
 
 
-def test_unported_paths_raise():
+def test_unported_paths_raise(params):
+    """The engine's mesh= is still unported; ring attention without a mesh
+    is the JAX package's einsum attention (its forward takes mha there)."""
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    jp, tp = params
     cfg = ttr.TransformerConfig(**SMALL, attention="ring", dtype=torch.float32)
-    tp = ttr.init_params(cfg, torch.Generator().manual_seed(0))
     with pytest.raises(NotImplementedError):
-        ttr.forward(cfg, tp, torch.zeros(1, 4, dtype=torch.long))
+        LLMEngine(cfg, tp, device="cpu", mesh=object())
+    toks = np.random.default_rng(1).integers(0, 89, size=(2, 12))
+    ref = jtr.forward(jtr.TransformerConfig(**SMALL, attention="ring", dtype=jnp.float32), jp,
+                      jnp.asarray(toks))
+    got = ttr.forward(cfg, tp, torch.from_numpy(toks))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
 
 
 # --------------------------------------------------------------------------

@@ -170,13 +170,22 @@ def test_moe_train_steps_match_jax(dispatch, remat):
 
 
 def test_remat_and_unported_options_are_validated(monkeypatch):
+    from ray_tpu_torch.parallel import MeshManager
+
     with pytest.raises(ValueError, match="remat"):
         ttr.TransformerConfig(**SMALL, remat="Dots")
-    for kw in ({"mesh": object()}, {"dp": "dp"}, {"sp": "sp"}, {"tp": "tp"}, {"ep": "ep"}):
-        with pytest.raises(NotImplementedError):
-            ttr.make_train_step(TCFG, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        ttr.make_train_step(ttr.TransformerConfig(**SMALL, attention="ring"), device="cpu")
+    # without a mesh the axis names name nothing, as in the JAX package
+    for kw in ({"dp": "dp"}, {"sp": "sp"}, {"tp": "tp"}, {"ep": "ep"}):
+        ttr.make_train_step(TCFG, device="cpu", **kw)
+    with pytest.raises(TypeError, match="Mesh"):
+        ttr.make_train_step(TCFG, device="cpu", mesh=object())
+    ring = ttr.TransformerConfig(**SMALL, attention="ring")
+    mesh = MeshManager(devices=range(2)).create_mesh({"dp": 2})
+    with pytest.raises(ValueError, match="sequence-parallel"):
+        ttr.make_train_step(ring, device="cpu", mesh=mesh)
+    with pytest.raises(ValueError, match="not a mesh axis"):  # a typo'd expert axis
+        ttr.make_train_step(ttr.TransformerConfig(**SMALL, num_experts=2), device="cpu",
+                            mesh=mesh, ep="experts")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ttr.make_train_step(TCFG)

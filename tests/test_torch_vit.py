@@ -178,7 +178,7 @@ def test_vit_train_step_learns_and_refuses_a_mesh(monkeypatch):
     losses = [float(train_step(state, torch.from_numpy(IMAGES), torch.from_numpy(LABELS))[1])
               for _ in range(20)]
     assert losses[-1] < 0.5 * losses[0]  # memorises the tiny batch
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="Mesh"):  # a mesh is the port's Mesh
         tvit.make_vit_train_step(tc, mesh=object(), device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
