@@ -6,6 +6,7 @@
     python3 chip_smoke.py --phases build,kernels,train_parity,train   # the training slice
     python3 chip_smoke.py --phases build,kernels,moe_parity,moe_engine,vit_train,dit
     python3 chip_smoke.py --phases build,server,disagg   # the serving front
+    python3 chip_smoke.py --phases build,runtime   # the host runtime and the GPU actor
     python3 chip_smoke.py --phases build,profile   # one profiled train step (not in the default run)
     python3 chip_smoke.py --phases build,parallel  # the parallel layer, ranks sharing the card
 
@@ -78,6 +79,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
    beside the co-located paged server's, migration ms a request and a
    block, GB/s; the export alone launches no K1 (and, under int8, K6 six
    times a layer), its decode K1 16 times a decode step.
+4d. ``runtime`` — the host runtime (``ray_tpu_torch.init`` and friends) on
+   the card: ``init(num_cpus=8)`` reports one ``GPU``; a 256 MiB bf16 CUDA
+   tensor ``put`` lands in the device tier (``hbm_used`` rises by its bytes,
+   ``get`` returns the same storage); a task given it runs in process and
+   returns a ``cuda:0`` result; a process-tier task given it receives a CPU
+   copy whose float32 sum equals the card's, in a worker that created no
+   CUDA context; task round trips (median of 200) in process and in a
+   process worker. A GPU actor (``num_gpus=1``) holds the paged
+   ``LLMEngine`` on the serving decoder, float and then ``quantize=True``,
+   and answers the engine phase's burst through ``actor.generate.remote``
+   and one streaming-generator task, with tokens identical to an instance of
+   the same class driven directly and K1 (16 a decode step) and K6 (96 a
+   forward) launches equal to the direct run's; the actor-call round trip;
+   tokens/s through the actor and direct. After ``shutdown`` no worker
+   process is left and the device memory the runtime held is freed (within
+   the per-thread cuBLAS workspaces). Then, with
+   ``object_store_hbm_fraction`` at 2.5 tensors, three puts spill the
+   oldest to the host bit for bit and free its device bytes (spill GB/s).
 5. ``train_parity`` — the 602M train-step decoder of ``bench.py`` (vocab
    32000, d_model 2048, 8 layers, 16 heads, d_ff 8192, T 2048), batch 1:
    loss and every gradient leaf through the flash kernels
@@ -138,10 +157,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    replicated params with its own half-sequence's gradient; each rank's
    losses must stray from one device's by more than ``LOSS_RTOL``.
 12. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
-   replaces, launches in the main-path runs (engine, server, disagg, train,
-   moe_engine, vit_train, parallel) in all and by phase, max error, device
-   ms, plain ms, bound ms and what bounds it, library ms; K1/K2 also the
-   event floor and each timed shape; K3/K4/K5 also the parallel phase's
+   replaces, launches in the main-path runs (engine, server, disagg,
+   runtime, train, moe_engine, vit_train, parallel) in all and by phase, max
+   error, device ms, plain ms, bound ms and what bounds it, library ms;
+   K1/K2 also the event floor and each timed shape; K3/K4/K5 also the parallel phase's
    shard shapes (``parallel_<shape>_*``).
 
 Then the card's name and power limit (``nvidia-smi``), and as the last line
@@ -170,7 +189,8 @@ from typing import Optional
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
-PHASES = ("build", "kernels", "forward_parity", "engine", "server", "disagg", "train_parity",
+PHASES = ("build", "kernels", "forward_parity", "engine", "server", "disagg", "runtime",
+          "train_parity",
           "train", "moe_parity", "moe_engine", "vit_train", "dit", "parallel")
 OPTIONAL_PHASES = ("profile",)
 
@@ -1580,6 +1600,393 @@ def disagg_burst(torch, cfg, params, kernels_of: dict, quantize: bool, colocated
     }
 
 
+# ---------------------------------------------------------------------------
+# the host runtime: tasks, objects and a GPU actor (ray_tpu_torch.api)
+# ---------------------------------------------------------------------------
+RUNTIME_SHAPE = (8192, 16384)  # 128M bf16 elements: 256 MiB
+RUNTIME_RTT_REPS = 200
+# per-thread cuBLAS workspaces (CUBLAS_WORKSPACE_CONFIG :4096:8 = 32 MiB a
+# handle) of the threads that ran kernels may outlive shutdown
+RUNTIME_MEMORY_SLACK = 256 << 20
+
+
+def rt_noop(x):
+    """The round-trip task: in process or in a process worker."""
+    return x
+
+
+def rt_device_task(x):
+    """Given a CUDA tensor, the runtime runs this in process: it doubles the
+    tensor on the card and names the process it ran in."""
+    return x * 2, os.getpid()
+
+
+def rt_host_view(x):
+    """Given a CUDA tensor in a process worker: what arrived (a CPU copy),
+    its float32 sum, and whether this process touched CUDA."""
+    import torch
+
+    return {"type": type(x).__name__, "device": x.device.type,
+            "dtype": str(x.dtype).removeprefix("torch."), "shape": list(x.shape),
+            "sum_f32": float(x.float().sum()), "pid": os.getpid(),
+            "cuda_initialized": torch.cuda.is_initialized(),
+            "cuda_visible_devices": os.environ.get("CUDA_VISIBLE_DEVICES")}
+
+
+def rt_stream_tokens(actor, prompt, max_tokens):
+    """A streaming generator task that yields the actor's tokens as its
+    engine emits them (the runtime streams tasks, not actor methods, as the
+    JAX package does)."""
+    import ray_tpu_torch as rt
+
+    sid = rt.get(actor.open_stream.remote(prompt, max_tokens))
+    while True:
+        tok = rt.get(actor.next_token.remote(sid))
+        if tok is None:
+            return
+        yield tok
+
+
+rt_stream_tokens._rt_device = True  # in process, beside the actor
+
+
+class EngineActor:
+    """The runtime phase's GPU actor: an ``LLMEngine`` on the card (paged
+    cache). The direct run drives an instance of the same class without the
+    runtime, so both submit the burst the same way. ``decode_steps`` counts
+    the engine loop's decode steps (K1 launches once a layer in each)."""
+
+    def __init__(self, cfg, params, quantize: bool):
+        from ray_tpu_torch.serve.llm import LLMEngine
+
+        self.engine = LLMEngine(cfg, params, device="cuda", max_batch_size=8,
+                                max_seq_len=cfg.max_seq_len, kv_block_size=16,
+                                cache_kind="paged", quantize=quantize)
+        self.steps = 0
+        step = self.engine._step
+
+        def counted_step():
+            self.steps += 1
+            step()
+
+        self.engine._step = counted_step
+        self._streams = {}
+
+    def warm(self, prompt_len: int) -> bool:
+        import torch
+
+        self.engine.generate([5] * prompt_len, max_tokens=2)  # cuBLAS handles, kernel load
+        torch.cuda.synchronize()
+        return True
+
+    def generate(self, prompts, max_tokens: int):
+        futures = [self.engine.submit(p, max_tokens=max_tokens) for p in prompts]
+        return [f.result(timeout=600) for f in futures]
+
+    def open_stream(self, prompt, max_tokens: int) -> int:
+        sid = len(self._streams)
+        self._streams[sid] = iter(self.engine.submit_stream(prompt, max_tokens=max_tokens))
+        return sid
+
+    def next_token(self, sid: int):
+        return next(self._streams[sid], None)
+
+    def decode_steps(self) -> int:
+        return self.steps
+
+    def ping(self):
+        return None
+
+    def close(self) -> bool:
+        self.engine.shutdown()
+        self._streams.clear()
+        return True
+
+
+def median_rtt_s(call, reps: int = RUNTIME_RTT_REPS) -> float:
+    """Median seconds of ``call()`` (a submit and a blocking get), after 20
+    warm-up calls."""
+    for _ in range(20):
+        call()
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        call()
+        samples.append(time.perf_counter() - t0)
+    return statistics.median(samples)
+
+
+def worker_processes() -> list:
+    """Live (non-zombie) children of this process that run the port's
+    worker (``ray_tpu_torch.runtime.worker_main``)."""
+    out = []
+    for pid in os.listdir("/proc"):
+        if not pid.isdigit():
+            continue
+        try:
+            with open(f"/proc/{pid}/stat") as f:
+                stat = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read()
+        except OSError:
+            continue
+        if (int(stat[1]) == os.getpid() and stat[0] != "Z"
+                and b"ray_tpu_torch.runtime.worker_main" in cmd):
+            out.append(int(pid))
+    return out
+
+
+def live_cuda_tensors(torch, min_bytes: int = 1 << 20) -> list:
+    """What still holds device memory: each live CUDA tensor of at least
+    ``min_bytes`` with the types of the objects that refer to it."""
+    import gc
+
+    out = []
+    for obj in gc.get_objects():
+        if isinstance(obj, torch.Tensor) and obj.is_cuda:
+            nbytes = obj.untyped_storage().nbytes()
+            if nbytes >= min_bytes:
+                out.append({"shape": list(obj.shape), "bytes": nbytes,
+                             "held_by": sorted({type(r).__name__ for r in gc.get_referrers(obj)})})
+    return out
+
+
+def runtime_objects(torch, rt, smoke, card: str) -> dict:
+    """Device tier, device task, process task and the round trips, on a
+    runtime that ``init`` started with the card detected."""
+    nbytes = RUNTIME_SHAPE[0] * RUNTIME_SHAPE[1] * 2
+    g = torch.Generator(device="cuda").manual_seed(3)
+    # small integers in bf16: every float32 sum of them is exact in any order
+    t = torch.randint(-8, 9, RUNTIME_SHAPE, generator=g, device="cuda",
+                      dtype=torch.int16).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    store = rt.get_cluster().head_node.store
+    used0 = store.stats()["hbm_used"]
+    t0 = time.perf_counter()
+    ref = rt.put(t)
+    put_s = time.perf_counter() - t0
+    info = store.entry_info(ref.id())
+    if info["tier"] != "device" or store.stats()["hbm_used"] - used0 != nbytes:
+        raise AssertionError(f"put of a CUDA tensor: {info}, hbm_used {store.stats()}")
+    t0 = time.perf_counter()
+    got = rt.get(ref)
+    get_s = time.perf_counter() - t0
+    if got.data_ptr() != t.data_ptr():
+        raise AssertionError("get of a device-tier object returned another storage")
+    del got
+
+    driver = os.getpid()
+    out, pid = rt.get(rt.remote(smoke.rt_device_task).remote(t))
+    out_ref, pid_ref = rt.get(rt.remote(smoke.rt_device_task).remote(ref))
+    if pid != driver or pid_ref != driver:
+        raise AssertionError(f"a CUDA-tensor task ran in process {pid}/{pid_ref}, not {driver}")
+    if out.device != torch.device("cuda", 0) or not torch.equal(out, t * 2) \
+            or not torch.equal(out_ref, out):
+        raise AssertionError(f"device task: result on {out.device}, or wrong")
+    del out, out_ref
+
+    host = rt.remote(smoke.rt_host_view).options(execution="process")
+    rt.get(host.remote(torch.ones(4, device="cuda")))  # the worker imports torch
+    want_sum = float(t.float().sum())
+    copies = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        seen = rt.get(host.remote(t))
+        copies.append(time.perf_counter() - t0)
+        if seen != {"type": "Tensor", "device": "cpu", "dtype": "bfloat16",
+                    "shape": list(RUNTIME_SHAPE), "sum_f32": want_sum, "pid": seen["pid"],
+                    "cuda_initialized": False, "cuda_visible_devices": ""} \
+                or seen["pid"] == driver:
+            raise AssertionError(f"process task saw {seen}, want a CPU copy summing "
+                                 f"to {want_sum} in another process without CUDA")
+    noop_thread = rt.remote(smoke.rt_noop).options(execution="thread")
+    noop_proc = rt.remote(smoke.rt_noop).options(execution="process")
+    rtt_thread = median_rtt_s(lambda: rt.get(noop_thread.remote(1)))
+    rtt_proc = median_rtt_s(lambda: rt.get(noop_proc.remote(1)))
+    del t, ref
+    return {
+        "card": card, "tensor_shape": list(RUNTIME_SHAPE), "tensor_dtype": "bfloat16",
+        "tensor_bytes": nbytes, "device_tier": True, "same_storage": True,
+        "put_ms": put_s * 1e3, "get_ms": get_s * 1e3,
+        "device_task_in_process": True, "process_task_sum_f32": want_sum,
+        "process_task_worker_pid": seen["pid"],
+        "host_copy_to_worker_s": copies,
+        "host_copy_to_worker_gb_per_s": nbytes / min(copies) / 1e9,
+        "task_rtt_ms_median": {"in_process": rtt_thread * 1e3, "process": rtt_proc * 1e3,
+                               "reps": RUNTIME_RTT_REPS},
+    }
+
+
+def runtime_spill(torch, rt) -> dict:
+    """Three 256 MiB tensors against a device tier that holds two and a
+    half: the third put spills the oldest to the host, bit for bit, and
+    frees its device memory."""
+    nbytes = RUNTIME_SHAPE[0] * RUNTIME_SHAPE[1] * 2
+    _free, total = torch.cuda.mem_get_info()
+    rt.init(num_cpus=2, _system_config={"object_store_hbm_fraction": 2.5 * nbytes / total})
+    try:
+        store = rt.get_cluster().head_node.store
+        budget = store.stats()["hbm_budget"]
+        if not 2 * nbytes < budget < 3 * nbytes:
+            raise AssertionError(f"hbm budget {budget} does not hold 2.5 tensors")
+        g = torch.Generator(device="cuda").manual_seed(4)
+        hosts, refs = [], []
+        for i in range(3):
+            x = torch.randn(RUNTIME_SHAPE, generator=g, device="cuda", dtype=torch.bfloat16)
+            hosts.append(x.cpu())
+            torch.cuda.synchronize()
+            before, spills0 = torch.cuda.memory_allocated(), store.stats()["spills"]
+            t0 = time.perf_counter()
+            refs.append(rt.put(x))
+            put_s = time.perf_counter() - t0
+            del x
+        after = torch.cuda.memory_allocated()
+        stats = store.stats()
+        tiers = [store.entry_info(r.id())["tier"] for r in refs]
+        if stats["spills"] != spills0 + 1 or tiers != ["host", "device", "device"]:
+            raise AssertionError(f"spill: {stats}, tiers {tiers}")
+        if before - after != nbytes:
+            raise AssertionError(f"spill freed {before - after} bytes of device memory, "
+                                 f"want {nbytes}")
+        back = [rt.get(r) for r in refs]
+        if [b.device.type for b in back] != ["cpu", "cuda", "cuda"] or not all(
+                torch.equal(b.cpu().view(torch.int16), h.view(torch.int16))
+                for b, h in zip(back, hosts)):
+            raise AssertionError("spilled values differ from the originals")
+        del back, refs
+        return {"hbm_budget": budget, "spills": stats["spills"], "tiers_after": tiers,
+                "device_bytes_freed": before - after, "spill_put_ms": put_s * 1e3,
+                "spill_gb_per_s": nbytes / put_s / 1e9, "bit_for_bit": True}
+    finally:
+        rt.shutdown()
+
+
+def runtime_actor_runs(torch, rt, cfg, params, kernels_of: dict, card: str):
+    """The GPU actor serves the engine phase's burst, float then int8, and
+    one streaming call; each run against an instance of the same class
+    driven directly. Yields one report per run."""
+    prompts = burst_prompts(cfg, 8, 64)
+    for quantize in (False, True):
+        names = ["paged_decode_attention"] + (["int8_matmul"] if quantize else [])
+        counters = {n: kernels_of[n] for n in names}
+        direct = EngineActor(cfg, params, quantize)
+        try:
+            direct.warm(64)
+            steps0 = direct.decode_steps()
+            zero_counters(counters)
+            t0 = time.perf_counter()
+            want = direct.generate(prompts, 32)
+            direct_s = time.perf_counter() - t0
+            direct_launches, _ = read_counters(counters)
+            direct_steps = direct.decode_steps() - steps0
+            want_stream = direct.generate(prompts[:1], 32)[0]
+        finally:
+            direct.close()
+        del direct
+        torch.cuda.empty_cache()
+
+        actor = rt.remote(EngineActor).options(num_gpus=1).remote(cfg, params, quantize)
+        try:
+            rt.get(actor.warm.remote(64))
+            steps0 = rt.get(actor.decode_steps.remote())
+            zero_counters(counters)
+            t0 = time.perf_counter()
+            got = rt.get(actor.generate.remote(prompts, 32))
+            actor_s = time.perf_counter() - t0
+            launches, by_route = read_counters(counters)
+            steps = rt.get(actor.decode_steps.remote()) - steps0
+            stream = rt.remote(rt_stream_tokens).options(num_returns="streaming")
+            t0 = time.perf_counter()
+            streamed, first_s = [], None
+            for r in stream.remote(actor, prompts[0], 32):
+                streamed.append(rt.get(r))
+                if first_s is None:
+                    first_s = time.perf_counter() - t0
+            rtt_actor = median_rtt_s(lambda: rt.get(actor.ping.remote()))
+            rt.get(actor.close.remote())
+        finally:
+            rt.kill(actor)
+        del actor
+        torch.cuda.empty_cache()
+        what = f"{'int8 ' if quantize else ''}GPU actor"
+        if got != want:
+            raise AssertionError(f"{what}: tokens differ from the direct engine's")
+        if streamed != want_stream:
+            raise AssertionError(f"{what}: streamed {streamed} vs {want_stream}")
+        if launches != direct_launches or steps != direct_steps:
+            raise AssertionError(f"{what}: launches {launches} over {steps} decode steps, "
+                                 f"direct {direct_launches} over {direct_steps}")
+        per_step = cfg.n_layers
+        if launches["paged_decode_attention"] != per_step * steps or steps < 31:
+            raise AssertionError(f"{what}: K1 {launches} over {steps} decode steps, "
+                                 f"want {per_step} a step")
+        per_forward = k6_per_layer(cfg) * cfg.n_layers
+        if quantize and (launches["int8_matmul"] % per_forward
+                         or launches["int8_matmul"] < per_forward * steps
+                         or by_route["int8_matmul"] != {"mma_bf16": launches["int8_matmul"],
+                                                        "simt": 0}):
+            raise AssertionError(f"{what}: K6 {launches} {by_route}, want {per_forward} "
+                                 "a forward on the tensor cores")
+        n_tok = sum(len(r) for r in got)
+        yield {
+            "part": "gpu_actor", "card": card, "quantize": quantize, "requests": len(prompts),
+            "prompt_len": 64, "max_tokens": 32, "tokens_equal_direct": True,
+            "decode_steps": steps, "launches": launches, "launches_by_route": by_route,
+            "launches_direct": direct_launches,
+            "k1_per_decode_step": launches["paged_decode_attention"] / steps,
+            **({"k6_forwards": launches["int8_matmul"] // per_forward} if quantize else {}),
+            "tokens_per_s_actor": n_tok / actor_s, "tokens_per_s_direct": n_tok / direct_s,
+            "actor_wall_s": actor_s, "direct_wall_s": direct_s,
+            "stream_tokens": len(streamed), "stream_equals_direct": True,
+            "stream_first_token_s": first_s,
+            "actor_call_rtt_ms_median": rtt_actor * 1e3,
+        }
+
+
+def run_runtime(torch, cfg, params, kernels_of: dict, card: str):
+    """The runtime phase (``ray_tpu_torch.api`` on the card): ``init`` sees
+    the GPU; objects, tasks and round trips; the GPU actor's runs; a spill;
+    and nothing left after ``shutdown``. Yields one report per part."""
+    import gc
+
+    import chip_smoke as smoke  # process-tier functions by module name
+    import ray_tpu_torch as rt
+
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    rt.init(num_cpus=8)
+    init_s = time.perf_counter() - t0
+    pool = rt.get_cluster().head_node.worker_pool
+    try:
+        resources = rt.cluster_resources()
+        if resources.get("GPU") != 1 or resources.get("TPU"):
+            raise AssertionError(f"init on the card: resources {resources}")
+        rep = runtime_objects(torch, rt, smoke, card)
+        gc.collect()
+        yield {"part": "objects", "init_s": init_s, "resources": resources, **rep,
+               "device_bytes_held_after_part": torch.cuda.memory_allocated() - base}
+        yield from runtime_actor_runs(torch, rt, cfg, params, kernels_of, card)
+        procs = [w.proc for w in list(pool._all.values())]
+    finally:
+        rt.shutdown()
+    del pool
+    gc.collect()
+    left = [p.pid for p in procs if p.poll() is None] + worker_processes()
+    held = torch.cuda.memory_allocated() - base
+    if left or held > RUNTIME_MEMORY_SLACK:
+        raise AssertionError(f"after shutdown: workers {left} alive, {held} device bytes held "
+                             f"by {live_cuda_tensors(torch)}")
+    yield {"part": "shutdown", "card": card, "workers_spawned": len(procs),
+           "workers_left": 0, "device_bytes_held_after": held}
+    yield {"part": "spill", "card": card, **runtime_spill(torch, rt)}
+    gc.collect()
+    held = torch.cuda.memory_allocated() - base
+    left = worker_processes()
+    if held > RUNTIME_MEMORY_SLACK or left:
+        raise AssertionError(f"after the spill runtime's shutdown: workers {left} alive, "
+                             f"{held} device bytes held by {live_cuda_tensors(torch)}")
+
+
 def train_config(torch):
     from ray_tpu_torch.models.transformer import TransformerConfig
 
@@ -2421,7 +2828,7 @@ def main(argv=None) -> int:
             for r, x in per.items():
                 by_route.setdefault(name, {}).setdefault(r, 0)
                 by_route[name][r] += x
-    if phases & {"forward_parity", "engine", "server", "disagg"}:
+    if phases & {"forward_parity", "engine", "server", "disagg", "runtime"}:
         cfg = serving_config(torch)
         from ray_tpu_torch.models.transformer import init_params
 
@@ -2458,6 +2865,12 @@ def main(argv=None) -> int:
             for rep in run_disagg(torch, cfg, params, kernels_of, colocated):
                 emit({"phase": "disagg", "ok": True, "card": card, **rep})
                 count("disagg", rep["launches"], rep.get("launches_by_route", {}))
+        if "runtime" in phases:
+            torch.cuda.empty_cache()
+            for rep in run_runtime(torch, cfg, params, kernels_of, card):
+                emit({"phase": "runtime", "ok": True, **rep})
+                if "launches" in rep:
+                    count("runtime", rep["launches"], rep["launches_by_route"])
         del params
         torch.cuda.empty_cache()
     if phases & {"train_parity", "train", "profile"}:

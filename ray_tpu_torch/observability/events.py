@@ -1,14 +1,19 @@
-"""Structured events in a bounded ring.
+"""Structured event framework.
 
-The port's own copy of the ring of ``ray_tpu/observability/events.py``:
-typed, severity-tagged events buffered in a bounded ring (the JAX package's
-JSON-lines log file and its emit helpers are left out: nothing here writes
-them).  The flight recorder of ``observability/reqtrace.py`` writes its
-postmortems here.
+The port's copy of ``ray_tpu/observability/events.py``: the same behaviour, imports renamed
+to ``ray_tpu_torch``.
+
+Parity with the reference's event system (``src/ray/util/event.h:130``
+``EventManager``, wire schema ``src/ray/protobuf/event.proto:79``): typed,
+severity-tagged events emitted by runtime components, buffered in a bounded
+ring and optionally appended as JSON lines to the session log directory, from
+which the dashboard's event module reads.
 """
 
 from __future__ import annotations
 
+import json
+import os
 import threading
 import time
 from collections import deque
@@ -42,11 +47,29 @@ class Event:
         self.message = message
         self.custom_fields = custom_fields or {}
 
+    def to_dict(self) -> dict:
+        return {
+            "timestamp": self.timestamp,
+            "severity": self.severity.value,
+            "source_type": self.source_type,
+            "label": self.label,
+            "message": self.message,
+            "custom_fields": self.custom_fields,
+        }
+
 
 class EventManager:
-    def __init__(self, max_events: int = 10_000):
+    def __init__(self, max_events: int = 10_000, log_dir: Optional[str] = None):
         self._lock = threading.Lock()
         self._events: deque = deque(maxlen=max_events)
+        self._log_path: Optional[str] = None
+        if log_dir:
+            self.set_log_dir(log_dir)
+
+    def set_log_dir(self, log_dir: str) -> None:
+        os.makedirs(log_dir, exist_ok=True)
+        with self._lock:
+            self._log_path = os.path.join(log_dir, "events.jsonl")
 
     def emit(
         self,
@@ -59,7 +82,23 @@ class EventManager:
         ev = Event(severity, source_type, label, message, {k: str(v) for k, v in custom_fields.items()})
         with self._lock:
             self._events.append(ev)
+            path = self._log_path
+        if path:
+            try:
+                with open(path, "a") as f:
+                    f.write(json.dumps(ev.to_dict()) + "\n")
+            except OSError:
+                pass
         return ev
+
+    def info(self, source_type: str, label: str, message: str, **fields) -> Event:
+        return self.emit(EventSeverity.INFO, source_type, label, message, **fields)
+
+    def warning(self, source_type: str, label: str, message: str, **fields) -> Event:
+        return self.emit(EventSeverity.WARNING, source_type, label, message, **fields)
+
+    def error(self, source_type: str, label: str, message: str, **fields) -> Event:
+        return self.emit(EventSeverity.ERROR, source_type, label, message, **fields)
 
     def list_events(
         self,
@@ -74,6 +113,10 @@ class EventManager:
         if source_type is not None:
             items = [e for e in items if e.source_type == source_type]
         return items[-limit:]
+
+    def clear(self) -> None:
+        with self._lock:
+            self._events.clear()
 
 
 _global = EventManager()

@@ -1,11 +1,14 @@
 """Request-scope serving observability: lifecycle traces + flight recorder.
 
-The port's own copy of ``ray_tpu/observability/reqtrace.py``.  A
-:class:`RequestTrace` rides the request context (``runtime/context.py``)
-through every serving layer; each layer stamps a named **mark**, a
-monotonic offset from the trace's birth.  Phase durations are the deltas
-between consecutive marks, so a completed trace's waterfall sums exactly to
-its end-to-end latency:
+The port's copy of ``ray_tpu/observability/reqtrace.py``: the same behaviour, imports renamed
+to ``ray_tpu_torch``.
+
+Answers "where did this request's 800 ms go?".  A :class:`RequestTrace` is
+born at the HTTP proxy and rides the request contextvar (and the explicit
+router -> replica argument, mirroring the tenant id) through every serving
+layer; each layer stamps a named **mark** — a monotonic offset from proxy
+admission.  Phase durations are the deltas between consecutive marks, so a
+completed trace's waterfall always sums exactly to its end-to-end latency:
 
     proxy_in -> router_in       "proxy"          ingress parse + route match
     router_in -> router_dequeue "router_queue"   bounded-queue wait
@@ -17,17 +20,28 @@ its end-to-end latency:
     first_token -> kv_migrate   "kv_migrate"     disaggregated handoff only
     kv_migrate -> finished      "decode"         inter-token gaps aggregated
 
-Marks, segments and ``PHASE_SPANS`` names are the JAX package's.  Per-token
-data stays O(1) per trace (gaps, stalls and prefill chunks fold into
-counters), and the store is bounded rings and sketches only.  Trace ids come
-from ``os.urandom``.  The JAX package also exports each finished trace as
-spans to its tracing module; the port has no span exporter, so
-``PHASE_SPANS`` only names the phases here.
+``kv_migrate`` only appears on disaggregated requests (prefill pool ->
+decode pool KV-block migration); co-located requests go straight from
+``first_token`` to ``finished`` and the waterfall still sums exactly to
+e2e either way.  For disaggregated requests the ``decode`` segment is
+attributed to the decode replica (the trace rides the explicit
+router -> replica argument into the decode pool), not the proxy.
+Non-LLM requests stop at ``replica_in``; their final segment reports as
+``handler``.  Per-token data stays O(1) per trace: gaps, stalls, and
+prefill chunks fold into counters/max — rings and sketches are the only
+storage (``serve_request_trace_ring`` completed traces + slowest-N +
+in-flight), so tracing overhead is bounded at any QPS and 1-in-N sampling
+(``serve_request_trace_sample_n``) bounds it further.
 
-The **flight recorder** (:func:`flight_record`) snapshots the last-N
+Determinism contract: trace ids come from ``os.urandom`` (never the seeded
+failpoint stream) and nothing here feeds a chaos decision or the fault
+log — same-seed chaos runs stay byte-identical with tracing on or off.
+
+The **flight recorder** half (:func:`flight_record`) snapshots the last-N
 completed traces plus caller-supplied engine/admission state into the
-bounded ``EventManager`` ring on an abnormal terminal (a shed, an engine
-crash).
+bounded ``EventManager`` ring on every abnormal terminal (shed, fence,
+plan BROKEN, engine crash, replica death), so ``/api/events`` and
+``rt chaos`` postmortems show which requests a failure ate.
 """
 
 from __future__ import annotations
@@ -41,6 +55,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch.core.config import get_config
 from ray_tpu_torch.observability.sketch import LatencySketch
+
+# rt-lint note: this module is wall-clock territory by design (it measures
+# latency); it is NOT on the chaos-determinism manifest and never feeds a
+# failpoint decision.
 
 #: canonical mark order; marks outside this set are allowed (extension
 #: point) but the waterfall names below cover the serving path.
@@ -285,6 +303,7 @@ class TraceStore:
                 if phase in ("router_queue", "engine_queue"):
                     sketches["queue_wait"].observe(b - a)
         self._observe_phase_metrics(trace)
+        self._emit_spans(trace)
 
     # --------------------------------------------------------- exporters
     def snapshot(self, limit: int = 50) -> dict:
@@ -344,6 +363,38 @@ class TraceStore:
             for phase, a, b in trace.phases():
                 metric_defs.SERVE_REQUEST_PHASE.observe(b - a, tags={"phase": phase})
         except Exception:  # noqa: BLE001 — metrics must not fail a request
+            pass
+
+    def _emit_spans(self, trace: RequestTrace) -> None:
+        try:
+            from ray_tpu_torch.observability import tracing
+
+            if not tracing.enabled():
+                return
+            parent_id = _new_id()
+            tracing.emit_span(
+                "serve::request",
+                trace_id=trace.request_id,
+                parent_id=None,
+                start=trace.born_wall,
+                end=trace.born_wall + trace.e2e_s,
+                span_id=parent_id,
+                attrs={
+                    "outcome": trace.outcome,
+                    "deployment": trace.deployment,
+                    "tenant": trace.tenant or "",
+                    "tokens": str(trace.tokens),
+                },
+            )
+            for phase, a, b in trace.phases():
+                tracing.emit_span(
+                    PHASE_SPANS.get(phase, f"serve::{phase}"),
+                    trace_id=trace.request_id,
+                    parent_id=parent_id,
+                    start=trace.born_wall + a,
+                    end=trace.born_wall + b,
+                )
+        except Exception:  # noqa: BLE001 — spans must not fail a request
             pass
 
 

@@ -736,3 +736,66 @@ def test_sharded_train_step_on_two_ranks_matches_one_device(cuda, attention, axe
                             backend="gloo"):
         for got, ref in zip(losses, want):
             assert abs(got - ref) <= 1e-5 * abs(ref), (losses, want)
+
+
+# --------------------------------------------------------------------------
+# the host runtime's device seams (ray_tpu_torch.api on the card)
+# --------------------------------------------------------------------------
+@pytest.fixture
+def runtime(cuda):
+    import ray_tpu_torch as rt
+
+    yield rt
+    rt.shutdown()
+
+
+def test_init_detects_the_card_and_a_gpu_actor_lives_in_process(runtime):
+    import os
+
+    from torch_runtime_tasks import Counter
+
+    runtime.init(num_cpus=2)
+    assert runtime.cluster_resources()["GPU"] == torch.cuda.device_count()
+    assert "TPU" not in runtime.cluster_resources()
+    actor = runtime.remote(Counter).options(num_gpus=1).remote(0)
+    assert runtime.get(actor.pid.remote()) == os.getpid()
+    assert runtime.available_resources().get("GPU", 0) == torch.cuda.device_count() - 1
+    runtime.kill(actor)
+
+
+def test_device_tier_holds_a_cuda_tensor_and_spills_it_to_the_host(runtime):
+    nbytes = 1 << 20
+    runtime.init(num_cpus=2, _system_config={"object_store_hbm_bytes": 3 * nbytes})
+    store = runtime.get_cluster().head_node.store
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xs = [torch.randn(nbytes // 4, generator=g, device="cuda") for _ in range(4)]
+    refs = []
+    for i, x in enumerate(xs):
+        refs.append(runtime.put(x))
+        if i == 0:
+            assert store.entry_info(refs[0].id())["tier"] == "device"
+            assert store.stats()["hbm_used"] == nbytes
+            assert runtime.get(refs[0]).data_ptr() == x.data_ptr()  # no copy
+    assert store.stats()["spills"] == 1 and store.stats()["hbm_used"] == 3 * nbytes
+    back = runtime.get(refs[0])
+    assert back.device.type == "cpu" and torch.equal(back, xs[0].cpu())
+    assert all(runtime.get(r).is_cuda for r in refs[1:])
+
+
+def test_cuda_tensor_task_runs_in_process_and_a_process_worker_gets_a_host_copy(runtime):
+    import os
+
+    from torch_runtime_tasks import _host_view, _scale
+
+    runtime.init(num_cpus=2)
+    x = torch.arange(12.0, device="cuda").reshape(3, 4).to(torch.bfloat16)
+    doubled = runtime.get(runtime.remote(_scale).remote(x, 2))  # auto: in process
+    assert doubled.is_cuda and torch.equal(doubled, x * 2)
+    ref = runtime.put(x)
+    assert runtime.get(runtime.remote(_scale).remote(ref, 3)).is_cuda
+    kind, dtype, values, cuda_in_worker = runtime.get(
+        runtime.remote(_host_view).options(execution="process").remote(x))
+    assert (kind, dtype, cuda_in_worker) == ("tensor", "bfloat16", False)
+    assert values.tolist() == x.float().cpu().tolist()
+    pid = runtime.get(runtime.remote(os.getpid).options(execution="process").remote())
+    assert pid != os.getpid()

@@ -183,3 +183,59 @@ def test_kernel_sources_build_into_a_gitignored_directory():
     assert {"attention.cu", "attention_bwd.cu", "decode_attention.cu", "int8_matmul.cu"} <= set(
         os.listdir(_build.CSRC))
     assert "arch=compute_90a,code=sm_90a" in _build.FLAGS
+
+
+# --------------------------------------------------------------------------
+# the host runtime: light imports, workers that never touch the card
+# --------------------------------------------------------------------------
+_RUNTIME_PARTS = ("__init__.py", "api.py", "exceptions.py", "core", "runtime", "observability",
+                  "dashboard", "accelerators")
+
+
+def _runtime_files():
+    out = []
+    for part in _RUNTIME_PARTS:
+        path = os.path.join(REPO, "ray_tpu_torch", part)
+        if os.path.isdir(path):
+            out += [os.path.join(path, n) for n in sorted(os.listdir(path)) if n.endswith(".py")]
+        else:
+            out.append(path)
+    return out
+
+
+def test_no_runtime_module_imports_torch_at_its_top():
+    bad = []
+    for path in _runtime_files():
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in tree.body:  # module level only: functions import lazily
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module] if isinstance(node, ast.ImportFrom) and node.module
+                     else [])
+            bad += [(os.path.relpath(path, REPO), n) for n in names if n.split(".")[0] == "torch"]
+    assert len(_runtime_files()) > 30 and bad == []
+    code = (
+        "import sys, ray_tpu_torch, ray_tpu_torch.runtime.worker_main, "
+        "ray_tpu_torch.runtime.worker_api, ray_tpu_torch.dashboard.reporter\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'ray_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_worker_process_runs_the_port_module_hides_the_card_and_loads_no_jax():
+    import ray_tpu_torch as rt
+    from torch_runtime_tasks import _worker_facts
+
+    rt.init(num_cpus=2)
+    try:
+        facts = rt.get(rt.remote(_worker_facts).options(execution="process").remote())
+    finally:
+        rt.shutdown()
+    argv = facts["argv"]
+    assert facts["pid"] != os.getpid()
+    assert argv[1:4] == ["-S", "-m", "ray_tpu_torch.runtime.worker_main"], argv
+    assert facts["cuda_visible_devices"] == ""
+    assert facts["forbidden"] == []
+    assert facts["torch_sees_cuda"] in (None, False)
