@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases build,kernels,moe_parity,moe_engine,vit_train,dit
     python3 chip_smoke.py --phases build,server,disagg   # the serving front
     python3 chip_smoke.py --phases build,runtime   # the host runtime and the GPU actor
+    python3 chip_smoke.py --phases build,serve     # the Serve runtime: replicas, proxy, dispatcher
     python3 chip_smoke.py --phases build,profile   # one profiled train step (not in the default run)
     python3 chip_smoke.py --phases build,parallel  # the parallel layer, ranks sharing the card
 
@@ -62,7 +63,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``quantize=True`` (every K6 launch on the tensor cores); tokens/s and
    client TTFT beside the engine's own sketches (TTFT, inter-token and
    queue-wait p50/p99 over the burst) and the median of each phase of the
-   burst's request traces, which the server starts. Then ``OpenAICompatLLMServer`` with
+   burst's request traces, started around each call as the Serve proxy
+   starts them. Then ``OpenAICompatLLMServer`` with
    the JAX tests' toy tokenizer: a completion, a chat and a streamed chat
    (envelopes, usage counts, finish reasons), and ``top_p=0.5`` refused.
 4c. ``disagg`` — disaggregated prefill/decode on the same decoder: (a) a
@@ -97,6 +99,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
    the per-thread cuBLAS workspaces). Then, with
    ``object_store_hbm_fraction`` at 2.5 tensors, three puts spill the
    oldest to the host bit for bit and free its device bytes (spill GB/s).
+4e. ``serve`` — the Serve runtime (``ray_tpu_torch.serve``) on the card,
+   one ``init(num_cpus=8)`` and ``serve.start()``: (a) ``serve.run`` of
+   ``LLMServer`` with ``ray_actor_options={"num_gpus": 1}`` and no device
+   (the replica's engine takes the card), float then ``quantize=True``,
+   answering the engine phase's burst over HTTP (8 SSE clients through the
+   proxy) and through a ``DeploymentHandle``: tokens and K1/K6 launches
+   equal to an ``LLMServer`` driven directly by the same 8 streaming
+   clients (every K6 launch on the tensor cores); tokens/s and client TTFT
+   beside the direct server's, the engine phase's paged engine's and the
+   runtime phase's GPU actor's (where those phases ran), and the
+   median of each phase of the proxy-born request traces. (b)
+   ``OpenAICompatLLMServer`` behind the proxy: a completion and a streamed
+   chat equal the direct server's envelopes (ids and timestamps aside). (c)
+   ``roles={"prefill": 1, "decode": 1}``, half the card each, bf16, through
+   ``DisaggDispatcher``: the burst's tokens equal (a)'s float ones; the
+   dispatcher's counters and the cluster's migration audit count 8 staged
+   and 8 adopted; the halves alone run K1 only on the decode replica (16 a
+   decode step). Then ``chaos_kill_replica(role="decode", index=0)`` once
+   mid-burst: each request finishes with co-located tokens or fails with
+   ``KVMigrationError``, and the audit's terminals (adopted, failed,
+   re-prefills) match. (d) After ``serve.shutdown()`` and the runtime's
+   ``shutdown()``: no CUDA tensor of 1 MiB or more beyond the weights, no
+   ``serve-*`` thread, no worker process.
 5. ``train_parity`` — the 602M train-step decoder of ``bench.py`` (vocab
    32000, d_model 2048, 8 layers, 16 heads, d_ff 8192, T 2048), batch 1:
    loss and every gradient leaf through the flash kernels
@@ -158,7 +183,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    losses must stray from one device's by more than ``LOSS_RTOL``.
 12. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
    replaces, launches in the main-path runs (engine, server, disagg,
-   runtime, train, moe_engine, vit_train, parallel) in all and by phase, max
+   runtime, serve, train, moe_engine, vit_train, parallel) in all and by phase, max
    error, device ms, plain ms, bound ms and what bounds it, library ms;
    K1/K2 also the event floor and each timed shape; K3/K4/K5 also the parallel phase's
    shard shapes (``parallel_<shape>_*``).
@@ -190,7 +215,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 PHASES = ("build", "kernels", "forward_parity", "engine", "server", "disagg", "runtime",
-          "train_parity",
+          "serve", "train_parity",
           "train", "moe_parity", "moe_engine", "vit_train", "dit", "parallel")
 OPTIONAL_PHASES = ("profile",)
 
@@ -1109,10 +1134,30 @@ def engine_sketches(eng) -> dict:
     return {name: sk.to_dict() for name, sk in eng._sketches.items()}
 
 
+def traced_stream(call, deployment: str):
+    """What the Serve proxy does around a streamed request, for a server
+    called directly: start the request's trace, put it in the context while
+    ``call()`` submits, and finish it when the stream ends."""
+    from ray_tpu_torch.observability import reqtrace
+    from ray_tpu_torch.runtime.context import pop_request_trace, push_request_trace
+
+    trace = reqtrace.start_trace(route="/", deployment=deployment)
+    token = push_request_trace(trace)
+    try:
+        events = call()
+    finally:
+        pop_request_trace(token)
+    try:
+        yield from events
+    finally:
+        reqtrace.finish_trace(trace)
+
+
 def trace_phases(store, n: int, max_tokens: int) -> dict:
     """Median ms of each request-trace phase over the ``n`` traces ``store``
-    finished last (the server starts one a request), after checking each:
-    outcome ``ok``, ``max_tokens`` tokens, phases summing to e2e."""
+    finished last (the proxy, or ``traced_stream``, starts one a request),
+    after checking each: outcome ``ok``, ``max_tokens`` tokens, phases
+    summing to e2e."""
     done = [store.find(d["id"]) for d in store.snapshot(limit=n)["recent"]]
     by_phase = {}
     for t in done:
@@ -1219,8 +1264,9 @@ def run_servers(torch, cfg, params, kernels_of: dict, engine_tokens: dict):
     decode steps; every K6 launch on the tensor cores). The paged server's
     tokens must equal the paged engine phase's; on the dense server one
     blocking and one streaming request for the first prompt must give its
-    burst tokens. Each burst's request traces (started by the server) give
-    the median of every phase. Then ``check_openai``."""
+    burst tokens. Each burst's request traces (started around each call as
+    the Serve proxy starts them) give the median of every phase. Then
+    ``check_openai``."""
     from ray_tpu_torch.observability import reqtrace
     from ray_tpu_torch.serve.llm import LLMServer
 
@@ -1242,8 +1288,9 @@ def run_servers(torch, cfg, params, kernels_of: dict, engine_tokens: dict):
             reqtrace.global_trace_store().reset()
             zero_counters(counters)
             tokens, ttft, wall = stream_burst(
-                prompts, 32, lambda i: srv({"prompt": prompts[i], "max_tokens": 32,
-                                            "stream": True}))
+                prompts, 32, lambda i: traced_stream(
+                    lambda: srv({"prompt": prompts[i], "max_tokens": 32, "stream": True}),
+                    "LLMServer"))
             torch.cuda.synchronize()
             launches, by_route = read_counters(counters)
             lat = {k: sketch_delta(before[k], v) for k, v in engine_sketches(srv.engine).items()}
@@ -1985,6 +2032,368 @@ def run_runtime(torch, cfg, params, kernels_of: dict, card: str):
     if held > RUNTIME_MEMORY_SLACK or left:
         raise AssertionError(f"after the spill runtime's shutdown: workers {left} alive, "
                              f"{held} device bytes held by {live_cuda_tensors(torch)}")
+
+
+# ---------------------------------------------------------------------------
+# the Serve runtime: serve.run, the HTTP proxy, the router and the dispatcher
+# ---------------------------------------------------------------------------
+SERVE_TEARDOWN_WAIT_S = 15.0
+
+
+def http_events(url: str, body: dict):
+    """POST ``body`` and yield the server-sent events of the response (the
+    proxy's SSE stream), one dict a ``data:`` frame."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        if resp.headers["Content-Type"] != "text/event-stream":
+            raise AssertionError(f"{url}: {resp.headers['Content-Type']}, not an SSE stream")
+        for line in resp:
+            line = line.decode().strip()
+            if line.startswith("data: "):
+                yield json.loads(line[6:])
+
+
+def http_json(url: str, body: dict) -> dict:
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=600) as resp:
+        return json.loads(resp.read())
+
+
+def cuda_storages(torch, min_bytes: int = 1 << 20) -> set:
+    """Device pointers of the live CUDA tensors' storages of at least
+    ``min_bytes`` (the serve phase's baseline: the weights it serves)."""
+    import gc
+
+    return {obj.untyped_storage().data_ptr() for obj in gc.get_objects()
+            if isinstance(obj, torch.Tensor) and obj.is_cuda
+            and obj.untyped_storage().nbytes() >= min_bytes}
+
+
+def served_burst(prompts, ask, counters: dict):
+    """``stream_burst`` of the engine phase's burst with ``counters`` zeroed
+    just before and read just after."""
+    zero_counters(counters)
+    tokens, ttft, wall = stream_burst(prompts, 32, ask)
+    launches, by_route = read_counters(counters)
+    n_tok = sum(len(r) for r in tokens)
+    return tokens, launches, by_route, {
+        "tokens_per_s": n_tok / wall, "wall_s": wall,
+        "ttft_s_median": statistics.median(ttft), "ttft_s_max": max(ttft)}
+
+
+def serve_replicas(torch, rt, serve, cfg, params, kernels_of: dict, actor_tps: dict,
+                   engine_nums: dict):
+    """(a) ``serve.run`` of ``LLMServer`` with ``num_gpus=1`` (no device: the
+    replica's engine takes the card), float then int8: the burst over HTTP
+    through the proxy (8 SSE clients) and through a ``DeploymentHandle``,
+    against an ``LLMServer`` instance driven directly by the same 8 streaming
+    clients. Tokens and K1/K6 launches equal the direct run's."""
+    from ray_tpu_torch.observability import reqtrace
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    prompts = burst_prompts(cfg, 8, 64)
+    url = serve.proxy_url() + "/llm"
+    kw = dict(max_batch_size=8, max_seq_len=cfg.max_seq_len, kv_block_size=16,
+              cache_kind="paged")
+    for quantize in (False, True):
+        names = ["paged_decode_attention"] + (["int8_matmul"] if quantize else [])
+        counters = {n: kernels_of[n] for n in names}
+        direct = LLMServer(lambda: (cfg, params), device="cuda", quantize=quantize, **kw)
+        try:
+            direct({"prompt": [5] * 64, "max_tokens": 2})  # the loop's cuBLAS handle
+            torch.cuda.synchronize()
+            want, direct_launches, _, direct_nums = served_burst(
+                prompts, lambda i: direct({"prompt": prompts[i], "max_tokens": 32,
+                                           "stream": True}), counters)
+        finally:
+            direct.engine.shutdown()
+        del direct
+        torch.cuda.empty_cache()
+
+        name = "llm_int8" if quantize else "llm_float"
+        app = serve.deployment(LLMServer, name=name, ray_actor_options={"num_gpus": 1}).bind(
+            lambda: (cfg, params), quantize=quantize, **kw)
+        t0 = time.perf_counter()
+        handle = serve.run(app, name=name, route_prefix="/llm")
+        handle.remote({"prompt": [5] * 64, "max_tokens": 2}).result(timeout=600)
+        deploy_s = time.perf_counter() - t0
+        if rt.available_resources().get("GPU", 0) != 0:
+            raise AssertionError(f"{name}: the replica holds no GPU: {rt.available_resources()}")
+        store = reqtrace.global_trace_store()
+        store.reset()
+        runs = {}
+        for via, ask in (
+                ("http", lambda i: http_events(url, {"prompt": prompts[i], "max_tokens": 32,
+                                                     "stream": True})),
+                ("handle", lambda i: handle.remote({"prompt": prompts[i], "max_tokens": 32,
+                                                    "stream": True}).result(timeout=600))):
+            tokens, launches, by_route, nums = served_burst(prompts, ask, counters)
+            if via == "http":
+                nums["trace_phase_ms_median"] = trace_phases(store, len(prompts), 32)
+            what = f"{name} over {via}"
+            if tokens != want:
+                raise AssertionError(f"{what}: tokens differ from the direct server's")
+            if launches != direct_launches:
+                raise AssertionError(f"{what}: launches {launches}, direct {direct_launches}")
+            steps, rem = divmod(launches["paged_decode_attention"], cfg.n_layers)
+            if rem or steps < 31:
+                raise AssertionError(f"{what}: K1 {launches}, not {cfg.n_layers} a decode step")
+            per_forward = k6_per_layer(cfg) * cfg.n_layers
+            if quantize and (launches["int8_matmul"] % per_forward
+                             or launches["int8_matmul"] < per_forward * steps
+                             or by_route["int8_matmul"] != {"mma_bf16": launches["int8_matmul"],
+                                                            "simt": 0}):
+                raise AssertionError(f"{what}: K6 {launches} {by_route}")
+            runs[via] = {**nums, "decode_steps": steps, "launches": launches,
+                         "launches_by_route": by_route}
+        serve.delete(name)
+        torch.cuda.empty_cache()
+        yield {
+            "_tokens": want,
+            "part": "a_gpu_replica", "deployment": name, "quantize": quantize,
+            "ray_actor_options": {"num_gpus": 1}, "requests": 8, "prompt_len": 64,
+            "max_tokens": 32, "deploy_s": deploy_s, "tokens_equal_direct": True,
+            "launches_equal_direct": True, "launches_direct": direct_launches,
+            "direct": direct_nums, "http": runs["http"], "handle": runs["handle"],
+            "tokens_per_s_gpu_actor": actor_tps.get(quantize),
+            "engine_phase": engine_nums.get(quantize),
+            "launches": {n: runs["http"]["launches"][n] + runs["handle"]["launches"][n]
+                         for n in names},
+            "launches_by_route": {n: {r: runs["http"]["launches_by_route"][n][r]
+                                      + runs["handle"]["launches_by_route"][n][r]
+                                      for r in runs["http"]["launches_by_route"][n]}
+                                  for n in runs["http"]["launches_by_route"]},
+        }
+
+
+def serve_openai(torch, serve, cfg, params) -> dict:
+    """(b) ``OpenAICompatLLMServer`` behind the proxy: a completion and a
+    streamed chat over HTTP give the direct server's envelopes (ids and
+    timestamps aside)."""
+    from ray_tpu_torch.serve.llm import OpenAICompatLLMServer
+
+    tok = ToyTokenizer()
+    comp_body = {"model": "llm_bench", "prompt": "once upon a time", "max_tokens": 16,
+                 "temperature": 0}
+    chat_body = {"model": "llm_bench", "messages": [{"role": "user", "content": "tell me a story"}],
+                 "max_tokens": 16, "temperature": 0, "stream": True}
+    kw = dict(max_batch_size=8, max_seq_len=cfg.max_seq_len)
+    direct = OpenAICompatLLMServer(lambda: (cfg, params, tok), device="cuda", **kw)
+    try:
+        want_comp = direct(comp_body)
+        want_chunks = list(direct(chat_body))
+    finally:
+        direct.engine.shutdown()
+    del direct
+    app = serve.deployment(OpenAICompatLLMServer, name="llm_openai",
+                           ray_actor_options={"num_gpus": 1}).bind(
+        lambda: (cfg, params, tok), **kw)
+    serve.run(app, name="llm_openai", route_prefix="/v1")
+    base = serve.proxy_url()
+    comp = http_json(base + "/v1/completions", comp_body)
+    chunks = list(http_events(base + "/v1/chat/completions", chat_body))
+    serve.delete("llm_openai")
+    torch.cuda.empty_cache()
+
+    def strip(d):
+        return {k: v for k, v in d.items() if k not in ("id", "created")}
+
+    if strip(comp) != strip(want_comp) or not comp["id"].startswith("cmpl-"):
+        raise AssertionError(f"completion over HTTP {comp} vs direct {want_comp}")
+    if [strip(c) for c in chunks] != [strip(c) for c in want_chunks] \
+            or len({c["id"] for c in chunks}) != 1:
+        raise AssertionError(f"streamed chat over HTTP {chunks} vs direct {want_chunks}")
+    return {"part": "b_openai_http", "completion_text": comp["choices"][0]["text"],
+            "completion_usage": comp["usage"], "chat_chunks": len(chunks),
+            "chat_finish_reason": chunks[-1]["choices"][0]["finish_reason"],
+            "equal_to_direct": True}
+
+
+def serve_split(torch, rt, serve, cfg, params, kernels_of: dict, colocated: list,
+                colocated_nums: dict):
+    """(c) ``roles={"prefill": 1, "decode": 1}``, bf16, each replica half the
+    card, through ``DisaggDispatcher``: the burst's tokens equal co-located
+    serving; the halves alone show K1 only on the decode replica; the
+    dispatcher's migration counters and the cluster's audit match the
+    request count. Then a decode-replica kill mid-burst
+    (``chaos_kill_replica``): each request finishes through the re-prefill
+    ladder or fails with ``KVMigrationError``, as the audit records."""
+    from ray_tpu_torch.serve import api as serve_api
+    from ray_tpu_torch.serve.disagg import KVMigrationError
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    k1 = {"paged_decode_attention": kernels_of["paged_decode_attention"]}
+    prompts = burst_prompts(cfg, 8, 64)
+    name = "llm_split"
+    app = serve.deployment(LLMServer, name=name, roles={"prefill": 1, "decode": 1},
+                           ray_actor_options={"num_gpus": 0.5}).bind(
+        lambda: (cfg, params), max_batch_size=8, max_seq_len=cfg.max_seq_len, kv_block_size=16)
+    handle = serve.run(app, name=name, route_prefix=None)
+    handle.remote({"prompt": [5] * 64, "max_tokens": 2}).result(timeout=600)
+    router = handle._router
+    cluster = rt.get_cluster()
+    audits0 = len(cluster.kv_migration_audits)
+    snap0 = router.disagg_snapshot() or {"dispatched": {"prefill": 0, "decode": 0},
+                                         "migrations": {}}
+    tokens, launches, _, nums = served_burst(
+        prompts, lambda i: handle.remote({"prompt": prompts[i], "max_tokens": 32,
+                                          "stream": True}).result(timeout=600), k1)
+    if tokens != colocated:
+        raise AssertionError("split deployment: tokens differ from co-located serving")
+    snap = router.disagg_snapshot()
+    audits = list(cluster.kv_migration_audits)[audits0:]
+    staged = [a for a in audits if a["event"] == "staged"]
+    released = [a for a in audits if a["event"] == "released"]
+    dispatched = {r: snap["dispatched"][r] - snap0["dispatched"].get(r, 0) for r in snap["dispatched"]}
+    migrated = {o: snap["migrations"][o] - snap0["migrations"].get(o, 0) for o in snap["migrations"]}
+    if (len(staged) != 8 or sorted(a["mig_id"] for a in staged)
+            != sorted(a["mig_id"] for a in released)
+            or any(a["outcome"] != "adopted" for a in released)
+            or dispatched != {"prefill": 8, "decode": 8}
+            or migrated != {"device": 0, "host": 8, "reprefill": 0, "failed": 0}):
+        raise AssertionError(f"split burst: dispatched {dispatched}, migrations {migrated}, "
+                             f"audit {audits}")
+    steps, rem = divmod(launches["paged_decode_attention"], cfg.n_layers)
+    # the halves alone, through the dispatcher's own primitives
+    p = router.pick_role_replica(name, "prefill")
+    d = router.pick_role_replica(name, "decode")
+    zero_counters(k1)
+    ticket = router.call_replica(name, p, "disagg_prefill", ({"prompt": prompts[1][::-1]}, "c/half"))
+    prefill_half = read_counters(k1)[0]
+    zero_counters(k1)
+    router.call_replica(name, d, "disagg_decode",
+                        ({"prompt": prompts[1][::-1], "max_tokens": 32}, ticket))
+    decode_half = read_counters(k1)[0]
+    router.call_replica(name, p, "disagg_release", ("c/half",))
+    if rem or prefill_half["paged_decode_attention"] != 0 \
+            or decode_half["paged_decode_attention"] != cfg.n_layers * 31:
+        raise AssertionError(f"K1 in the burst {launches}, prefill half {prefill_half}, "
+                             f"decode half {decode_half}")
+    yield {"part": "c_split_bf16", "deployment": name, "roles": {"prefill": 1, "decode": 1},
+           "ray_actor_options": {"num_gpus": 0.5}, "requests": 8, "prompt_len": 64,
+           "max_tokens": 32, "tokens_equal_colocated": True, **nums,
+           "colocated": colocated_nums, "decode_steps": steps,
+           "dispatched": dispatched, "migrations": migrated, "audit_staged": len(staged),
+           "audit_released_adopted": len(released),
+           "launches_prefill_half": prefill_half, "launches_decode_half": decode_half,
+           "launches": {"paged_decode_attention": launches["paged_decode_attention"]
+                        + decode_half["paged_decode_attention"]}}
+
+    # the chaos hook of the reference's kill_decode_replica kind, mid-burst
+    ctl = next(iter(cluster.serve_controllers.values()))
+    audits0 = len(cluster.kv_migration_audits)
+    snap0 = router.disagg_snapshot()
+    results = [None] * 8
+
+    def client(i):
+        try:
+            results[i] = handle.remote({"prompt": prompts[i], "max_tokens": 32}).result(
+                timeout=600)["tokens"]
+        except KVMigrationError as exc:
+            results[i] = exc
+
+    zero_counters(k1)
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(8)]
+    for t in threads:
+        t.start()
+    deadline = time.monotonic() + 120
+    while (router.disagg_snapshot()["dispatched"]["decode"] - snap0["dispatched"]["decode"] < 2
+           and time.monotonic() < deadline):
+        time.sleep(0.005)
+    killed = ctl.chaos_kill_replica(name, role="decode", index=0)
+    for t in threads:
+        t.join(timeout=600)
+    if not killed or any(r is None for r in results):
+        raise AssertionError(f"chaos: killed {killed}, results {results}")
+    t0 = time.perf_counter()
+    while ctl.pool_status()[name]["decode"]["replicas"] != 1 and time.perf_counter() - t0 < 120:
+        time.sleep(0.05)
+    heal_s = time.perf_counter() - t0
+    router._refresh(force=True)
+    after = handle.remote({"prompt": prompts[0], "max_tokens": 32}).result(timeout=600)["tokens"]
+    launches = read_counters(k1)[0]
+    audits = list(cluster.kv_migration_audits)[audits0:]
+    outcomes = {}
+    for a in audits:
+        if a["event"] == "released":
+            outcomes[a["outcome"]] = outcomes.get(a["outcome"], 0) + 1
+    ok = [i for i, r in enumerate(results) if not isinstance(r, BaseException)]
+    failed = [i for i, r in enumerate(results) if isinstance(r, BaseException)]
+    snap = router.disagg_snapshot()
+    migrated = {o: snap["migrations"][o] - snap0["migrations"][o] for o in snap["migrations"]}
+    if any(results[i] != colocated[i] for i in ok) or after != colocated[0]:
+        raise AssertionError("chaos: a finished request's tokens differ from co-located serving")
+    # every request ends in exactly one terminal: adopted (first try or
+    # after a re-prefill) or failed (the ladder exhausted, typed)
+    if (outcomes.get("adopted", 0) != len(ok) + 1 or outcomes.get("failed", 0) != len(failed)
+            or outcomes.get("reprefill", 0) != migrated["reprefill"]
+            or migrated["failed"] != len(failed)):
+        raise AssertionError(f"chaos: {len(ok)} finished, {len(failed)} failed, audit "
+                             f"terminals {outcomes}, migrations {migrated}")
+    yield {"part": "c_split_decode_kill", "deployment": name, "killed": True,
+           "requests": 8, "finished": len(ok), "failed_typed": len(failed),
+           "failed_errors": sorted({type(results[i]).__name__ for i in failed}),
+           "audit_terminals": outcomes, "migrations": migrated, "heal_s": heal_s,
+           "after_heal_equals_colocated": True, "launches": launches}
+    serve.delete(name)
+
+
+def run_serve(torch, cfg, params, kernels_of: dict, card: str, actor_tps: dict,
+              engine_nums: dict):
+    """The serve phase: (a) GPU replicas, float and int8, over HTTP and a
+    handle; (b) the OpenAI server behind the proxy; (c) the split pair and
+    its decode-replica kill; (d) after ``serve.shutdown()`` and the
+    runtime's ``shutdown()``: no new CUDA tensor of 1 MiB or more, no
+    ``serve-*`` thread, no worker process."""
+    import gc
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
+
+    baseline = cuda_storages(torch)
+    threads0 = set(threading.enumerate())
+    rt.init(num_cpus=8)
+    pool = rt.get_cluster().head_node.worker_pool
+    colocated = None
+    try:
+        serve.start(http_port=0)
+        for rep in serve_replicas(torch, rt, serve, cfg, params, kernels_of, actor_tps,
+                                  engine_nums):
+            tokens = rep.pop("_tokens")
+            if not rep["quantize"]:  # what the split pair is held to
+                colocated = (tokens, {k: rep["handle"][k] for k in (
+                    "tokens_per_s", "ttft_s_median", "ttft_s_max")})
+            yield {"card": card, **rep}
+        yield {"card": card, **serve_openai(torch, serve, cfg, params)}
+        for rep in serve_split(torch, rt, serve, cfg, params, kernels_of, *colocated):
+            yield {"card": card, **rep}
+        procs = [w.proc for w in list(pool._all.values())]
+    finally:
+        serve.shutdown()
+        rt.shutdown()
+    del pool
+    t0 = time.perf_counter()
+    while True:
+        gc.collect()
+        new = cuda_storages(torch) - baseline
+        threads = sorted(t.name for t in threading.enumerate()
+                         if t.name.startswith("serve-") and t not in threads0)
+        left = [p.pid for p in procs if p.poll() is None] + worker_processes()
+        if not (new or threads or left) or time.perf_counter() - t0 > SERVE_TEARDOWN_WAIT_S:
+            break
+        time.sleep(0.1)
+    if new or threads or left:
+        raise AssertionError(f"after shutdown: {len(new)} CUDA tensors of >= 1 MiB "
+                             f"({live_cuda_tensors(torch)}), serve threads {threads}, "
+                             f"workers {left}")
+    yield {"card": card, "part": "d_teardown", "new_cuda_tensors_1mib": 0, "serve_threads": [],
+           "workers_left": 0, "teardown_s": time.perf_counter() - t0}
 
 
 def train_config(torch):
@@ -2828,7 +3237,7 @@ def main(argv=None) -> int:
             for r, x in per.items():
                 by_route.setdefault(name, {}).setdefault(r, 0)
                 by_route[name][r] += x
-    if phases & {"forward_parity", "engine", "server", "disagg", "runtime"}:
+    if phases & {"forward_parity", "engine", "server", "disagg", "runtime", "serve"}:
         cfg = serving_config(torch)
         from ray_tpu_torch.models.transformer import init_params
 
@@ -2843,9 +3252,13 @@ def main(argv=None) -> int:
             emit({"phase": "forward_parity", "ok": True, "params": n_params,
                   "init_s": init_s, **rep})
         engine_tokens = {}  # (cache kind, quantize) -> the burst's tokens
+        engine_nums = {}  # quantize -> the paged engine's tokens/s and TTFT
         if "engine" in phases:
             for run in run_engines(torch, cfg, params, kernels_of):
                 engine_tokens[(run["cache_kind"], run["quantize"])] = run.pop("request_tokens")
+                if run["cache_kind"] == "paged":
+                    engine_nums[run["quantize"]] = {k: run[k] for k in (
+                        "tokens_per_s", "ttft_s_median", "ttft_s_max")}
                 emit({"phase": "engine", "ok": True, "card": card, "params": n_params, **run})
                 count("engine", run["launches"], run["launches_by_route"])
         colocated = {}  # quantize -> the paged server's burst numbers
@@ -2865,12 +3278,21 @@ def main(argv=None) -> int:
             for rep in run_disagg(torch, cfg, params, kernels_of, colocated):
                 emit({"phase": "disagg", "ok": True, "card": card, **rep})
                 count("disagg", rep["launches"], rep.get("launches_by_route", {}))
+        actor_tps = {}  # quantize -> the runtime phase's GPU-actor tokens/s
         if "runtime" in phases:
             torch.cuda.empty_cache()
             for rep in run_runtime(torch, cfg, params, kernels_of, card):
                 emit({"phase": "runtime", "ok": True, **rep})
                 if "launches" in rep:
                     count("runtime", rep["launches"], rep["launches_by_route"])
+                if rep.get("part") == "gpu_actor":
+                    actor_tps[rep["quantize"]] = rep["tokens_per_s_actor"]
+        if "serve" in phases:
+            torch.cuda.empty_cache()
+            for rep in run_serve(torch, cfg, params, kernels_of, card, actor_tps, engine_nums):
+                emit({"phase": "serve", "ok": True, **rep})
+                if "launches" in rep:
+                    count("serve", rep["launches"], rep.get("launches_by_route", {}))
         del params
         torch.cuda.empty_cache()
     if phases & {"train_parity", "train", "profile"}:

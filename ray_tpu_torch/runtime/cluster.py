@@ -38,7 +38,7 @@ from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 from ray_tpu_torch.core.config import get_config
 from ray_tpu_torch.core.ids import ActorID, NodeID, ObjectID
 from ray_tpu_torch.core.object_ref import ObjectRef
-from ray_tpu_torch.core.sync import when_all
+from ray_tpu_torch.core.sync import join_threads, when_all
 from ray_tpu_torch.core.task_manager import TaskManager
 from ray_tpu_torch.exceptions import (
     ActorDiedError,
@@ -2338,3 +2338,8 @@ class Cluster:
         for node in self.nodes.values():
             if not node.dead:
                 node.shutdown()
+        # the demand drainer may have been inside a blocking submit when it
+        # was told to stop: wait for it (bounded), so no thread bound to
+        # this cluster outlives its shutdown
+        if self._demand_thread is not None:
+            join_threads([self._demand_thread])

@@ -37,7 +37,7 @@ from typing import Any, Callable, Dict, List, Optional
 from ray_tpu_torch.core.config import get_config
 from ray_tpu_torch.core.ids import ActorID, NodeID, ObjectID
 from ray_tpu_torch.core.object_store import ObjectStore
-from ray_tpu_torch.core.sync import when_all
+from ray_tpu_torch.core.sync import join_threads, when_all
 from ray_tpu_torch.core.resources import ResourcePool, ResourceSet
 from ray_tpu_torch.core import serialization
 from ray_tpu_torch.core.object_ref import ObjectRef
@@ -268,13 +268,15 @@ class Node:
         # worker_pool.h:169-193) so the first task doesn't pay the ~200ms
         # child-interpreter startup; further growth is demand-driven and
         # also off the submitting thread (_maybe_grow_async).
+        self._prestart_thread: Optional[threading.Thread] = None
         if cfg.num_prestart_workers > 0:
-            threading.Thread(
+            self._prestart_thread = threading.Thread(
                 target=self.worker_pool.prestart,
                 args=(cfg.num_prestart_workers,),
                 name="worker-prestart",
                 daemon=True,
-            ).start()
+            )
+            self._prestart_thread.start()
         self.actors: Dict[ActorID, ActorInstance] = {}
         self._actor_worker_index: Dict[int, ActorID] = {}  # pid -> actor
         self._proc_specs: Dict[bytes, TaskSpec] = {}  # running in process workers
@@ -928,10 +930,16 @@ class Node:
     # ------------------------------------------------------------------
     def shutdown(self) -> None:
         self.dead = True
+        actor_threads = [t for inst in self.actors.values() for t in inst.threads]
         for actor_id in list(self.actors):
             self.kill_actor(actor_id)
         self.executor.shutdown(wait=False)
         self.worker_pool.shutdown()
+        # in-process actor threads and the prestarter are bound to this node
+        # (and so to the cluster): bounded wait for them to unwind
+        if self._prestart_thread is not None:
+            actor_threads.append(self._prestart_thread)
+        join_threads(actor_threads)
 
 
 def _hash_blob(blob: bytes) -> bytes:

@@ -33,7 +33,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 from ray_tpu_torch.core.config import get_config
 from ray_tpu_torch.core.ids import ActorID, NodeID, ObjectID, PlacementGroupID, TaskID
 from ray_tpu_torch.core.resources import ResourcePool, ResourceSet
-from ray_tpu_torch.core.sync import when_all
+from ray_tpu_torch.core.sync import join_threads, when_all
 from ray_tpu_torch.observability import metric_defs
 
 # prebuilt tag dicts: the locality stage runs per placement decision
@@ -464,6 +464,10 @@ class LeaseManager:
 
     def stop(self) -> None:
         self._sweep_stop.set()
+        with self._lock:
+            sweeper = self._sweep_thread
+        if sweeper is not None:
+            join_threads([sweeper])
 
     def _ensure_sweeper(self) -> None:
         # called under self._lock

@@ -42,6 +42,7 @@ import time
 from typing import Dict, List, Optional
 
 from ray_tpu_torch.core.config import get_config
+from ray_tpu_torch.core.sync import join_threads
 from ray_tpu_torch.exceptions import DeadlineExceededError
 from ray_tpu_torch.observability import metric_defs
 
@@ -144,6 +145,10 @@ class TaskWatchdog:
 
     def stop(self) -> None:
         self._stop.set()
+        with self._lock:
+            thread = self._thread
+        if thread is not None:
+            join_threads([thread])
 
     # ------------------------------------------------------------------
     # tracking

@@ -30,6 +30,7 @@ from collections import deque
 from typing import Any, Callable, Dict, Optional
 
 from ray_tpu_torch.core.config import get_config
+from ray_tpu_torch.core.sync import join_threads
 from ray_tpu_torch.exceptions import WorkerCrashedError
 from ray_tpu_torch.observability import metric_defs, tracing
 from ray_tpu_torch.runtime import failpoints, protocol
@@ -106,6 +107,11 @@ class ProcessWorkerPool:
         # set the operator asked for (prestart() raises the floor)
         self._prestart_floor = 0
         self._lock = threading.RLock()
+        # every thread the pool starts, joined (bounded) by shutdown: a
+        # per-worker thread still unwinding would hold the pool, and through
+        # its handlers the node and the cluster, past the runtime's shutdown
+        self._threads: list = []
+        self._threads_lock = threading.Lock()  # a leaf lock: taken under any other
         self._idle: deque[WorkerHandle] = deque()
         self._backlog: deque = deque()
         self._all: Dict[int, WorkerHandle] = {}
@@ -234,9 +240,7 @@ class ProcessWorkerPool:
             # Stream worker output to the driver with a pid prefix (parity:
             # log_monitor.py tailing worker logs into the driver, the
             # "(pid=...)" lines) — user prints inside tasks stay visible.
-            threading.Thread(
-                target=self._pump_logs, args=(proc,), name=f"worker-logs-{proc.pid}", daemon=True
-            ).start()
+            self._start_thread(self._pump_logs, f"worker-logs-{proc.pid}", proc)
             try:
                 self._listener.settimeout(30.0)
                 sock, _ = self._listener.accept()
@@ -291,6 +295,13 @@ class ProcessWorkerPool:
     #: DRIVER's stderr across hosts (log_monitor-to-driver parity)
     log_sink: Optional[Callable[[str], None]] = None
 
+    def _start_thread(self, target: Callable, name: str, *args) -> None:
+        t = threading.Thread(target=target, args=args, name=name, daemon=True)
+        with self._threads_lock:
+            self._threads = [x for x in self._threads if x.is_alive()]
+            self._threads.append(t)
+        t.start()
+
     def _pump_logs(self, proc: subprocess.Popen) -> None:
         # merged worker stdout+stderr goes to the DRIVER'S STDERR (reference
         # log_monitor behavior): parsed driver stdout stays clean, and the
@@ -321,7 +332,7 @@ class ProcessWorkerPool:
             if shared + self._spawning >= self._max_workers or self._spawning >= len(self._backlog):
                 return
             self._spawning += 1
-        threading.Thread(target=self._grow_one, name="pool-spawner", daemon=True).start()
+        self._start_thread(self._grow_one, "pool-spawner")
 
     def _grow_one(self) -> None:
         try:
@@ -622,10 +633,7 @@ class ProcessWorkerPool:
             worker.sendq.append((msg_type, payload))
             if not worker.sender_started:
                 worker.sender_started = True
-                threading.Thread(
-                    target=self._sender_loop, args=(worker,),
-                    name=f"worker-send-{worker.pid}", daemon=True,
-                ).start()
+                self._start_thread(self._sender_loop, f"worker-send-{worker.pid}", worker)
             worker.send_cv.notify()
 
     def _sender_loop(self, worker: WorkerHandle) -> None:
@@ -705,9 +713,7 @@ class ProcessWorkerPool:
     # it serializes the commit chains of concurrent workers.)
     # ------------------------------------------------------------------
     def _watch_worker(self, worker: WorkerHandle) -> None:
-        threading.Thread(
-            target=self._reader_loop, args=(worker,), name=f"pool-reader-{worker.pid}", daemon=True
-        ).start()
+        self._start_thread(self._reader_loop, f"pool-reader-{worker.pid}", worker)
 
     #: nested-API dispatcher set by the owning Node:
     #: fn(task_bin, blob) -> reply_blob (may block awaiting other tasks)
@@ -771,7 +777,7 @@ class ProcessWorkerPool:
             except OSError:
                 pass  # worker died while we worked; its death path handles it
 
-        threading.Thread(target=run, name=f"worker-api-{worker.pid}", daemon=True).start()
+        self._start_thread(run, f"worker-api-{worker.pid}")
 
     def _reader_loop(self, worker: WorkerHandle) -> None:
         reader = protocol.FrameReader(worker.sock)
@@ -1054,6 +1060,9 @@ class ProcessWorkerPool:
             os.unlink(self._listen_path)
         except OSError:
             pass
+        with self._threads_lock:
+            threads = list(self._threads)
+        join_threads(threads)
 
 
 def _defer_error(callback, error, after=None) -> None:

@@ -1,6 +1,6 @@
 """Disaggregated prefill/decode serving: KV-block migration between engines.
 
-The port's own copy of the engine-facing half of ``ray_tpu/serve/disagg.py``.
+The port's own copy of ``ray_tpu/serve/disagg.py``.
 A ``role="prefill"`` engine runs chunked prefill into its paged KV pool and
 parks the prompt's block set as a *staged migration*
 (``LLMEngine.prefill_export``, which resolves to a header-only ticket from
@@ -13,12 +13,16 @@ of one process: the prefill engine's registry entry in
 ``runtime/data_plane.py``, reported as the ``"host"`` rung, as the JAX
 package reports it) → the device pull (``runtime/device_plane.py``, CUDA IPC
 between processes of one host, the ``"device"`` rung).  The JAX package's
-third rung, the host-staged ``kv_pull`` of its data server, needs the
-runtime, which is not ported: a block no rung reaches raises
+third rung, the host-staged ``kv_pull`` of its data server, needs the data
+server, which is not ported: a block no rung reaches raises
 :class:`KVMigrationError` with ``stage == "staging"``.
 
-Not ported yet: ``DisaggDispatcher`` (it needs the Serve router) and its
-migration audit on the cluster.
+:class:`DisaggDispatcher` is the router's half (the reference's, imports
+renamed): prefill → migrate → decode through ``Router.call_replica``, the
+re-prefill ladder over ``Config.kv_migration_attempts``, and one audit event
+per staging and per release on ``cluster.kv_migration_audits``.  Serve's
+replicas live in the process that started Serve, so their blocks move by
+the in-process rung.
 
 Determinism: block uuids derive from the migration id
 (:func:`migration_uuid`, bit-equal to the reference's), never at random.
@@ -26,14 +30,24 @@ Determinism: block uuids derive from the migration id
 
 from __future__ import annotations
 
+import threading
+import time
 import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch.core.config import get_config
+from ray_tpu_torch.observability import metric_defs
 
 #: the two pool roles a disaggregated deployment declares
 ROLE_PREFILL = "prefill"
 ROLE_DECODE = "decode"
+
+_OUTCOME_TAGS = {
+    "device": {"outcome": "device"},
+    "host": {"outcome": "host"},
+    "reprefill": {"outcome": "reprefill"},
+    "failed": {"outcome": "failed"},
+}
 
 
 class KVMigrationError(RuntimeError):
@@ -171,3 +185,171 @@ def local_data_addr() -> Optional[str]:
     """Address of this node's data server (the host-staged rung a ticket
     advertises): None, because the port runs no data server."""
     return None
+
+
+def _record_audit(event: dict) -> None:
+    """Append one migration-lifecycle audit onto the cluster (the chaos
+    invariant sweep asserts every staged block set reaches exactly one
+    terminal).  Best-effort: engines driven without a runtime still work."""
+    try:
+        from ray_tpu_torch.runtime.worker import global_worker
+
+        cluster = global_worker().cluster
+        audits = getattr(cluster, "kv_migration_audits", None)
+        if audits is not None:
+            audits.append(event)
+    except Exception:  # noqa: BLE001 — audits must never fail a request
+        pass
+
+
+class DisaggDispatcher:
+    """Role-aware request flow for one disaggregated deployment.
+
+    Owned by the router (one per deployment with ``roles``); uses the
+    router's replica list + metadata and calls replicas through the same
+    ``handle_request`` surface as ordinary dispatch, so admission bounds,
+    tenant context, and the request trace all ride along unchanged.
+    """
+
+    def __init__(self, router, deployment: str):
+        self._router = router
+        self._deployment = deployment
+        self._lock = threading.Lock()
+        self._seq = 0
+        # monotonic dispatch counters per role (rt llm / /api/overload)
+        self.dispatched = {ROLE_PREFILL: 0, ROLE_DECODE: 0}
+        self.migrations = {k: 0 for k in _OUTCOME_TAGS}
+
+    # ------------------------------------------------------------ identity
+    def _next_mig_id(self) -> str:
+        """Derived, never random: ``<deployment>/m<seq>`` with the attempt
+        suffix appended per ladder rung — byte-identical across same-seed
+        chaos replays."""
+        with self._lock:
+            self._seq += 1
+            return f"{self._deployment}/m{self._seq}"
+
+    # ------------------------------------------------------------ dispatch
+    def route(self, request: dict, tenant=None, trace=None):
+        """Full disaggregated flow for one request: prefill → migrate →
+        decode, with the re-prefill fallback ladder."""
+        from ray_tpu_torch.runtime import failpoints
+
+        attempts = max(1, int(get_config().kv_migration_attempts))
+        base_id = self._next_mig_id()
+        last_exc: Optional[BaseException] = None
+        for attempt in range(attempts):
+            mig_id = base_id if attempt == 0 else f"{base_id}#a{attempt}"
+            t0 = time.perf_counter()
+            # prefill-pool failures raise as ordinary request errors, not
+            # migration failures: no staged state exists yet
+            p_index, ticket = self._prefill(request, mig_id, tenant, trace)
+            _record_audit({
+                "mig_id": mig_id,
+                "event": "staged",
+                "deployment": self._deployment,
+                "blocks": ticket["n_blocks"],
+                "attempt": attempt,
+            })
+            try:
+                hit = failpoints.fp("disagg.decode_call")
+                if hit == "raise":  # pragma: no cover — fp() raises itself
+                    raise KVMigrationError(mig_id, "staging", "failpoint")
+                result, rung = self._decode(request, ticket, tenant, trace)
+            except BaseException as exc:  # noqa: BLE001 — ladder catches all
+                self._release(p_index, mig_id,
+                              "reprefill" if attempt + 1 < attempts
+                              else "failed", tenant)
+                last_exc = exc
+                if attempt + 1 < attempts:
+                    outcome = "reprefill"
+                    self.migrations[outcome] += 1
+                    metric_defs.LLM_KV_MIGRATIONS.inc(tags=_OUTCOME_TAGS[outcome])
+                    continue
+                self.migrations["failed"] += 1
+                metric_defs.LLM_KV_MIGRATIONS.inc(tags=_OUTCOME_TAGS["failed"])
+                raise KVMigrationError(
+                    mig_id, "pulled",
+                    f"fallback ladder exhausted after {attempts} attempt(s): "
+                    f"{exc!r}",
+                ) from exc
+            # decode replica owns its copies now: drop the staged set on
+            # the prefill side (its pages already retired into the prefill
+            # replica's prefix cache at export)
+            self._release(p_index, mig_id, "adopted", tenant)
+            self.migrations[rung] += 1
+            metric_defs.LLM_KV_MIGRATIONS.inc(tags=_OUTCOME_TAGS[rung])
+            metric_defs.LLM_KV_MIGRATION_SECONDS.observe(time.perf_counter() - t0)
+            if isinstance(result, dict) and "_stream" in result:
+                # streaming decode: hand the per-token event generator
+                # straight to the proxy, like the homogeneous path does
+                return result["_stream"]
+            return result
+        raise last_exc  # pragma: no cover — loop always returns or raises
+
+    # ------------------------------------------------------------ replicas
+    def _call(self, index: int, method: str, args: tuple, tenant, trace,
+              timeout: Optional[float] = None):
+        return self._router.call_replica(
+            self._deployment, index, method, args, tenant, trace,
+            timeout=timeout,
+        )
+
+    def _prefill(self, request: dict, mig_id: str, tenant,
+                 trace) -> Tuple[int, dict]:
+        index = self._router.pick_role_replica(
+            self._deployment, ROLE_PREFILL, signal="queue"
+        )
+        self.dispatched[ROLE_PREFILL] += 1
+        ticket = self._call(
+            index, "disagg_prefill", (dict(request), mig_id), tenant, trace
+        )
+        if not isinstance(ticket, dict) or "mig_id" not in ticket:
+            raise KVMigrationError(
+                mig_id, "prefill-done",
+                f"prefill replica returned no ticket: {type(ticket)}",
+            )
+        return index, ticket
+
+    def _decode(self, request: dict, ticket: dict, tenant, trace):
+        index = self._router.pick_role_replica(
+            self._deployment, ROLE_DECODE, signal="kv_free"
+        )
+        self.dispatched[ROLE_DECODE] += 1
+        out = self._call(
+            index, "disagg_decode", (dict(request), ticket), tenant, trace
+        )
+        if isinstance(out, dict) and out.pop("_kv_migration_error", None):
+            raise KVMigrationError(
+                ticket["mig_id"], out.get("stage", "pulled"),
+                out.get("message", "decode replica refused the migration"),
+            )
+        rung = "device"
+        if isinstance(out, dict):
+            rung = out.pop("_migration_rung", "device")
+        return out, rung
+
+    def _release(self, p_index: int, mig_id: str, outcome: str,
+                 tenant) -> None:
+        """Drop the staged block set on the prefill side — exactly once
+        per migration, whatever the outcome.  Best-effort: if the prefill
+        replica itself died, the transfer server's TTL reaps its offers
+        and the process-global source registry entry dies with it."""
+        try:
+            self._call(p_index, "disagg_release", (mig_id,), tenant, None)
+        except Exception:  # noqa: BLE001 — TTL reaps stragglers
+            pass
+        _record_audit({
+            "mig_id": mig_id,
+            "event": "released",
+            "deployment": self._deployment,
+            "outcome": outcome,
+        })
+
+    # --------------------------------------------------------------- stats
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "dispatched": dict(self.dispatched),
+                "migrations": dict(self.migrations),
+            }

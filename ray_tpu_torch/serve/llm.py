@@ -60,8 +60,9 @@ decode batch without prefilling.
 :class:`LLMServer` wraps an engine as the class users deploy and call (token
 ids or, with a tokenizer, text; streaming; the disaggregated halves), and
 :class:`OpenAICompatLLMServer` answers OpenAI completion and chat bodies.
-Both are plain classes: the Serve runtime that deploys them is not ported,
-so the server is the ingress that starts and finishes a request's trace.
+Both deploy through ``serve.deployment(...).bind(...)`` and ``serve.run``
+(``ray_tpu_torch/serve/api.py``); the HTTP proxy starts each request's
+trace, and the engine stamps the one it finds in the request context.
 
 Not in this engine yet (ROADMAP): ``mesh=`` raises ``NotImplementedError``.
 """
@@ -73,7 +74,6 @@ import time
 from collections import deque
 from concurrent.futures import Future
 from dataclasses import dataclass, field
-from types import GeneratorType
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
@@ -101,8 +101,6 @@ from ray_tpu_torch.runtime.context import (
     current_deadline_ts,
     current_request_trace,
     current_tenant,
-    pop_request_trace,
-    push_request_trace,
 )
 from ray_tpu_torch.serve import disagg
 from ray_tpu_torch.serve.kv_blocks import BlockAllocator
@@ -1583,34 +1581,6 @@ def _dtype_name(dtype: torch.dtype) -> str:
     return str(dtype).removeprefix("torch.")
 
 
-def _trace_outcome(exc: BaseException) -> tuple:
-    """(outcome, detail) of a trace whose request raised ``exc``, in the
-    flight recorder's vocabulary (the JAX package's proxy mapping, less the
-    worker-death case: the port has no runtime)."""
-    if isinstance(exc, OverloadedError):
-        return "shed", f"{exc.layer}:{exc.reason}"
-    if isinstance(exc, DeadlineExceededError):
-        return "deadline", str(exc)
-    return "error", f"{type(exc).__name__}: {exc}"
-
-
-def _traced_stream(events, trace):
-    """``events``, finishing ``trace`` when the stream ends: "ok" at its
-    end, "disconnect" when the consumer closes it early, else the raised
-    error's outcome (an engine-side claim made first wins)."""
-    outcome, detail = "ok", ""
-    try:
-        yield from events
-    except GeneratorExit:
-        outcome, detail = "disconnect", "stream closed before its end"
-        raise
-    except Exception as exc:
-        outcome, detail = _trace_outcome(exc)
-        raise
-    finally:
-        reqtrace.finish_trace(trace, outcome, detail)
-
-
 class LLMServer:
     """The serving class users call: one engine per instance.
 
@@ -1625,8 +1595,15 @@ class LLMServer:
         srv({"text": "once upon", "max_tokens": 16})
 
     ``device`` goes to the engine (CUDA unless the caller asks for the CPU;
-    with no CUDA and no ``device="cpu"`` the engine raises). A plain class:
-    the Serve runtime that deploys it as replicas is not ported.
+    with no CUDA and no ``device="cpu"`` the engine raises). Deploy with::
+
+        app = serve.deployment(LLMServer, ray_actor_options={"num_gpus": 1}).bind(
+            model_factory, max_batch_size=8)
+        handle = serve.run(app)
+        handle.remote({"prompt": [1, 2, 3], "max_tokens": 16}).result()
+
+    A request's trace is the proxy's: the engine stamps the one in the
+    request context, and the server starts none of its own.
     """
 
     def __init__(
@@ -1689,29 +1666,6 @@ class LLMServer:
         raise ValueError("request needs 'prompt' (token ids) or 'text'")
 
     def __call__(self, request: Dict[str, Any]):
-        """Answer one request. The server is the port's ingress (the HTTP
-        proxy that starts a request's trace in the JAX package is not
-        ported): a request with no trace in its context gets one here, and
-        it finishes when the answer, or the stream, ends."""
-        if current_request_trace() is not None:
-            return self._handle(request)
-        trace = reqtrace.start_trace(deployment=type(self).__name__, tenant=current_tenant())
-        if trace is None:  # tracing off, or this request not sampled
-            return self._handle(request)
-        token = push_request_trace(trace)
-        try:
-            result = self._handle(request)
-        except Exception as exc:
-            reqtrace.finish_trace(trace, *_trace_outcome(exc))
-            raise
-        finally:
-            pop_request_trace(token)
-        if isinstance(result, GeneratorType):
-            return _traced_stream(result, trace)
-        reqtrace.finish_trace(trace)
-        return result
-
-    def _handle(self, request: Dict[str, Any]):
         prompt = self._encode(request)
         kw = dict(
             max_tokens=int(request.get("max_tokens", 32)),
@@ -1858,10 +1812,10 @@ class OpenAICompatLLMServer(LLMServer):
     the non-streaming response.
     """
 
-    def _handle(self, request: Any):
+    def __call__(self, request: Any):
         if isinstance(request, dict) and ("messages" in request or "model" in request):
             return self._openai(request)
-        return super()._handle(request)
+        return super().__call__(request)
 
     # ------------------------------------------------------------- openai
     def _openai(self, body: Dict[str, Any]):

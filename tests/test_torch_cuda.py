@@ -799,3 +799,93 @@ def test_cuda_tensor_task_runs_in_process_and_a_process_worker_gets_a_host_copy(
     assert values.tolist() == x.float().cpu().tolist()
     pid = runtime.get(runtime.remote(os.getpid).options(execution="process").remote())
     assert pid != os.getpid()
+
+
+# --------------------------------------------------------------------------
+# the Serve runtime on the card (ray_tpu_torch.serve)
+# --------------------------------------------------------------------------
+@pytest.mark.parametrize("quantize", [False, True], ids=["float", "int8"])
+def test_gpu_replica_serves_through_the_kernels_as_the_cpu_engine(runtime, quantize):
+    """``serve.run`` of ``LLMServer`` with ``num_gpus=1`` and no ``device``:
+    the replica is an in-process GPU actor whose engine runs K1 (and K6
+    under ``quantize``) on the card; greedy tokens over the handle and over
+    HTTP equal the same engine's on the CPU."""
+    import json
+    import urllib.request
+
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models.transformer import TransformerConfig, init_params
+    from ray_tpu_torch.serve.llm import LLMEngine, LLMServer
+
+    cfg = TransformerConfig(vocab_size=97, d_model=128, n_layers=2, n_heads=2, n_kv_heads=1,
+                            d_ff=256, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(5))
+    prompts = [[3, 5, 7, 11, 13], [2] * 17, list(range(1, 31))]
+    eng = LLMEngine(cfg, params, device="cpu", max_batch_size=4, max_seq_len=64,
+                    cache_kind="paged", quantize=quantize)
+    try:
+        want = [eng.generate(p, max_tokens=8) for p in prompts]
+    finally:
+        eng.shutdown()
+    runtime.init(num_cpus=4)
+    try:
+        serve.start(http_port=0)
+        app = serve.deployment(LLMServer, ray_actor_options={"num_gpus": 1}).bind(
+            lambda: (cfg, params), max_batch_size=4, max_seq_len=64, cache_kind="paged",
+            quantize=quantize)
+        handle = serve.run(app, route_prefix="/llm")
+        k1, k6 = tdec.paged_decode_attention.launches, tq.int8_matmul.launches
+        got = [handle.remote({"prompt": p, "max_tokens": 8}).result(timeout=120)["tokens"]
+               for p in prompts]
+        assert tdec.paged_decode_attention.launches - k1 >= cfg.n_layers * 7 * len(prompts)
+        assert (tq.int8_matmul.launches > k6) == quantize
+        req = urllib.request.Request(serve.proxy_url() + "/llm", data=json.dumps(
+            {"prompt": prompts[0], "max_tokens": 8}).encode())
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            over_http = json.loads(resp.read())["tokens"]
+        assert runtime.available_resources().get("GPU", 0) == torch.cuda.device_count() - 1
+    finally:
+        serve.shutdown()
+    assert got == want and over_http == want[0]
+
+
+def test_gpu_replicas_share_the_card_in_a_split_deployment(runtime):
+    """A ``roles`` deployment whose replicas ask for half the card each: the
+    dispatcher's prefill -> migrate -> decode gives the co-located tokens,
+    and K1 runs only in the decode replica's requests."""
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.models.transformer import TransformerConfig, init_params
+    from ray_tpu_torch.serve.llm import LLMEngine, LLMServer
+
+    cfg = TransformerConfig(vocab_size=97, d_model=128, n_layers=2, n_heads=2, n_kv_heads=1,
+                            d_ff=256, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(5))
+    prompt = list(range(1, 31))
+    eng = LLMEngine(cfg, params, device="cuda", max_batch_size=4, max_seq_len=64)
+    try:
+        want = eng.generate(prompt, max_tokens=8)
+    finally:
+        eng.shutdown()
+    runtime.init(num_cpus=4)
+    try:
+        serve.start(http_port=0)
+        app = serve.deployment(LLMServer, roles={"prefill": 1, "decode": 1},
+                               ray_actor_options={"num_gpus": 0.5}).bind(
+            lambda: (cfg, params), max_batch_size=4, max_seq_len=64)
+        handle = serve.run(app, route_prefix=None)
+        handle._router._refresh(force=True)
+        router = handle._router
+        p = router.pick_role_replica("LLMServer", "prefill")
+        d = router.pick_role_replica("LLMServer", "decode")
+        k1 = tdec.paged_decode_attention.launches
+        ticket = router.call_replica("LLMServer", p, "disagg_prefill", ({"prompt": prompt}, "t/1"))
+        assert tdec.paged_decode_attention.launches == k1
+        out = router.call_replica("LLMServer", d, "disagg_decode",
+                                  ({"prompt": prompt, "max_tokens": 8}, ticket))
+        assert tdec.paged_decode_attention.launches - k1 == cfg.n_layers * 7
+        router.call_replica("LLMServer", p, "disagg_release", ("t/1",))
+        assert out["tokens"] == want and out["_migration_rung"] == "host"
+        assert handle.remote({"prompt": prompt, "max_tokens": 8}).result(timeout=120)[
+            "tokens"] == want
+    finally:
+        serve.shutdown()

@@ -407,49 +407,98 @@ def test_second_shutdown_leaves_the_next_engine_registered(params):
 
 
 def test_server_is_the_ingress_of_a_request_trace(params):
-    """With no trace in the request context the server starts one and
-    finishes it when the answer (or the stream) ends, as the JAX package's
-    proxy does: ``ok`` for an answer and a stream run to its end,
-    ``disconnect`` for a stream closed early, ``error`` for a rejected body.
-    A trace the caller put in the context is used, not replaced."""
+    """The ingress of a request's trace is the HTTP proxy in front of the
+    server, as in the JAX package: called with no trace in its context the
+    server starts none, a trace the caller put there is stamped and not
+    finished, and behind ``serve.run`` the proxy starts and finishes one
+    per request: ``ok`` for an answer and a stream run to its end,
+    ``disconnect`` for a stream whose client went away, ``error`` for a
+    rejected body."""
+    import json
+    import socket
+    import struct
+    import urllib.error
+    import urllib.request
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve
     from ray_tpu_torch.observability import reqtrace as ttrace
 
     _, tp = params
-    srv = LLMServer(lambda: (CFG, tp), device="cpu", max_batch_size=2, max_seq_len=64)
     store = ttrace.global_trace_store()
+    srv = LLMServer(lambda: (CFG, tp), device="cpu", max_batch_size=2, max_seq_len=64)
     store.reset()
     try:
-        tok = tctx.push_tenant("acme")
-        try:
-            srv({"prompt": [3, 1, 4], "max_tokens": 5})
-        finally:
-            tctx.pop_tenant(tok)
-        events = list(srv({"prompt": [3, 1, 4], "max_tokens": 5, "stream": True}))
-        assert events[-1] == {"done": True, "num_generated": 5}
-        closed = srv({"prompt": [2, 7], "max_tokens": 8, "stream": True})
-        next(closed)
-        closed.close()
-        with pytest.raises(ValueError):
-            srv({})
+        assert srv({"prompt": [3, 1, 4], "max_tokens": 2})["num_generated"] == 2
+        assert store.snapshot()["recent"] == []
         own = ttrace.RequestTrace(route="/llm")
         tok = tctx.push_request_trace(own)
         try:
             srv({"prompt": [5, 6], "max_tokens": 2})
         finally:
             tctx.pop_request_trace(tok)
+        assert "engine_submit" in [n for n, _ in own.marks] and not own.done
+    finally:
+        srv.engine.shutdown()
+
+    def post(body, tenant=None):
+        headers = {"Content-Type": "application/json"}
+        if tenant:
+            headers["X-Tenant-Id"] = tenant
+        req = urllib.request.Request(serve.proxy_url() + "/llm",
+                                     data=json.dumps(body).encode(), headers=headers)
+        try:
+            with urllib.request.urlopen(req, timeout=60) as resp:
+                return resp.status, resp.read()
+        except urllib.error.HTTPError as err:
+            return err.code, err.read()
+
+    def abandon_stream(body):
+        """Read the first SSE frame, then reset the connection."""
+        data = json.dumps(body).encode()
+        host, port = serve.proxy_url()[len("http://"):].split(":")
+        with socket.create_connection((host, int(port)), timeout=60) as sock:
+            sock.sendall(b"POST /llm HTTP/1.1\r\nHost: x\r\nContent-Type: "
+                         b"application/json\r\nContent-Length: %d\r\n\r\n" % len(data) + data)
+            got = b""
+            while b"data: " not in got:
+                got += sock.recv(4096)
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_LINGER, struct.pack("ii", 1, 0))
+
+    rt.init(num_cpus=4)
+    try:
+        serve.start(http_port=0)
+        serve.run(serve.deployment(LLMServer).bind(
+            lambda: (CFG, tp), device="cpu", max_batch_size=2, max_seq_len=64),
+            route_prefix="/llm")
+        store.reset()
+        assert post({"prompt": [3, 1, 4], "max_tokens": 5}, tenant="acme")[0] == 200
+        status, body = post({"prompt": [3, 1, 4], "max_tokens": 5, "stream": True})
+        assert status == 200 and b'"done": true' in body
+        abandon_stream({"prompt": [2, 7], "max_tokens": 60, "stream": True})
+        assert _wait_for(lambda: len(store.snapshot()["recent"]) == 3)
+        assert post({})[0] == 500
         done = [store.find(d["id"]) for d in reversed(store.snapshot()["recent"])]
         assert [t.outcome for t in done] == ["ok", "ok", "disconnect", "error"]
-        assert "engine_submit" in [n for n, _ in own.marks] and not own.done
         for t in done:
-            assert t.deployment == "LLMServer" and t.done
+            assert t.deployment == "LLMServer" and t.route == "/llm" and t.done
             assert t.marks[0][0] == "proxy_in" and t.marks[-1][0] == "finished"
             assert sum(b - a for _, a, b in t.phases()) == pytest.approx(t.e2e_s, abs=1e-9)
         for t in done[:2]:
             phases = [p for p, _, _ in t.phases()]
-            assert phases[0] == "replica" and "prefill" in phases and phases[-1] == "decode"
+            assert phases[0] == "proxy" and "prefill" in phases and phases[-1] == "decode"
             assert t.tokens == 5
         assert done[0].tenant == "acme" and done[1].tenant is None
-        assert [p for p, _, _ in done[3].phases()] == ["handler"]
+        assert [p for p, _, _ in done[3].phases()][-1] == "handler"
     finally:
-        srv.engine.shutdown()
+        serve.shutdown()
+        rt.shutdown()
         store.reset()
+
+
+def _wait_for(pred, timeout=30):
+    deadline = time.monotonic() + timeout
+    while not pred() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    return bool(pred())
+
