@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,serve     # the Serve runtime: replicas, proxy, dispatcher
     python3 chip_smoke.py --phases build,profile   # one profiled train step (not in the default run)
     python3 chip_smoke.py --phases build,parallel  # the parallel layer, ranks sharing the card
+    python3 chip_smoke.py --phases build,tp_serve  # the tensor-parallel engine on 2 ranks
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -122,6 +123,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    re-prefills) match. (d) After ``serve.shutdown()`` and the runtime's
    ``shutdown()``: no CUDA tensor of 1 MiB or more beyond the weights, no
    ``serve-*`` thread, no worker process.
+4f. ``tp_serve`` — the tensor-parallel engine (``LLMEngine(mesh=)``) on the
+   serving decoder at full width, ``{"tp": 2}``: two rank processes share
+   ``cuda:0`` over gloo (``run_ranks``), rank 0 drives and rank 1
+   ``follow()``s. (a) f32 with TF32 off: a prefill of the first prompt
+   through ``forward_with_cache`` on each rank's shards against the
+   single-device dense engine's (the flash kernel) within atol 1e-3, then
+   the greedy tokens of 4 prompts (64 tokens, 32 new) equal the
+   single-device dense engine's. (b) bf16: the engine phase's burst (8 x 64
+   x 32) through the tp engine and through the single-device dense engine
+   in rank 0: tokens/s and TTFT (median, max) of both, and per decode step
+   the collectives and the bytes of CUDA tensors they carry through the
+   host, beside the step broadcasts of the engine's channel. No kernel runs on
+   the tp path (K1-K6 launch 0 times on every rank, as in the JAX engine
+   under a mesh). (c) After the ranks exit: no rank process, no process
+   group in this process, and the card's free memory back within the
+   runtime phase's slack.
 5. ``train_parity`` — the 602M train-step decoder of ``bench.py`` (vocab
    32000, d_model 2048, 8 layers, 16 heads, d_ff 8192, T 2048), batch 1:
    loss and every gradient leaf through the flash kernels
@@ -183,7 +200,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    losses must stray from one device's by more than ``LOSS_RTOL``.
 12. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
    replaces, launches in the main-path runs (engine, server, disagg,
-   runtime, serve, train, moe_engine, vit_train, parallel) in all and by phase, max
+   runtime, serve, tp_serve, train, moe_engine, vit_train, parallel) in all and by phase, max
    error, device ms, plain ms, bound ms and what bounds it, library ms;
    K1/K2 also the event floor and each timed shape; K3/K4/K5 also the parallel phase's
    shard shapes (``parallel_<shape>_*``).
@@ -196,6 +213,7 @@ CUDA device is present or the package is missing.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -215,7 +233,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 PHASES = ("build", "kernels", "forward_parity", "engine", "server", "disagg", "runtime",
-          "serve", "train_parity",
+          "serve", "tp_serve", "train_parity",
           "train", "moe_parity", "moe_engine", "vit_train", "dit", "parallel")
 OPTIONAL_PHASES = ("profile",)
 
@@ -1655,6 +1673,11 @@ RUNTIME_RTT_REPS = 200
 # per-thread cuBLAS workspaces (CUBLAS_WORKSPACE_CONFIG :4096:8 = 32 MiB a
 # handle) of the threads that ran kernels may outlive shutdown
 RUNTIME_MEMORY_SLACK = 256 << 20
+# the runtime phase's figures before the native tier (in-band pickling;
+# PERF.md section 5): printed beside this run's
+RUNTIME_BEFORE_NATIVE = {"host_copy_to_worker_gb_per_s": [0.26, 0.34],
+                         "task_rtt_ms_median": {"in_process": [0.34, 0.61],
+                                                "process": [0.63, 1.09]}}
 
 
 def rt_noop(x):
@@ -1798,6 +1821,44 @@ def live_cuda_tensors(torch, min_bytes: int = 1 << 20) -> list:
     return out
 
 
+@contextlib.contextmanager
+def encoded_as():
+    """The kinds of the values this process encodes for process workers
+    while inside (``ShmRef``: through the native shm arena)."""
+    from ray_tpu_torch.runtime import protocol
+
+    kinds, real = [], protocol.encode_value
+
+    def spy(value, shm_store, id_factory):
+        out = real(value, shm_store, id_factory)
+        kinds.append(type(out).__name__)
+        return out
+
+    protocol.encode_value = spy
+    try:
+        yield kinds
+    finally:
+        protocol.encode_value = real
+
+
+def native_tier(rt) -> dict:
+    """In this tree the runtime runs the port's native tier: the C frame
+    codec, the C ids and the shm store (never the pure-Python tiers)."""
+    from ray_tpu_torch.core import ids
+    from ray_tpu_torch.native import hotpath
+    from ray_tpu_torch.native.shm_store import SEGMENT_PREFIX
+    from ray_tpu_torch.runtime import protocol
+
+    store = rt.get_cluster().shm_store
+    if protocol._native is not hotpath or store is None or ids.ObjectID is not hotpath.ObjectID \
+            or ids.ObjectID.__module__ != "ray_tpu_torch.core.ids" \
+            or not store.name.startswith(SEGMENT_PREFIX):
+        raise AssertionError(f"native tier: codec {protocol._native}, store {store}, "
+                             f"ObjectID {ids.ObjectID!r} from {ids.ObjectID.__module__}")
+    return {"frame_codec": hotpath._mod.__name__, "ids": ids.ObjectID.__module__,
+            "shm_segment": store.name, "shm_capacity": store.capacity}
+
+
 def runtime_objects(torch, rt, smoke, card: str) -> dict:
     """Device tier, device task, process task and the round trips, on a
     runtime that ``init`` started with the card detected."""
@@ -1838,8 +1899,12 @@ def runtime_objects(torch, rt, smoke, card: str) -> dict:
     copies = []
     for _ in range(3):
         t0 = time.perf_counter()
-        seen = rt.get(host.remote(t))
+        with encoded_as() as kinds:
+            seen = rt.get(host.remote(t))
         copies.append(time.perf_counter() - t0)
+        if kinds != ["ShmRef"]:
+            raise AssertionError(f"the 256 MiB tensor went to the worker as {kinds}, "
+                                 "not through the shm arena")
         if seen != {"type": "Tensor", "device": "cpu", "dtype": "bfloat16",
                     "shape": list(RUNTIME_SHAPE), "sum_f32": want_sum, "pid": seen["pid"],
                     "cuda_initialized": False, "cuda_visible_devices": ""} \
@@ -1857,7 +1922,7 @@ def runtime_objects(torch, rt, smoke, card: str) -> dict:
         "put_ms": put_s * 1e3, "get_ms": get_s * 1e3,
         "device_task_in_process": True, "process_task_sum_f32": want_sum,
         "process_task_worker_pid": seen["pid"],
-        "host_copy_to_worker_s": copies,
+        "host_copy_to_worker_s": copies, "host_copy_to_worker_via": "ShmRef",
         "host_copy_to_worker_gb_per_s": nbytes / min(copies) / 1e9,
         "task_rtt_ms_median": {"in_process": rtt_thread * 1e3, "process": rtt_proc * 1e3,
                                "reps": RUNTIME_RTT_REPS},
@@ -2008,9 +2073,11 @@ def run_runtime(torch, cfg, params, kernels_of: dict, card: str):
         resources = rt.cluster_resources()
         if resources.get("GPU") != 1 or resources.get("TPU"):
             raise AssertionError(f"init on the card: resources {resources}")
+        native = native_tier(rt)
         rep = runtime_objects(torch, rt, smoke, card)
         gc.collect()
-        yield {"part": "objects", "init_s": init_s, "resources": resources, **rep,
+        yield {"part": "objects", "init_s": init_s, "resources": resources, "native": native,
+               **rep, "before_native_tier": RUNTIME_BEFORE_NATIVE,
                "device_bytes_held_after_part": torch.cuda.memory_allocated() - base}
         yield from runtime_actor_runs(torch, rt, cfg, params, kernels_of, card)
         procs = [w.proc for w in list(pool._all.values())]
@@ -2023,8 +2090,11 @@ def run_runtime(torch, cfg, params, kernels_of: dict, card: str):
     if left or held > RUNTIME_MEMORY_SLACK:
         raise AssertionError(f"after shutdown: workers {left} alive, {held} device bytes held "
                              f"by {live_cuda_tensors(torch)}")
+    if os.path.exists("/dev/shm" + native["shm_segment"]):
+        raise AssertionError(f"after shutdown: shm segment {native['shm_segment']} remains")
     yield {"part": "shutdown", "card": card, "workers_spawned": len(procs),
-           "workers_left": 0, "device_bytes_held_after": held}
+           "workers_left": 0, "device_bytes_held_after": held,
+           "shm_segment_unlinked": native["shm_segment"]}
     yield {"part": "spill", "card": card, **runtime_spill(torch, rt)}
     gc.collect()
     held = torch.cuda.memory_allocated() - base
@@ -3162,6 +3232,232 @@ def run_parallel(torch, train_losses=None):
            "loss_rtol": LOSS_RTOL, "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# the tensor-parallel engine: LLMEngine(mesh=) on ranks that share the card
+# ---------------------------------------------------------------------------
+TP_SERVE_TIMEOUT_S = 600.0
+TP_F32_PROMPTS = 4
+
+
+def _tp_burst(eng, prompts, max_tokens: int):
+    """The burst through ``eng`` (one streaming client a prompt): tokens,
+    TTFT per request, wall seconds."""
+    results, ttft = [None] * len(prompts), [None] * len(prompts)
+
+    def client(i):
+        t0 = time.perf_counter()
+        toks = []
+        for tok in eng.submit_stream(prompts[i], max_tokens=max_tokens):
+            if not toks:
+                ttft[i] = time.perf_counter() - t0
+            toks.append(tok)
+        results[i] = toks
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(len(prompts))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    for i, r in enumerate(results):
+        if r is None or len(r) != max_tokens:
+            raise AssertionError(f"tp_serve request {i} returned {r!r}")
+    return results, ttft, wall
+
+
+def _tp_serve_rank(max_tokens: int):
+    """One rank of the tp_serve phase. Every rank builds the same engine
+    from the serving decoder's seed; rank 0 drives it and also runs the
+    single-device dense engine it is held to, the others follow. Returns
+    this rank's report (rank 0's with the tokens and numbers)."""
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.generation import forward_with_cache, init_cache
+    from ray_tpu_torch.models.transformer import _layout, init_params
+    from ray_tpu_torch.ops.attention import (
+        flash_attention_backward_dkv,
+        flash_attention_backward_dq,
+        flash_attention_with_lse,
+    )
+    from ray_tpu_torch.ops.decode_attention import decode_attention, paged_decode_attention
+    from ray_tpu_torch.ops.quantization import int8_matmul
+    from ray_tpu_torch.parallel import MeshManager, collective
+    from ray_tpu_torch.parallel.mesh import shard_tree
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    counters = {"paged_decode_attention": paged_decode_attention,
+                "decode_attention": decode_attention,
+                "flash_attention_forward": flash_attention_with_lse,
+                "flash_attention_backward_dq": flash_attention_backward_dq,
+                "flash_attention_backward_dkv": flash_attention_backward_dkv,
+                "int8_matmul": int8_matmul}
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank = dist.get_rank()
+    mesh = MeshManager().create_mesh({"tp": dist.get_world_size()})
+    rep = {"rank": rank}
+    kw = dict(device="cuda", max_batch_size=8, cache_kind="dense")
+
+    # (a) f32: the shards' prefill logits, then the greedy tokens
+    cfg = dataclasses.replace(serving_config(torch), dtype=torch.float32)
+    kw["max_seq_len"] = cfg.max_seq_len
+    full = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    prompts = burst_prompts(cfg, TP_F32_PROMPTS, 64)
+    toks = torch.tensor(prompts[:1], device="cuda")
+    pos = torch.arange(toks.shape[1], device="cuda")[None, :]
+    lay = _layout(cfg, mesh, dp=None, sp=None, tp="tp")
+    shards = shard_tree(full, lay.specs, mesh)
+    zero_counters(counters)
+    with torch.inference_mode():
+        tp_logits, _ = forward_with_cache(cfg, shards, init_cache(cfg, 1, 64, device="cuda",
+                                                                  lay=lay),
+                                          toks, pos, use_decode_kernel=False, lay=lay)
+    del shards
+    eng = LLMEngine(cfg, full, mesh=mesh, **kw)
+    if rank != 0:
+        eng.follow()
+    else:
+        try:
+            tp_tokens = [f.result(timeout=600)
+                         for f in [eng.submit(p, max_tokens=max_tokens) for p in prompts]]
+        finally:
+            eng.shutdown()
+    rep["f32_launches"], _ = read_counters(counters)
+    del eng
+    if rank == 0:
+        with torch.inference_mode():
+            one_logits, _ = forward_with_cache(cfg, full, init_cache(cfg, 1, 64, device="cuda"),
+                                               toks, pos, use_prefill_kernel=True)
+        one = LLMEngine(cfg, full, **kw)
+        try:
+            one_tokens = [f.result(timeout=600)
+                          for f in [one.submit(p, max_tokens=max_tokens) for p in prompts]]
+        finally:
+            one.shutdown()
+        rep.update(f32_prefill_max_abs_err=float((tp_logits - one_logits).abs().max()),
+                   f32_tokens=tp_tokens, f32_one_device_tokens=one_tokens)
+        del one, one_logits
+    del full, tp_logits
+    torch.cuda.empty_cache()
+
+    # (b) bf16: the engine phase's burst, the tp engine and one device
+    cfg = serving_config(torch)
+    full = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    prompts = burst_prompts(cfg, 8, 64)
+    eng = LLMEngine(cfg, full, mesh=mesh, **kw)
+    zero_counters(counters)
+    if rank != 0:
+        eng.follow()
+        rep["bf16_launches"], _ = read_counters(counters)
+        return rep
+    try:
+        eng.generate([5] * 64, max_tokens=2)  # warm-up: every rank's first forward
+        decode_calls = [0]
+        step = {"collectives": {}, "host_bytes": {}, "broadcasts": 0, "broadcast_bytes": 0}
+        decode_k = eng._decode_k
+
+        def counted(*a):
+            # what one decode call carries: the model's collectives and the
+            # bytes of CUDA tensors they move through the host, the step
+            # channel's broadcasts (only the loop thread runs collectives)
+            c0, s0 = dict(collective.calls), dict(collective.staged)
+            b0, y0 = eng._tp.broadcasts, eng._tp.bytes
+            out = decode_k(*a)
+            for key, now, was in (("collectives", collective.calls, c0),
+                                  ("host_bytes", collective.staged, s0)):
+                for k, x in now.items():
+                    step[key][k] = step[key].get(k, 0) + x - was.get(k, 0)
+            step["broadcasts"] += eng._tp.broadcasts - b0
+            step["broadcast_bytes"] += eng._tp.bytes - y0
+            decode_calls[0] += 1
+            return out
+
+        eng._decode_k = counted
+        collective.reset_staged()
+        torch.cuda.synchronize()
+        tokens, ttft, wall = _tp_burst(eng, prompts, max_tokens)
+    finally:
+        eng.shutdown()
+    rep["bf16_launches"], _ = read_counters(counters)
+    del eng
+    torch.cuda.empty_cache()
+    one = LLMEngine(cfg, full, **kw)
+    try:
+        one.generate([5] * 64, max_tokens=2)
+        torch.cuda.synchronize()
+        one_tokens, one_ttft, one_wall = _tp_burst(one, prompts, max_tokens)
+    finally:
+        one.shutdown()
+    n_tok = sum(len(r) for r in tokens)
+    rep.update(
+        bf16_tokens_per_s=n_tok / wall, bf16_ttft_s_median=statistics.median(ttft),
+        bf16_ttft_s_max=max(ttft), bf16_wall_s=wall, bf16_decode_steps=decode_calls[0],
+        bf16_one_device_tokens_per_s=n_tok / one_wall,
+        bf16_one_device_ttft_s_median=statistics.median(one_ttft),
+        bf16_one_device_ttft_s_max=max(one_ttft),
+        bf16_tokens_equal_one_device=sum(a == b for a, b in zip(tokens, one_tokens)),
+        per_decode_step={
+            "collectives": {k: x / decode_calls[0] for k, x in step["collectives"].items()},
+            "collectives_total": sum(step["collectives"].values()) / decode_calls[0],
+            "host_bytes": {k: x / decode_calls[0] for k, x in step["host_bytes"].items()},
+            "host_bytes_total": sum(step["host_bytes"].values()) / decode_calls[0],
+            "step_broadcasts": step["broadcasts"] / decode_calls[0],
+            "step_broadcast_bytes": step["broadcast_bytes"] / decode_calls[0]})
+    return rep
+
+
+def run_tp_serve(torch, card: str):
+    """The tp_serve phase: two ranks on the card (gloo), (a) f32 parity,
+    (b) the bf16 burst, (c) nothing left after. Yields each part."""
+    import multiprocessing
+
+    from ray_tpu_torch.parallel import run_ranks
+
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    t0 = time.perf_counter()
+    print("backend: gloo, 2 ranks on one card (tp_serve)", flush=True)
+    reps = run_ranks(_tp_serve_rank, 2, 32, timeout_s=TP_SERVE_TIMEOUT_S, device="cuda",
+                     backend="gloo")
+    seconds = time.perf_counter() - t0
+    r0 = reps[0]
+    for r in reps:
+        for part in ("f32_launches", "bf16_launches"):
+            if any(r[part].values()):
+                raise AssertionError(f"tp_serve rank {r['rank']}: kernels launched on the tp "
+                                     f"path: {r[part]}")
+    if r0["f32_prefill_max_abs_err"] > 1e-3:
+        raise AssertionError(f"tp_serve f32 prefill logits {r0['f32_prefill_max_abs_err']} "
+                             "from the single-device engine's")
+    if r0["f32_tokens"] != r0["f32_one_device_tokens"]:
+        raise AssertionError(f"tp_serve f32 tokens {r0['f32_tokens']} != one device's "
+                             f"{r0['f32_one_device_tokens']}")
+    yield {"part": "a", "card": card, "mesh": {"tp": 2}, "dtype": "float32",
+           "prompts": TP_F32_PROMPTS, "prompt_len": 64, "max_tokens": 32,
+           "prefill_max_abs_err": r0["f32_prefill_max_abs_err"], "tokens_equal_one_device": True,
+           "launches_by_rank": [r["f32_launches"] for r in reps]}
+    yield {"part": "b", "card": card, "mesh": {"tp": 2}, "dtype": "bfloat16", "requests": 8,
+           "prompt_len": 64, "max_tokens": 32,
+           **{k.removeprefix("bf16_"): x for k, x in r0.items()
+              if k.startswith("bf16_") and k != "bf16_launches"},
+           "per_decode_step": r0["per_decode_step"],
+           "launches_by_rank": [r["bf16_launches"] for r in reps], "seconds": seconds,
+           "note": "two ranks share one card and gloo carries every collective through "
+                   "host memory: the mechanism, not scaling"}
+    alive = multiprocessing.active_children()
+    torch.cuda.empty_cache()
+    held = free0 - torch.cuda.mem_get_info()[0]
+    if alive or torch.distributed.is_initialized() or held > RUNTIME_MEMORY_SLACK:
+        raise AssertionError(f"after tp_serve: ranks {alive} alive, process group "
+                             f"{torch.distributed.is_initialized()}, {held} device bytes held")
+    yield {"part": "c", "card": card, "ranks_left": 0, "process_group": False,
+           "device_bytes_held_after": held,
+           "launches": {n: sum(r["f32_launches"][n] + r["bf16_launches"][n] for r in reps)
+                        for n in reps[0]["f32_launches"]}}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -3295,6 +3591,11 @@ def main(argv=None) -> int:
                     count("serve", rep["launches"], rep.get("launches_by_route", {}))
         del params
         torch.cuda.empty_cache()
+    if "tp_serve" in phases:
+        for rep in run_tp_serve(torch, card):
+            emit({"phase": "tp_serve", "ok": True, **rep})
+            if "launches" in rep:
+                count("tp_serve", rep["launches"], {})
     if phases & {"train_parity", "train", "profile"}:
         cfg = train_config(torch)
         from ray_tpu_torch.models.transformer import init_params

@@ -1,7 +1,7 @@
 """Unique identifiers for jobs, tasks, actors, objects, nodes and placement groups.
 
-The port's copy of ``ray_tpu/core/ids.py``, always on its pure-Python
-classes (the port has no native id types yet).
+The port's copy of ``ray_tpu/core/ids.py``; the port's native extension
+(``ray_tpu_torch/native/src/hotpath.c``) replaces the concrete classes below.
 
 Design parity with the reference's ID scheme (``src/ray/common/id.h``): every ID is
 a fixed-width byte string; ObjectIDs embed the TaskID that created them plus an
@@ -243,7 +243,25 @@ class ActorClassID(UniqueID):
     src/ray/common/id.h)."""
 
 
-# The JAX package swaps these classes for C types from its native ``hotpath``
-# extension (``ray_tpu/core/ids.py:244-263``) unless RAY_TPU_PURE_PY_IDS=1.
-# The port has no native tier yet: it always runs the Python classes above,
-# the JAX package's own path when that extension is absent.
+# --------------------------------------------------------------------------
+# Native tier: the C extension re-implements these types with C-speed
+# tp_hash/tp_richcompare (ids are the dict keys on every submit/result
+# path).  Semantics are identical — tests/test_torch_native.py asserts parity
+# class by class, and RAY_TPU_PURE_PY_IDS=1 keeps the Python classes (used
+# by the parity tests themselves, and as the fallback wherever the
+# toolchain can't build the extension).  All-or-nothing per process: mixing
+# C and Python id instances in one dict would break equality.  The C types
+# are named ``ray_tpu_torch.core.ids.*``, so they pickle through this module.
+if os.environ.get("RAY_TPU_PURE_PY_IDS") != "1":
+    try:
+        from ray_tpu_torch.native import hotpath as _hotpath
+
+        JobID = _hotpath.JobID  # noqa: F811
+        NodeID = _hotpath.NodeID  # noqa: F811
+        WorkerID = _hotpath.WorkerID  # noqa: F811
+        ActorID = _hotpath.ActorID  # noqa: F811
+        TaskID = _hotpath.TaskID  # noqa: F811
+        ObjectID = _hotpath.ObjectID  # noqa: F811
+        PlacementGroupID = _hotpath.PlacementGroupID  # noqa: F811
+    except Exception:  # noqa: BLE001 — no compiler / load failure: Python tier
+        pass

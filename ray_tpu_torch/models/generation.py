@@ -14,6 +14,14 @@ runs. ``use_decode_kernel=`` / ``use_prefill_kernel=`` keep their JAX
 meaning, so a caller can pick the plain path on purpose. With
 ``layer_scales=`` (int8 weight-only serving) the layer linears go through
 ``int8_matmul``, the int8 matmul kernel on a CUDA device.
+
+Under a mesh (``lay=``, the tensor-parallel engine: one process a rank)
+the dense-cache functions run this rank's shards of the params: its query
+heads, its kv heads (or all of them where the kv heads do not divide over
+tp, the reference's replicated ``_kv_spec``), its rows of the vocabulary
+and of d_ff; ``wo`` and ``w2`` are summed over tp and the logits gathered
+over the vocabulary, so every rank returns the whole ``[B, T, V]``. The
+one-device call (the default ``lay``) is what it was before.
 """
 
 from __future__ import annotations
@@ -24,9 +32,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from ray_tpu_torch.models.transformer import (
+    _ONE_DEVICE,
     TransformerConfig,
     _dequantized,
     _ffn,
+    _Layout,
+    _local_kv,
     _product,
     _rms_norm,
     _rope,
@@ -37,14 +48,19 @@ from ray_tpu_torch.models.transformer import (
 )
 from ray_tpu_torch.ops.attention import NEG_INF, flash_attention
 from ray_tpu_torch.ops.decode_attention import decode_attention, paged_decode_attention
+from ray_tpu_torch.parallel.collective import _all_gather
+from ray_tpu_torch.parallel.mesh import spec_axes
 
 KVCache = Dict[str, torch.Tensor]
 
 
-def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, device=None) -> KVCache:
-    """Preallocated KV cache: {"k","v"}: [L, B, Hkv, max_len, Dh]."""
+def init_cache(cfg: TransformerConfig, batch: int, max_len: int, dtype=None, device=None,
+               lay: _Layout = _ONE_DEVICE) -> KVCache:
+    """Preallocated KV cache: {"k","v"}: [L, B, Hkv, max_len, Dh]; under
+    ``lay`` Hkv is this rank's kv heads (all of them where wk is whole)."""
     dt = dtype or cfg.dtype
-    shape = (cfg.n_layers, batch, cfg.kv_heads, max_len, cfg.head_dim)
+    hkv = cfg.kv_heads // lay.size(lay.entry("wk", 2))
+    shape = (cfg.n_layers, batch, hkv, max_len, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dt, device=device),
             "v": torch.zeros(shape, dtype=dt, device=device)}
 
@@ -85,15 +101,16 @@ def _write_kv(cache_layer: torch.Tensor, new: torch.Tensor, starts: torch.Tensor
 
 def _grouped_attention(cfg, q, kc, vc, vis, scale):
     """Grouped-query attention of q [B,T,H,Dh] against a dense view
-    kc/vc [B,Hkv,S,Dh]; ``vis`` [B,1,T,S] marks the visible keys."""
-    B, T = q.shape[:2]
-    hkv, n_rep = cfg.kv_heads, cfg.n_heads // cfg.kv_heads
-    qg = q.reshape(B, T, hkv, n_rep, cfg.head_dim)
+    kc/vc [B,Hkv,S,Dh] (H a multiple of Hkv: all heads, or a rank's);
+    ``vis`` [B,1,T,S] marks the visible keys."""
+    B, T, H = q.shape[:3]
+    hkv = kc.shape[1]
+    qg = q.reshape(B, T, hkv, H // hkv, cfg.head_dim)
     s_ = torch.einsum("btgrk,bgsk->bgrts", qg.float(), kc.float()) * scale
     s_ = torch.where(vis[:, :, None], s_, NEG_INF)
     p = torch.softmax(s_, dim=-1)
     o = torch.einsum("bgrts,bgsk->btgrk", p, vc.float())
-    return o.reshape(B, T, cfg.n_heads, cfg.head_dim)
+    return o.reshape(B, T, H, cfg.head_dim)
 
 
 def _layer_scales(layer_scales, i):
@@ -107,15 +124,19 @@ def _qkv(cfg, layer, x, positions, scales=None):
     return _rope(q, positions, cfg.rope_theta), _rope(k, positions, cfg.rope_theta), v
 
 
-def _finish_layer(cfg, layer, x, o, scales=None):
-    x = x + _product(cfg, layer, scales, "wo", o, n_contract=2)
+def _finish_layer(cfg, layer, x, o, scales=None, lay: _Layout = _ONE_DEVICE):
+    x = x + lay.reduce(_product(cfg, layer, scales, "wo", o, n_contract=2), lay.entry("wo", 1))
     h = _rms_norm(x, _dequantized(cfg, layer, scales, "ffn_norm"))
-    return x + _ffn(cfg, layer, h, scales)
+    return x + _ffn(cfg, layer, h, scales, lay)
 
 
-def _logits(params, x):
+def _logits(params, x, lay: _Layout = _ONE_DEVICE):
     x = _rms_norm(x, params["final_norm"])
-    return torch.einsum("btd,vd->btv", x, params["embed"].to(x.dtype)).float()
+    logits = torch.einsum("btd,vd->btv", x, params["embed"].to(x.dtype)).float()
+    # a vocab-split table gives this rank its block: gather the whole row
+    for a in reversed(spec_axes(lay.entry("embed", 0))):
+        logits = _all_gather(logits, lay.mesh.group(a), logits.ndim - 1)
+    return logits
 
 
 def forward_with_cache(
@@ -128,10 +149,15 @@ def forward_with_cache(
     use_decode_kernel: Optional[bool] = None,
     use_prefill_kernel: Optional[bool] = None,
     layer_scales: Optional[Dict[str, torch.Tensor]] = None,
+    lay: _Layout = _ONE_DEVICE,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One cached forward pass: writes this call's K/V into ``cache`` (in
     place) at ``positions`` and attends over everything up to them. Returns
     (logits [B, T, V] f32, cache).
+
+    ``lay``: under a mesh (every rank of it calls), ``params`` are this
+    rank's shards and ``cache`` this rank's (:func:`init_cache` with the
+    same ``lay``); the logits are the whole vocabulary's on every rank.
 
     ``use_decode_kernel``: single-token steps through the decode kernel;
     default on for CUDA tensors. ``use_prefill_kernel``: ONLY valid when
@@ -146,9 +172,8 @@ def forward_with_cache(
     and are dequantized one layer at a time otherwise (``_product``)."""
     B, T = tokens.shape
     S = cache["k"].shape[3]
-    n_rep = cfg.n_heads // cfg.kv_heads
     scale = 1.0 / math.sqrt(cfg.head_dim)
-    x = embed_tokens(cfg, params, tokens)
+    x = embed_tokens(cfg, params, tokens, lay)
     starts = positions[:, 0]
     if use_decode_kernel is None:
         use_decode_kernel = tokens.device.type == "cuda"
@@ -167,8 +192,11 @@ def forward_with_cache(
         _write_kv(kc, k, starts)
         _write_kv(vc, v, starts)
         if decode_kernel:
-            o = decode_attention(q[:, 0], kc, vc, starts + 1, sm_scale=scale)[:, None]
+            kq, vq = _local_kv(cfg, lay, q, kc, vc, dim=1)
+            o = decode_attention(q[:, 0], kq, vq, starts + 1, sm_scale=scale)[:, None]
         elif prefill_kernel:
+            k, v = _local_kv(cfg, lay, q, k, v)
+            n_rep = q.shape[2] // k.shape[2]
             kr = torch.repeat_interleave(k, n_rep, dim=2) if n_rep > 1 else k
             vr = torch.repeat_interleave(v, n_rep, dim=2) if n_rep > 1 else v
             o = flash_attention(
@@ -176,9 +204,9 @@ def forward_with_cache(
                 scale, True,
             ).permute(0, 2, 1, 3)
         else:
-            o = _grouped_attention(cfg, q, kc, vc, vis, scale)
-        x = _finish_layer(cfg, layer, x, o.to(x.dtype), sc)
-    return _logits(params, x), cache
+            o = _grouped_attention(cfg, q, *_local_kv(cfg, lay, q, kc, vc, dim=1), vis, scale)
+        x = _finish_layer(cfg, layer, x, o.to(x.dtype), sc, lay)
+    return _logits(params, x, lay), cache
 
 
 def paged_forward_with_cache(

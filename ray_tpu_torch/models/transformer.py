@@ -304,17 +304,18 @@ class _Layout:
 _ONE_DEVICE = _Layout()
 
 
-def _local_kv(cfg: TransformerConfig, lay: _Layout, q, k, v):
-    """K/V for this rank's query heads: its own kv heads when wk/wv are
-    sharded like wq; the kv head of each local query head (the GQA group)
-    when they are replicated while wq is split."""
+def _local_kv(cfg: TransformerConfig, lay: _Layout, q, k, v, dim: int = 2):
+    """K/V for this rank's query heads (q [B, T, H_l, Dh]; the heads of k/v
+    at ``dim``): its own kv heads when wk/wv are sharded like wq; the kv
+    head of each local query head (the GQA group) when they are replicated
+    while wq is split."""
     q_entry = lay.entry("wq", 2)
     if not spec_axes(q_entry) or spec_axes(lay.entry("wk", 2)):
         return k, v
     n_rep = cfg.n_heads // cfg.kv_heads
     lo = lay.block("wq", 2, cfg.n_heads)
     idx = torch.arange(lo, lo + q.shape[2], device=q.device) // n_rep
-    return k[:, :, idx], v[:, :, idx]
+    return k.index_select(dim, idx), v.index_select(dim, idx)
 
 
 def _attention(cfg: TransformerConfig, lay: _Layout, q, k, v, use_flash: bool):

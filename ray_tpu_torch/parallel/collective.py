@@ -21,7 +21,8 @@ itself) but not for send and receive: for ``ppermute`` on a gloo group a
 CUDA tensor is staged through host memory here (copied to the CPU, sent,
 copied back), keyed on the group's backend, never on an exception. The
 bytes that cross the host for a gloo group holding CUDA tensors, by
-either copy, are counted in :data:`staged`. The kernels still run on the
+either copy, are counted in :data:`staged`, and every operation in
+:data:`calls`. The kernels still run on the
 card; only the transfer goes through the host.
 """
 
@@ -37,10 +38,13 @@ from ray_tpu_torch.parallel.mesh import Mesh, current_mesh, spec_axes
 # bytes of CUDA tensors carried through host memory by a gloo group (each
 # operation's input and output), by operation
 staged: Dict[str, int] = {}
+# operations run, by operation (every group and device)
+calls: Dict[str, int] = {}
 
 
 def reset_staged() -> None:
     staged.clear()
+    calls.clear()
 
 
 def _on_host(group, x: torch.Tensor) -> bool:
@@ -49,6 +53,7 @@ def _on_host(group, x: torch.Tensor) -> bool:
 
 
 def _count(op: str, group, *ts: torch.Tensor) -> None:
+    calls[op] = calls.get(op, 0) + 1
     if ts and _on_host(group, ts[0]):
         staged[op] = staged.get(op, 0) + sum(t.numel() * t.element_size() for t in ts)
 
@@ -130,8 +135,8 @@ def _permute(x: torch.Tensor, group, perm: Sequence[Tuple[int, int]]) -> torch.T
     if ops:
         for req in dist.batch_isend_irecv(ops):
             req.wait()
+    _count("ppermute", group, x, *([x] if src else []))
     if staging:
-        _count("ppermute", group, x, *([x] if src else []))
         out = out.to(x.device)
     return out
 
@@ -351,5 +356,5 @@ def barrier(axis_name: str, *, mesh: Optional[Mesh] = None) -> torch.Tensor:
 __all__: List[str] = [
     "allreduce", "allreduce_mean", "allgather", "reducescatter", "broadcast", "ppermute",
     "all_to_all", "send_recv", "axis_index", "axis_size", "barrier", "replicated_sum",
-    "tie", "staged", "reset_staged",
+    "tie", "staged", "calls", "reset_staged",
 ]

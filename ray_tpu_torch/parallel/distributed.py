@@ -11,6 +11,8 @@ every host's devices. Here each rank is a process, and joining means
   counterpart of a TPU pod's discovery). The backend is ``"nccl"`` for CUDA
   and ``"gloo"`` for ``device="cpu"`` unless the caller names one; nothing
   swaps it on failure.
+* :func:`before_leave` — what :func:`shutdown` stops before this process
+  leaves the group.
 * :func:`multihost_mesh` — a :class:`~ray_tpu_torch.parallel.mesh.Mesh` whose
   dcn axis owns whole hosts' blocks of ranks (the reference's reshape and
   ``moveaxis``).
@@ -20,12 +22,14 @@ from __future__ import annotations
 
 import datetime
 import os
+import weakref
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 _device_type: Optional[str] = None
+_before_leave: "weakref.WeakSet" = weakref.WeakSet()
 
 
 def device_type() -> str:
@@ -92,12 +96,23 @@ def initialize(
     return True
 
 
+def before_leave(obj) -> None:
+    """Have :func:`shutdown` call ``obj.shutdown()`` before this process
+    leaves the group, if ``obj`` is alive then: a tensor-parallel engine's
+    driver, whose peers leave their collectives only on its stop call."""
+    _before_leave.add(obj)
+
+
 def shutdown() -> None:
-    """Leave the process group (no-op outside one)."""
+    """Leave the process group (no-op outside one), after shutting down
+    what :func:`before_leave` named."""
     global _device_type
     import torch.distributed as dist
 
     if dist.is_initialized():
+        for obj in list(_before_leave):
+            obj.shutdown()
+        _before_leave.clear()
         dist.destroy_process_group()
     _device_type = None
 

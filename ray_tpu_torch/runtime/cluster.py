@@ -2,9 +2,9 @@
 
 The port's copy of ``ray_tpu/runtime/cluster.py`` for one host: the in-process
 nodes, directory, pulls, retries, actors and chaos hooks are the same; the
-multi-host head service raises ``NotPortedError``, and there is no native
-shm store and no collective death notice (actor collective groups are not
-ported).
+multi-host head service raises ``NotPortedError``, and there is no
+collective death notice (actor collective groups are not ported). Bulk
+values cross to worker processes through the port's native shm store.
 
 This object stitches together what the reference spreads over processes:
 
@@ -311,7 +311,7 @@ def _request_latency_snapshot() -> dict:
 
 
 class Cluster:
-    def __init__(self, session_dir: Optional[str] = None):
+    def __init__(self, session_dir: Optional[str] = None, shm_capacity: int = 0):
         cfg = get_config()
         self.session_dir = session_dir or os.path.join(
             tempfile.gettempdir(), f"ray_tpu_session_{os.getpid()}"
@@ -445,11 +445,20 @@ class Cluster:
         self._head_lock = threading.Lock()
         self.head_restarts = 0
         self.core_worker = None       # set by worker.init
-        # The JAX package opens its native shared-memory store here when it
-        # can build it (ray_tpu/runtime/cluster.py:438-448); the port has no
-        # native tier yet and takes that module's own path for when the
-        # store is absent: arrays cross to workers through the socket.
+        # the native shared-memory arena that bulk values cross to worker
+        # processes through (shm_capacity: 0 = 2 GiB, < 0 = none); without
+        # a compiler the store is absent and they ride the socket
         self.shm_store = None
+        if shm_capacity >= 0:
+            try:
+                from ray_tpu_torch.native.shm_store import SEGMENT_PREFIX, ShmObjectStore
+
+                self.shm_store = ShmObjectStore(
+                    f"{SEGMENT_PREFIX}{os.getpid()}_{id(self) & 0xffff:x}",
+                    shm_capacity or (2 << 30),
+                )
+            except Exception:
+                self.shm_store = None
         self.transfer_bytes = 0
         self.transfer_count = 0
         # serializes node (re)registration against node-death sweeps: a
@@ -2343,3 +2352,6 @@ class Cluster:
         # this cluster outlives its shutdown
         if self._demand_thread is not None:
             join_threads([self._demand_thread])
+        if self.shm_store is not None:
+            self.shm_store.close()
+            self.shm_store.unlink()

@@ -1,7 +1,7 @@
 """Framed pickle protocol shared by the worker pool and worker processes.
 
-The port's copy of ``ray_tpu/runtime/protocol.py``, on its pure-Python frame
-codec (the port has no native codec yet).
+The port's copy of ``ray_tpu/runtime/protocol.py``, on the port's own
+native frame codec (``ray_tpu_torch/native/src/hotpath.c``).
 
 A frame is a 4-byte little-endian length followed by a pickle-5 payload of
 ``(msg_type: str, payload: dict)``.  Large array values never ride this pipe —
@@ -16,15 +16,21 @@ import os
 import pickle
 import socket
 import struct
+import sys
 from typing import Any, Optional, Tuple
 
 _LEN = struct.Struct("<I")
 
-# The JAX package loads a native frame codec here when it can build one
-# (``ray_tpu/runtime/protocol.py:20-29``); the port has no native tier yet and
-# takes that module's own path for when the codec is absent: pure-Python
-# framing, the same wire format.
+# Native frame codec (ray_tpu_torch/native/src/hotpath.c): C-buffered reads
+# pull many frames per recv syscall and sends skip the header+payload concat.
+# Same wire format either way — a native peer and a pure-Python peer
+# interoperate frame-for-frame (and the JAX package's codec with this one).
 _native = None
+if os.environ.get("RAY_TPU_PURE_PY_FRAMES") != "1":
+    try:
+        from ray_tpu_torch.native import hotpath as _native
+    except Exception:  # noqa: BLE001 — no compiler: pure-Python framing
+        _native = None
 
 # Frames up to this size go out in one send (header and payload joined);
 # larger ones in two, sparing a copy of the payload.
@@ -130,12 +136,49 @@ def _recv_exact(sock: socket.socket, n: int) -> bytearray:
     return buf
 
 
+def _shm_tensor(v, shm_store, id_factory) -> Any:
+    """A ``torch.Tensor`` of at least SHM_THRESHOLD bytes, written straight
+    into the arena: one copy from its storage (the card's or the host's)
+    into the entry, which a worker decodes into the CPU tensor the in-band
+    path gives (``serialization._rebuild_tensor``: the same dtype, bf16 and
+    float8 as their integer bits, the grad flag). The JAX package sends the
+    host copy of a device array as this ndarray would go; here the bytes go
+    once, with no host copy in between. Returns ``v`` when the arena is full."""
+    from ray_tpu_torch.core.serialization import _BIT_VIEWS
+
+    t = v.detach()
+    dtype = str(t.dtype).removeprefix("torch.")
+    bits = t.view(getattr(sys.modules["torch"], _BIT_VIEWS[dtype])) if dtype in _BIT_VIEWS else t
+    np_dtype = str(bits.new_empty(0, device="cpu").numpy().dtype.str)
+    header = pickle.dumps((np_dtype, tuple(t.shape), dtype, v.requires_grad))
+    nbytes = t.numel() * t.element_size()
+    oid = id_factory()
+    try:
+        view = shm_store.create(oid, len(header) + nbytes, meta_size=len(header))
+    except (MemoryError, FileExistsError):
+        return v
+    view[: len(header)] = header
+    torch = sys.modules["torch"]
+    dst = torch.frombuffer(view[len(header):], dtype=torch.uint8)
+    dst.copy_(t.contiguous().reshape(-1).view(torch.uint8))
+    shm_store.seal(oid)
+    return ShmRef(oid)
+
+
+def _is_tensor(v) -> bool:
+    torch = sys.modules.get("torch")  # never imported here: a tensor brings it
+    return torch is not None and isinstance(v, torch.Tensor)
+
+
 def encode_value(value: Any, shm_store, id_factory) -> Any:
-    """Replace large ndarrays with ShmRef markers (recursive over
-    tuple/list/dict one level deep — deep graphs just get pickled)."""
+    """Replace large ndarrays and tensors with ShmRef markers (recursive
+    over tuple/list/dict one level deep — deep graphs just get pickled)."""
     import numpy as np
 
     def enc(v):
+        if (shm_store is not None and _is_tensor(v)
+                and v.numel() * v.element_size() >= SHM_THRESHOLD):
+            return _shm_tensor(v, shm_store, id_factory)
         if isinstance(v, np.ndarray) and v.dtype != object and v.nbytes >= SHM_THRESHOLD and shm_store is not None:
             oid = id_factory()
             header = pickle.dumps((v.dtype.str, v.shape))
@@ -217,6 +260,15 @@ def _release_entry(shm_store, oid: bytes, delete: bool) -> None:
         pass
 
 
+def _as_tensor(arr, tensor_meta):
+    """The CPU tensor an entry written by :func:`_shm_tensor` holds (it
+    shares ``arr``'s memory, as the in-band rebuild shares its buffer)."""
+    from ray_tpu_torch.core.serialization import _rebuild_tensor
+
+    dtype, requires_grad = tensor_meta
+    return _rebuild_tensor(arr, dtype, requires_grad)
+
+
 def decode_value(value: Any, shm_store, release: bool = True,
                  zero_copy: Optional[bool] = None) -> Any:
     """Resolve ShmRef markers back into ndarrays.
@@ -244,7 +296,9 @@ def decode_value(value: Any, shm_store, release: bool = True,
                 import weakref
 
                 try:
-                    dtype_str, shape = pickle.loads(view[:meta_size])
+                    # (dtype, shape) of an ndarray; a tensor's entry adds
+                    # its torch dtype and grad flag (_shm_tensor)
+                    dtype_str, shape, *tensor = pickle.loads(view[:meta_size])
                     flat = np.frombuffer(
                         view[meta_size:].toreadonly(), dtype=np.dtype(dtype_str)
                     )
@@ -256,16 +310,16 @@ def decode_value(value: Any, shm_store, release: bool = True,
                 # sub-views collapse .base to the owner, so only it is
                 # guaranteed to outlive every surviving slice
                 weakref.finalize(nd_owner(arr), _release_entry, shm_store, v.object_id, release)
-                return arr
+                return _as_tensor(arr, tensor) if tensor else arr
             try:
-                dtype_str, shape = pickle.loads(view[:meta_size])
+                dtype_str, shape, *tensor = pickle.loads(view[:meta_size])
                 arr = np.frombuffer(view[meta_size:], dtype=np.dtype(dtype_str)).reshape(shape)
                 arr = arr.copy()  # detach from the pinned segment
             finally:
                 shm_store.release(v.object_id)
             if release:
                 shm_store.delete(v.object_id)
-            return arr
+            return _as_tensor(arr, tensor) if tensor else arr
         return v
 
     if isinstance(value, tuple):

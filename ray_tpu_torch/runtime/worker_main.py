@@ -54,14 +54,14 @@ def main() -> None:
     except OSError:
         return  # pool already shut down (teardown race): exit quietly
 
+    shm_store = None
     if args.shm:
-        # the port's pool never passes --shm: it has no native store yet
-        from ray_tpu_torch.exceptions import NotPortedError
+        from ray_tpu_torch.native.shm_store import ShmObjectStore
 
-        raise NotPortedError("the native shared-memory store", "ray_tpu/native/shm_store.py")
+        shm_store = ShmObjectStore(args.shm, create=False)
 
     try:
-        Worker(sock, None).run()
+        Worker(sock, shm_store).run()
     except ConnectionError:
         return  # the pool closed its end before registration (teardown race)
 

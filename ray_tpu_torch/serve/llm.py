@@ -64,11 +64,28 @@ Both deploy through ``serve.deployment(...).bind(...)`` and ``serve.run``
 (``ray_tpu_torch/serve/api.py``); the HTTP proxy starts each request's
 trace, and the engine stamps the one it finds in the request context.
 
-Not in this engine yet (ROADMAP): ``mesh=`` raises ``NotImplementedError``.
+Tensor-parallel serving (``mesh=``, ``tp="tp"``), with the JAX engine's
+rules: the params shard over the mesh's ``tp`` axis (the Megatron layout of
+``models/transformer.py``, experts folded into tp on a dp-less mesh), the
+dense cache holds each rank's kv heads (all of them where they do not divide
+over tp), and no kernel runs — the JAX engine bypasses its Pallas kernels
+under a mesh too; a paged cache or int8 weights under a mesh raise. The JAX
+engine is one process driving every device; here every rank is a process
+(``ray_tpu_torch.parallel.run_ranks``) that builds the engine with the same
+arguments. The engine on rank 0 of the tp axis drives: it runs the
+scheduler, admission, streams and the public API, and before each device
+call broadcasts that call (a small header and its host arrays) on the tp
+group; the other ranks call :meth:`LLMEngine.follow`, which replays each
+call on their shards until rank 0's engine shuts down. Rank 0 samples and
+broadcasts the tokens of every step, so every rank continues from the same
+ones. An idle rank 0 sends a no-op call every quarter of the group's
+timeout, so a quiet server keeps its peers; a rank that dies ends the
+others' calls with ``CollectiveGroupDeadError`` within that timeout.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 from collections import deque
@@ -80,7 +97,11 @@ import numpy as np
 import torch
 
 from ray_tpu_torch.core.config import get_config
-from ray_tpu_torch.exceptions import DeadlineExceededError, OverloadedError
+from ray_tpu_torch.exceptions import (
+    CollectiveGroupDeadError,
+    DeadlineExceededError,
+    OverloadedError,
+)
 from ray_tpu_torch.models.generation import (
     copy_paged_page,
     decode_step,
@@ -92,10 +113,12 @@ from ray_tpu_torch.models.generation import (
     paged_forward_with_cache,
 )
 from ray_tpu_torch.models.common import default_device
-from ray_tpu_torch.models.transformer import TransformerConfig
+from ray_tpu_torch.models.transformer import _ONE_DEVICE, TransformerConfig, _check_mesh, _layout
 from ray_tpu_torch.observability import metric_defs, reqtrace
 from ray_tpu_torch.observability.sketch import LatencySketch
 from ray_tpu_torch.ops.quantization import quantize_layers
+from ray_tpu_torch.parallel import distributed
+from ray_tpu_torch.parallel.mesh import shard_tree
 from ray_tpu_torch.runtime import admission, data_plane, device_plane
 from ray_tpu_torch.runtime.context import (
     current_deadline_ts,
@@ -202,8 +225,107 @@ def _bucket(n: int, lo: int = 16, cap: Optional[int] = None) -> int:
     return b if cap is None else min(b, cap)
 
 
+# the device calls a tensor-parallel engine's rank 0 broadcasts to its
+# peers; _OP_IDLE is the no-op an idle rank 0 sends to keep them waiting
+_OP_STOP, _OP_RESET, _OP_PREFILL, _OP_DECODE, _OP_IDLE = range(5)
+_HEADER_LEN = 8  # int64: op, payload length, arguments
+_DEFAULT_GROUP_TIMEOUT_S = 120.0  # distributed.initialize's, where a group hides its own
+
+
+class _StepChannel:
+    """Rank 0's device calls, as the other ranks of the tp axis replay them.
+
+    A call goes out as two broadcasts on the tp group: an int64 header
+    (op, payload length, arguments) and, where the call has one, its host
+    array (int64). :meth:`share` broadcasts rank 0's sampled tokens. A gloo
+    group carries host tensors, an NCCL group device ones. Once a device
+    call fails on a rank — a collective timed out or lost a peer, or the
+    call itself raised mid-way — the ranks are out of step: the channel is
+    broken and every later call raises the same ``CollectiveGroupDeadError``.
+    A peer's wait for the next call is bounded by the group's timeout, so
+    rank 0 sends a call at least every ``keepalive_s`` (a quarter of it).
+    ``broadcasts`` and ``bytes`` count what it has carried."""
+
+    def __init__(self, mesh, tp: str):
+        import torch.distributed as dist
+
+        self._dist = dist
+        self.group = mesh.group(tp)
+        self.src = dist.get_global_rank(self.group, 0)
+        self.driver = mesh.axis_index(tp) == 0
+        self.device = (torch.device("cpu") if dist.get_backend(self.group) == "gloo"
+                       else torch.device("cuda", torch.cuda.current_device()))
+        self.broken: Optional[CollectiveGroupDeadError] = None
+        self.broadcasts = 0
+        self.bytes = 0
+        self.keepalive_s = self._timeout_s() / 4
+        self.last_send = time.monotonic()
+
+    def _timeout_s(self) -> float:
+        try:
+            return self.group._get_backend(self.device).options._timeout.total_seconds()
+        except (AttributeError, RuntimeError):
+            return _DEFAULT_GROUP_TIMEOUT_S
+
+    def fail(self, exc: BaseException) -> CollectiveGroupDeadError:
+        if self.broken is None:
+            self.broken = (exc if isinstance(exc, CollectiveGroupDeadError)
+                           else CollectiveGroupDeadError("tp", f"{type(exc).__name__}: {exc}"))
+        return self.broken
+
+    @contextlib.contextmanager
+    def guard(self):
+        """Around a device call: a failure inside breaks the channel."""
+        if self.broken is not None:
+            raise self.broken
+        try:
+            yield
+        except BaseException as exc:  # noqa: BLE001 — the ranks are out of step
+            raise self.fail(exc) from exc
+
+    def _bcast(self, t: torch.Tensor) -> torch.Tensor:
+        self._dist.broadcast(t, self.src, group=self.group)
+        self.broadcasts += 1
+        self.bytes += t.numel() * t.element_size()
+        return t
+
+    def send(self, op: int, *args: int, payload: Optional[np.ndarray] = None) -> None:
+        n = 0 if payload is None else int(payload.size)
+        header = [op, n, *args] + [0] * (_HEADER_LEN - 2 - len(args))
+        self._bcast(torch.tensor(header, dtype=torch.long, device=self.device))
+        if n:
+            self._bcast(torch.as_tensor(payload.reshape(-1), dtype=torch.long).to(self.device))
+        self.last_send = time.monotonic()
+
+    def recv(self):
+        """(op, arguments, payload or None): the next call rank 0 sent."""
+        header = self._bcast(torch.empty(_HEADER_LEN, dtype=torch.long, device=self.device))
+        op, n, *args = header.tolist()
+        payload = None
+        if n:
+            payload = self._bcast(torch.empty(n, dtype=torch.long, device=self.device)).cpu().numpy()
+        return op, args, payload
+
+    def share(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Rank 0's ``tokens`` on every rank (elsewhere ``tokens`` only
+        gives the shape and device)."""
+        buf = tokens.to(self.device, torch.long).contiguous()
+        return self._bcast(buf).to(tokens.device)
+
+    def stop(self) -> None:
+        """The last call: the peers leave :meth:`LLMEngine.follow`; the
+        all-reduce after it returns once every peer has received it, so no
+        rank tears the group down while a peer still reads."""
+        self.send(_OP_STOP)
+        self.ack()
+
+    def ack(self) -> None:
+        self._dist.all_reduce(torch.zeros(1, device=self.device), group=self.group)
+
+
 class LLMEngine:
-    """Continuous-batching decode engine for one model on one device.
+    """Continuous-batching decode engine for one model on one device, or
+    on one process a rank of a mesh's tp axis.
 
     Thread model: callers enqueue via :meth:`submit` (thread-safe); one
     background loop admits requests and steps the batch, and is the only
@@ -222,6 +344,7 @@ class LLMEngine:
         quantize: bool = False,
         quantize_min_size: int = 4096,
         mesh: Optional[Any] = None,
+        tp: str = "tp",
         decode_chunk: int = 1,
         max_queued_requests: int = 256,
         max_queued_prefill_tokens: int = 0,
@@ -234,8 +357,6 @@ class LLMEngine:
         prefix_cache_max_blocks: Optional[int] = None,
         role: Optional[str] = None,
     ):
-        if mesh is not None:
-            raise NotImplementedError("multi-device (mesh) serving is not ported yet")
         # disaggregated pool role ("prefill"/"decode", "" = co-located);
         # informational except for validation: either role runs either path
         if role not in (None, "", "prefill", "decode"):
@@ -245,6 +366,12 @@ class LLMEngine:
         # environment); explicit arguments override them
         rc = get_config()
         kind = cache_kind if cache_kind is not None else rc.llm_cache_kind
+        if kind == "paged" and mesh is not None:
+            # an engine under a mesh falls back to dense, as the JAX engine
+            # does (its paged scatter/gather has no sharding yet)
+            if cache_kind is not None:
+                raise ValueError("cache_kind='paged' with a mesh is not supported yet")
+            kind = "dense"
         if kind not in ("dense", "paged"):
             raise ValueError(f"cache_kind must be 'dense' or 'paged', got {kind!r}")
         if self.role and kind != "paged":
@@ -297,6 +424,27 @@ class LLMEngine:
         self.decode_chunk = max(1, int(decode_chunk))
         self.top_k = top_k
         self.top_p = top_p
+        self.mesh = mesh
+        self._lay = _ONE_DEVICE
+        self._tp: Optional[_StepChannel] = None
+        if mesh is not None:
+            # tensor-parallel serving: each rank keeps its shards of the
+            # Megatron layout (experts folded into tp) and its kv heads;
+            # under a mesh no kernel runs, as in the JAX engine
+            _check_mesh(mesh)
+            if quantize:
+                raise ValueError("quantize=True with mesh is not supported yet")
+            if tp not in mesh.axis_names:
+                raise ValueError(f"mesh has no {tp!r} axis: {mesh.axis_names}")
+            self._lay = _layout(cfg, mesh, dp=None, sp=None, tp=tp)
+            params = shard_tree(params, self._lay.specs, mesh)
+            self._tp = _StepChannel(mesh, tp)
+            if self._tp.driver:
+                # the peers leave follow() on its stop call, so it goes out
+                # before this process leaves the group
+                distributed.before_leave(self)
+        self._decode_kernel = None if mesh is None else False
+        self._prefill_kernel = mesh is None and self.device.type == "cuda"
         # params keep their dtype (cast at use, as in the JAX forward)
         params = _to_device(params, self.device)
         self.quantized = quantize
@@ -363,19 +511,46 @@ class LLMEngine:
         metric_defs.LLM_KV_BLOCKS_SHARED.set(0, self._depth_tags)
         metric_defs.LLM_PREFIX_CACHE_BLOCKS.set(0, self._depth_tags)
 
-        self._reset_cache()
+        self._alloc_cache()
         # the engine's sampling stream (replaces a jax.random key)
         self._gen = torch.Generator(device=self.device)
         self._gen.seed()
 
-        self._thread = threading.Thread(target=self._loop, daemon=True, name="llm-engine")
-        self._thread.start()
+        # the loop runs on rank 0 of the tp axis; a peer replays its calls in follow()
+        self._thread = None
+        if self._tp is None or self._tp.driver:
+            self._thread = threading.Thread(target=self._loop, daemon=True, name="llm-engine")
+            self._thread.start()
 
     # -- device programs (the JAX engine's jitted callables) ----------------
     def _tensor(self, a, dtype=torch.long) -> torch.Tensor:
         return torch.as_tensor(a, dtype=dtype).to(self.device)
 
-    def _sample_impl(self, logits: torch.Tensor, temps: np.ndarray) -> torch.Tensor:
+    @contextlib.contextmanager
+    def _device_call(self, op: Optional[int] = None, *args: int,
+                     payload: Optional[np.ndarray] = None):
+        """Around each device call. Under a mesh, rank 0 first sends the
+        call to its peers (``op``, ``args`` and ``payload``, which
+        :meth:`follow` replays; no ``op``: a call of rank 0 alone), and a
+        failure inside breaks the step channel (the ranks are out of step)."""
+        if self._tp is None:
+            yield
+            return
+        with self._tp.guard():
+            if op is not None and self._tp.driver:
+                self._tp.send(op, *args, payload=payload)
+            yield
+
+    def _sample_impl(self, logits: torch.Tensor, temps: Optional[np.ndarray]) -> torch.Tensor:
+        """The tokens of a step: this engine's, or under a mesh rank 0's on
+        every rank (its peers pass ``temps=None``)."""
+        if self._tp is None:
+            return self._sample_local(logits, temps)
+        if self._tp.driver:
+            return self._tp.share(self._sample_local(logits, temps))
+        return self._tp.share(torch.empty(logits.shape[0], dtype=torch.long, device=self.device))
+
+    def _sample_local(self, logits: torch.Tensor, temps: np.ndarray) -> torch.Tensor:
         """Per-slot temperature; temp <= 0 means greedy. ``temps`` is the
         host copy, so an all-greedy batch never touches the generator."""
         greedy_tok = torch.argmax(logits, dim=-1)
@@ -395,27 +570,32 @@ class LLMEngine:
         into ``slot``'s row of the dense cache (the JAX engine builds a row
         and inserts it; writing in place is the same bytes). Returns the
         last real token's logits [V]."""
-        row = {kk: self._cache[kk][:, slot : slot + 1] for kk in ("k", "v")}
-        toks = self._tensor(tokens)
-        positions = torch.arange(toks.shape[1], device=self.device)[None, :]
-        logits, _ = forward_with_cache(
-            self.cfg, self.params, row, toks, positions, layer_scales=self._layer_scales,
-            use_prefill_kernel=self.device.type == "cuda",  # positions start at 0
-        )
-        return logits[0, length - 1]
+        with self._device_call(_OP_PREFILL, length, slot, payload=tokens):
+            row = {kk: self._cache[kk][:, slot : slot + 1] for kk in ("k", "v")}
+            toks = self._tensor(tokens)
+            positions = torch.arange(toks.shape[1], device=self.device)[None, :]
+            logits, _ = forward_with_cache(
+                self.cfg, self.params, row, toks, positions, layer_scales=self._layer_scales,
+                use_prefill_kernel=self._prefill_kernel,  # positions start at 0
+                lay=self._lay,
+            )
+            return logits[0, length - 1]
 
     @torch.inference_mode()
-    def _decode_k(self, toks: np.ndarray, pos: np.ndarray, temps: np.ndarray) -> np.ndarray:
+    def _decode_k(self, toks: np.ndarray, pos: np.ndarray, temps: Optional[np.ndarray]
+                  ) -> np.ndarray:
         """K = decode_chunk sequential decode+sample steps; returns [B, K]."""
-        t, p = self._tensor(toks), self._tensor(pos)
-        out = []
-        for _ in range(self.decode_chunk):
-            logits, _ = decode_step(self.cfg, self.params, self._cache, t, p,
-                                    layer_scales=self._layer_scales)
-            t = self._sample_impl(logits, temps)
-            out.append(t)
-            p = p + 1
-        return torch.stack(out, dim=1).cpu().numpy()
+        with self._device_call(_OP_DECODE, payload=np.concatenate([toks, pos])):
+            t, p = self._tensor(toks), self._tensor(pos)
+            out = []
+            for _ in range(self.decode_chunk):
+                logits, _ = decode_step(self.cfg, self.params, self._cache, t, p,
+                                        layer_scales=self._layer_scales,
+                                        use_decode_kernel=self._decode_kernel, lay=self._lay)
+                t = self._sample_impl(logits, temps)
+                out.append(t)
+                p = p + 1
+            return torch.stack(out, dim=1).cpu().numpy()
 
     @torch.inference_mode()
     def _prefill_chunk(self, toks: np.ndarray, bt: np.ndarray, start: int, length: int) -> torch.Tensor:
@@ -451,7 +631,35 @@ class LLMEngine:
         copy_paged_page(self._cache, src, dst)
 
     def _sample_first(self, logits: torch.Tensor, temperature: float) -> int:
-        return int(self._sample_impl(logits[None, :], np.asarray([temperature], np.float32))[0])
+        # rank 0's alone: the next decode call carries the token to the peers
+        with self._device_call():
+            return int(self._sample_local(logits[None, :], np.asarray([temperature], np.float32))[0])
+
+    def follow(self) -> None:
+        """On every rank of a mesh engine's tp axis but 0: replay rank 0's
+        device calls on this rank's shards until rank 0's engine shuts
+        down, then shut this engine down and return. Raises
+        ``CollectiveGroupDeadError`` when a rank is gone (within the
+        process group's timeout); this engine is shut down either way."""
+        if self._tp is None or self._tp.driver:
+            raise RuntimeError("follow() runs on the tp peers of a mesh engine; rank 0 drives it")
+        try:
+            while True:
+                with self._device_call():
+                    op, args, payload = self._tp.recv()
+                if op == _OP_STOP:
+                    self._tp.ack()
+                    return
+                if op == _OP_RESET:
+                    self._reset_cache()
+                elif op == _OP_PREFILL:
+                    self._prefill_one(payload[None, :], args[0], args[1])
+                elif op == _OP_DECODE:
+                    self._decode_k(payload[: self.B], payload[self.B:], None)
+                elif op != _OP_IDLE:
+                    raise self._tp.fail(ValueError(f"unknown step op {op}"))
+        finally:
+            self.shutdown()
 
     # -- public API ---------------------------------------------------------
     def submit(
@@ -491,6 +699,11 @@ class LLMEngine:
         _import_ticket: Optional[dict] = None,
         _import_arrays: Optional[Dict[int, Any]] = None,
     ) -> GenRequest:
+        if self._tp is not None:
+            if self._tp.broken is not None:
+                raise self._tp.broken
+            if not self._tp.driver:
+                raise RuntimeError("rank 0 of the tp axis takes requests; this rank follows")
         if self._stop:
             raise RuntimeError("LLMEngine is shut down")
         if not prompt:
@@ -803,7 +1016,10 @@ class LLMEngine:
                 return
             self._stop = True
         self._wake.set()
-        self._thread.join(timeout=5)
+        if self._thread is not None:
+            # under a mesh the loop's last call stops the peers, bounded by
+            # the process group's timeout
+            self._thread.join(timeout=5 if self._tp is None else None)
         admission.unregister_admission_source(self._admission_token)
         # zero this engine's gauge series; the freed token (and so the
         # series label) goes to the next engine
@@ -1018,6 +1234,8 @@ class LLMEngine:
                 # the popped request is in neither queue nor slots — fail it
                 # HERE or its caller hangs forever
                 self._fail_admit(req, exc)
+                if self._tp is not None and self._tp.broken is not None:
+                    raise  # the ranks are out of step: the loop stops
                 continue
             req.slot = slot
             req.generated = [tok0]
@@ -1281,7 +1499,9 @@ class LLMEngine:
         this request's own pages or page 0), so other slots keep serving."""
         self._record_done(req, "crash", f"prefill failed: {exc!r}")
         if not req.future.done():
-            req.future.set_exception(RuntimeError(f"prefill failed: {exc!r}"))
+            # a lost tp rank keeps its type: the caller can tell it apart
+            req.future.set_exception(exc if isinstance(exc, CollectiveGroupDeadError)
+                                     else RuntimeError(f"prefill failed: {exc!r}"))
         if req.stream_queue is not None:
             req.stream_queue.put(_STREAM_END)
         if self._allocator is not None and req.slot >= 0:
@@ -1473,14 +1693,19 @@ class LLMEngine:
                 self._maybe_finish(req, tok)
 
     def _reset_cache(self) -> None:
-        """(Re)allocate the device cache — also the recovery path after a
-        step failed mid-update and left the pool in an unknown state."""
+        """Reallocate the device cache — the recovery path after a step
+        failed mid-update and left the pool in an unknown state (under a
+        mesh, on every rank)."""
+        with self._device_call(_OP_RESET):
+            self._alloc_cache()
+
+    def _alloc_cache(self) -> None:
         if self.cache_kind == "paged":
             self._cache = init_paged_cache(
                 self.cfg, self.kv_num_blocks, self.kv_block_size, device=self.device
             )
         else:
-            self._cache = init_cache(self.cfg, self.B, self.S, device=self.device)
+            self._cache = init_cache(self.cfg, self.B, self.S, device=self.device, lay=self._lay)
 
     def _fail_inflight(self, error: BaseException) -> None:
         """Fail every queued, prefilling, and in-slot request (loop-crash
@@ -1541,6 +1766,16 @@ class LLMEngine:
                 )
 
     def _loop(self) -> None:
+        try:
+            self._serve_loop()
+        finally:
+            if self._tp is not None and self._tp.broken is None:
+                try:
+                    self._tp.stop()  # the peers leave follow()
+                except BaseException as exc:  # noqa: BLE001 — shutting down anyway
+                    self._tp.fail(exc)
+
+    def _serve_loop(self) -> None:
         while not self._stop:
             try:
                 self._evict_cancelled()
@@ -1553,6 +1788,10 @@ class LLMEngine:
                 elif not progressed:
                     self._wake.wait(timeout=0.05)
                     self._wake.clear()
+                    if self._tp is not None and (
+                            time.monotonic() - self._tp.last_send >= self._tp.keepalive_s):
+                        with self._device_call(_OP_IDLE):  # the peers' wait is bounded
+                            pass
             except BaseException as exc:  # noqa: BLE001 — a dead loop hangs every caller
                 # flight-record the crash BEFORE recovery clears the
                 # evidence: admission state and the last finished requests
@@ -1564,10 +1803,19 @@ class LLMEngine:
                     requests=list(self._finished_ring)[-8:],
                     engine=str(self._admission_token),
                 )
+                if self._tp is not None and self._tp.broken is not None:
+                    # a device call failed mid-way on some rank: the tp
+                    # ranks are out of step, so this engine serves no more
+                    self._fail_inflight(self._tp.broken)
+                    return
                 self._fail_inflight(RuntimeError(f"LLMEngine step failed: {exc!r}"))
                 # a step that failed mid-update left the pool in an unknown
                 # state; reallocate so the engine keeps serving
-                self._reset_cache()
+                try:
+                    self._reset_cache()
+                except CollectiveGroupDeadError:
+                    self._fail_inflight(self._tp.broken)
+                    return
 
 
 def _to_device(tree: Any, device: torch.device) -> Any:
@@ -1617,6 +1865,7 @@ class LLMServer:
         top_p: Optional[float] = None,
         quantize: bool = False,
         mesh: Optional[Any] = None,
+        tp: str = "tp",
         decode_chunk: int = 1,
         max_queued_requests: int = 256,
         max_queued_prefill_tokens: int = 0,
@@ -1643,6 +1892,7 @@ class LLMServer:
             top_p=top_p,
             quantize=quantize,
             mesh=mesh,
+            tp=tp,
             decode_chunk=decode_chunk,
             max_queued_requests=max_queued_requests,
             max_queued_prefill_tokens=max_queued_prefill_tokens,

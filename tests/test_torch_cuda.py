@@ -738,6 +738,62 @@ def test_sharded_train_step_on_two_ranks_matches_one_device(cuda, attention, axe
             assert abs(got - ref) <= 1e-5 * abs(ref), (losses, want)
 
 
+TP_CFG = dict(vocab_size=256, d_model=256, n_layers=2, n_heads=4, n_kv_heads=2, d_ff=512,
+              max_seq_len=64, attention="dense")
+
+
+def _tp_engine_rank():
+    """The tensor-parallel engine on ranks sharing the card: rank 0 serves
+    two prompts (greedy, f32) and counts its kernels' launches; rank 1
+    follows."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.models.transformer import TransformerConfig, init_params
+    from ray_tpu_torch.parallel import MeshManager
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TransformerConfig(**TP_CFG, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    fns = (tdec.paged_decode_attention, tdec.decode_attention, tattn.flash_attention_with_lse,
+           tq.int8_matmul)
+    before = [f.launches for f in fns]
+    eng = LLMEngine(cfg, params, device="cuda", max_batch_size=2, max_seq_len=64,
+                    mesh=MeshManager().create_mesh({"tp": 2}))
+    if dist.get_rank():
+        eng.follow()
+        return None
+    try:
+        out = [eng.generate(p, max_tokens=6) for p in ([3, 14, 15], [7, 8])]
+    finally:
+        eng.shutdown()
+    return out, [f.launches - b for f, b in zip(fns, before)]
+
+
+def test_tp_engine_on_two_ranks_sharing_the_card_matches_one_device(cuda):
+    """``LLMEngine(mesh=)`` on 2 gloo ranks of the card: the single-device
+    dense engine's greedy tokens (f32, TF32 off), and no kernel launched on
+    the tp path, as the JAX engine under a mesh."""
+    from ray_tpu_torch.models.transformer import TransformerConfig, init_params
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.parallel import run_ranks
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    _build.build_all()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = TransformerConfig(**TP_CFG, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    one = LLMEngine(cfg, params, device="cuda", max_batch_size=2, max_seq_len=64,
+                    cache_kind="dense")
+    try:
+        want = [one.generate(p, max_tokens=6) for p in ([3, 14, 15], [7, 8])]
+    finally:
+        one.shutdown()
+    (got, launches), follower = run_ranks(_tp_engine_rank, 2, timeout_s=300, device="cuda",
+                                          backend="gloo")
+    assert got == want and launches == [0, 0, 0, 0] and follower is None
+
+
 # --------------------------------------------------------------------------
 # the host runtime's device seams (ray_tpu_torch.api on the card)
 # --------------------------------------------------------------------------
@@ -799,6 +855,37 @@ def test_cuda_tensor_task_runs_in_process_and_a_process_worker_gets_a_host_copy(
     assert values.tolist() == x.float().cpu().tolist()
     pid = runtime.get(runtime.remote(os.getpid).options(execution="process").remote())
     assert pid != os.getpid()
+
+
+def test_cuda_tensor_reaches_a_process_worker_through_the_shm_arena(runtime, monkeypatch):
+    """A 4 MiB bf16 CUDA tensor given to a process task is written from the
+    card straight into the native shm arena (one ``ShmRef``), and the
+    worker holds the CPU tensor of the same bits."""
+    import os
+
+    from torch_runtime_tasks import _host_view
+
+    from ray_tpu_torch.runtime import protocol
+
+    kinds, real = [], protocol.encode_value
+
+    def spy(value, shm_store, id_factory):
+        out = real(value, shm_store, id_factory)
+        kinds.append(type(out).__name__)
+        return out
+
+    monkeypatch.setattr(protocol, "encode_value", spy)
+    runtime.init(num_cpus=2)
+    name = runtime.get_cluster().shm_store.name
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(1024, 2048, generator=g, device="cuda").to(torch.bfloat16)
+    kind, dtype, values, cuda_in_worker = runtime.get(
+        runtime.remote(_host_view).options(execution="process").remote(x))
+    assert kinds == ["ShmRef"]
+    assert (kind, dtype, cuda_in_worker) == ("tensor", "bfloat16", False)
+    assert torch.equal(torch.tensor(values), x.float().cpu())  # values: a read-only view
+    runtime.shutdown()
+    assert not os.path.exists("/dev/shm" + name)
 
 
 # --------------------------------------------------------------------------

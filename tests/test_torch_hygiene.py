@@ -48,6 +48,47 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert bad == []
 
 
+def _native_sources():
+    out = []
+    for root, _, names in os.walk(os.path.join(REPO, "ray_tpu_torch")):
+        if os.sep + "build" in root:
+            continue
+        out += [os.path.join(root, n) for n in names
+                if n.endswith((".c", ".cc", ".cpp", ".h", ".cu", ".cuh"))]
+    return sorted(out)
+
+
+def test_port_c_sources_name_nothing_of_the_jax_package():
+    """The port's C, C++ and CUDA sources: no ``ray_tpu.`` name (a type
+    named so would pickle as the JAX package's) and no path into
+    ``ray_tpu/native/`` (that tier is the JAX package's own; the kernels
+    may name the TPU kernels they replace)."""
+    import re
+
+    files = _native_sources()
+    names = {os.path.basename(p) for p in files}
+    assert {"hotpath.c", "shm_store.cpp", "io_pool.cpp", "attention.cu"} <= names
+    bad = []
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            for i, line in enumerate(f, 1):
+                if re.search(r"\bray_tpu\.|\bray_tpu/native/", line):
+                    bad.append((os.path.relpath(path, REPO), i, line.strip()))
+    assert bad == []
+
+
+def test_native_tier_builds_into_a_gitignored_directory():
+    from ray_tpu_torch.native import _build as native_build
+
+    with open(os.path.join(REPO, ".gitignore")) as f:
+        ignored = f.read().split()
+    assert os.path.relpath(native_build.BUILD, REPO) + "/" in ignored
+    for name in native_build.TARGETS:
+        lib, out_dir = native_build.target(name)
+        assert os.path.dirname(out_dir) == native_build.BUILD
+        assert not os.path.relpath(lib, REPO).startswith("ray_tpu" + os.sep)
+
+
 def test_importing_the_engine_and_trainer_loads_no_jax():
     code = (
         "import sys, ray_tpu_torch.serve.llm, ray_tpu_torch.convert, ray_tpu_torch.models, "
@@ -116,11 +157,13 @@ def test_load_model_without_device_refuses_to_fall_back_to_cpu(monkeypatch, tmp_
 
 
 def test_unported_engine_options_raise():
+    """``mesh=`` is ported (tests/test_torch_tp_serve.py); what it takes is
+    a ``ray_tpu_torch.parallel.Mesh``, never anything else."""
     from ray_tpu_torch.models.transformer import TransformerConfig
     from ray_tpu_torch.serve.llm import LLMEngine
 
     cfg = TransformerConfig(vocab_size=11, d_model=8, n_layers=1, n_heads=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="ray_tpu_torch.parallel.Mesh"):
         LLMEngine(cfg, {}, device="cpu", mesh=object())
 
 
@@ -189,7 +232,7 @@ def test_kernel_sources_build_into_a_gitignored_directory():
 # the host runtime: light imports, workers that never touch the card
 # --------------------------------------------------------------------------
 _RUNTIME_PARTS = ("__init__.py", "api.py", "exceptions.py", "core", "runtime", "observability",
-                  "dashboard", "accelerators")
+                  "dashboard", "accelerators", "native")
 
 
 def _runtime_files():

@@ -103,13 +103,15 @@ def test_forward_logits_match_jax(params, attention):
 
 
 def test_unported_paths_raise(params):
-    """The engine's mesh= is still unported; ring attention without a mesh
-    is the JAX package's einsum attention (its forward takes mha there)."""
+    """The engine's mesh= takes a ``ray_tpu_torch.parallel.Mesh`` and
+    nothing else (it is ported: tests/test_torch_tp_serve.py); ring
+    attention without a mesh is the JAX package's einsum attention (its
+    forward takes mha there)."""
     from ray_tpu_torch.serve.llm import LLMEngine
 
     jp, tp = params
     cfg = ttr.TransformerConfig(**SMALL, attention="ring", dtype=torch.float32)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="ray_tpu_torch.parallel.Mesh"):
         LLMEngine(cfg, tp, device="cpu", mesh=object())
     toks = np.random.default_rng(1).integers(0, 89, size=(2, 12))
     ref = jtr.forward(jtr.TransformerConfig(**SMALL, attention="ring", dtype=jnp.float32), jp,

@@ -375,10 +375,11 @@ def test_server_without_tokenizer_equals_jax(params):
     finally:
         j.engine.shutdown()
         t.engine.shutdown()
-    with pytest.raises(NotImplementedError):
+    # mesh= is ported (tests/test_torch_tp_serve.py): it takes a Mesh, and
+    # tp= names its axis, as in the JAX package
+    with pytest.raises(TypeError, match="ray_tpu_torch.parallel.Mesh"):
         LLMServer(lambda: (CFG, tp), device="cpu", mesh=object())
-    with pytest.raises(TypeError):  # no tp= until mesh= is ported
-        LLMServer(lambda: (CFG, tp), device="cpu", tp="tp")
+    LLMServer(lambda: (CFG, tp), device="cpu", tp="tp").engine.shutdown()
 
 
 def test_second_shutdown_leaves_the_next_engine_registered(params):

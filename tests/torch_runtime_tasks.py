@@ -70,6 +70,13 @@ def _host_view(x):
     return "ndarray", str(x.dtype), np.asarray(x).astype(np.float32), cuda
 
 
+def _value_facts(x):
+    """A bulk argument as a worker received it: its type, dtype, sum,
+    shape, and the worker's pid."""
+    total = x.float().sum() if hasattr(x, "float") else x.sum()
+    return type(x).__name__, str(x.dtype), float(total), tuple(x.shape), os.getpid()
+
+
 def _worker_facts():
     """What a worker process is: its command line, the top-level packages it
     has imported among those a port worker must not load, whether torch is
