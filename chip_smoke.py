@@ -8,6 +8,7 @@
     python3 chip_smoke.py --phases build,server,disagg   # the serving front
     python3 chip_smoke.py --phases build,runtime   # the host runtime and the GPU actor
     python3 chip_smoke.py --phases build,serve     # the Serve runtime: replicas, proxy, dispatcher
+    python3 chip_smoke.py --phases build,chaos     # ActorPool, Queue, placement groups, chaos schedules
     python3 chip_smoke.py --phases build,profile   # one profiled train step (not in the default run)
     python3 chip_smoke.py --phases build,parallel  # the parallel layer, ranks sharing the card
     python3 chip_smoke.py --phases build,tp_serve  # the tensor-parallel engine on 2 ranks
@@ -123,7 +124,34 @@ Phases, each printing one JSON line; any failure exits non-zero:
    re-prefills) match. (d) After ``serve.shutdown()`` and the runtime's
    ``shutdown()``: no CUDA tensor of 1 MiB or more beyond the weights, no
    ``serve-*`` thread, no worker process.
-4f. ``tp_serve`` — the tensor-parallel engine (``LLMEngine(mesh=)``) on the
+4f. ``chaos`` — the utilities and the chaos fabric (``ray_tpu_torch.util``,
+   ``ray_tpu_torch.chaos``) with GPU actors, on the serving decoder in bf16:
+   (a) + (c) a ``STRICT_PACK`` placement group of two ``{"GPU": 0.5, "CPU":
+   1}`` bundles holds the whole card; an engine actor in each bundle
+   (``PlacementGroupSchedulingStrategy``) and an ``ActorPool`` of the two map
+   the burst's 8 prompts (64 tokens, 32 new, one request an item) with
+   ``map`` and ``map_unordered``: tokens equal one engine's serving them one
+   at a time (the same set for ``map_unordered``), K1 16 a decode step of
+   each actor; ``remove_placement_group`` gives the card back. (b) a
+   producer GPU actor puts 16 CUDA tensors of 4 MiB into a ``util.Queue``
+   while a consumer GPU actor gets them: on the card, the same storage,
+   bitwise; ms a put/get pair. (d) three seeded schedules through
+   ``ChaosRunner``, each twice on a fresh ``init``: both runs ``ok``, fault
+   logs byte-identical. ``disagg-decode-kill`` (``tests/test_disagg.py``,
+   seed 41): ``roles={"prefill": 1, "decode": 2}``, 0.3 of the card each,
+   ``kill_decode_replica`` at t=0.8, then ``disagg.decode_call=raise(0.4)``
+   over 5 sequential requests: tokens equal co-located ones computed before
+   the runs (or a typed ``KVMigrationError``), invariant 13 sweeps >= 5
+   migrations, K1 only on the decode replicas. ``lose-device-objects``: 32
+   GPU tasks return 4 MiB drawn on the card, ``lose_objects`` (0.5) at t=1.0,
+   lineage rebuilds them bitwise on the card, ``memory_allocated`` back
+   within 1 MiB after the refs go. ``gpu-actor-node-kill``: an int8 engine
+   actor on an added ``{"CPU": 2, "GPU": 1}`` node, the node killed at t=8
+   and replaced: the restarted actor's tokens equal the direct int8
+   engine's, invariant 7 holds, K1 and K6 launch. (e) after the last
+   ``shutdown``: no new CUDA storage of 1 MiB or more, no worker process,
+   no failpoint armed.
+4g. ``tp_serve`` — the tensor-parallel engine (``LLMEngine(mesh=)``) on the
    serving decoder at full width, ``{"tp": 2}``: two rank processes share
    ``cuda:0`` over gloo (``run_ranks``), rank 0 drives and rank 1
    ``follow()``s. (a) f32 with TF32 off: a prefill of the first prompt
@@ -200,7 +228,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    losses must stray from one device's by more than ``LOSS_RTOL``.
 12. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
    replaces, launches in the main-path runs (engine, server, disagg,
-   runtime, serve, tp_serve, train, moe_engine, vit_train, parallel) in all and by phase, max
+   runtime, serve, chaos, tp_serve, train, moe_engine, vit_train, parallel) in all and by phase, max
    error, device ms, plain ms, bound ms and what bounds it, library ms;
    K1/K2 also the event floor and each timed shape; K3/K4/K5 also the parallel phase's
    shard shapes (``parallel_<shape>_*``).
@@ -215,6 +243,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import hashlib
 import itertools
 import json
 import math
@@ -233,7 +262,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 PHASES = ("build", "kernels", "forward_parity", "engine", "server", "disagg", "runtime",
-          "serve", "tp_serve", "train_parity",
+          "serve", "chaos", "tp_serve", "train_parity",
           "train", "moe_parity", "moe_engine", "vit_train", "dit", "parallel")
 OPTIONAL_PHASES = ("profile",)
 
@@ -1732,11 +1761,14 @@ class EngineActor:
         self.engine = LLMEngine(cfg, params, device="cuda", max_batch_size=8,
                                 max_seq_len=cfg.max_seq_len, kv_block_size=16,
                                 cache_kind="paged", quantize=quantize)
-        self.steps = 0
+        # the count lives outside self: the engine's loop thread holds the
+        # engine, and through a closure over self it would hold the actor
+        # for ever (a killed actor's engine must stop when it is dropped)
+        steps = self._steps = [0]
         step = self.engine._step
 
         def counted_step():
-            self.steps += 1
+            steps[0] += 1
             step()
 
         self.engine._step = counted_step
@@ -1762,7 +1794,14 @@ class EngineActor:
         return next(self._streams[sid], None)
 
     def decode_steps(self) -> int:
-        return self.steps
+        return self._steps[0]
+
+    def placement_group_id(self):
+        """The placement group this actor was scheduled into (hex), or None."""
+        from ray_tpu_torch.util import get_current_placement_group
+
+        pg = get_current_placement_group()
+        return None if pg is None else pg.id.hex()
 
     def ping(self):
         return None
@@ -1771,6 +1810,12 @@ class EngineActor:
         self.engine.shutdown()
         self._streams.clear()
         return True
+
+    def __del__(self):
+        # a killed actor is dropped without close(): stop its engine's loop
+        engine = getattr(self, "engine", None)
+        if engine is not None:
+            engine.shutdown()
 
 
 def median_rtt_s(call, reps: int = RUNTIME_RTT_REPS) -> float:
@@ -2464,6 +2509,528 @@ def run_serve(torch, cfg, params, kernels_of: dict, card: str, actor_tps: dict,
                              f"workers {left}")
     yield {"card": card, "part": "d_teardown", "new_cuda_tensors_1mib": 0, "serve_threads": [],
            "workers_left": 0, "teardown_s": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# the utilities and the chaos fabric: ActorPool, Queue and placement groups
+# of GPU actors; seeded schedules against the split pair, device-tier
+# objects and a GPU actor on a killed node
+# ---------------------------------------------------------------------------
+CHAOS_QUEUE_ITEMS = 16
+CHAOS_QUEUE_BYTES = 4 << 20
+CHAOS_FANOUT = 32
+CHAOS_FANOUT_BYTES = 4 << 20
+CHAOS_MEMORY_SLACK = 1 << 20
+# tests/test_disagg.py: the decode-replica kill's prompt and seed
+CHAOS_PROMPT = [5, 3, 7, 1, 9, 2, 8, 4, 6, 1, 2, 3, 4, 5, 6, 7, 8, 9]
+CHAOS_DISAGG_SEED = 41
+CHAOS_LOSE_SEED = 23
+CHAOS_NODE_KILL_SEED = 29
+CHAOS_KILL_AT_S = 8.0  # the node kill, after the actor's first burst
+
+
+def tensor_digest(t) -> str:
+    """sha256 of a tensor's bytes: bitwise identity, whatever the dtype."""
+    import torch
+
+    return hashlib.sha256(t.detach().contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes()).hexdigest()
+
+
+def chaos_draw(i: int, n: int):
+    """(d)'s GPU task: ``n`` normal floats on the card from a generator
+    seeded by ``i`` (a rebuild by lineage draws the same bits)."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(i)
+    return torch.randn(n, generator=g, device="cuda")
+
+
+class QueueProducer:
+    """(b)'s producer GPU actor: draws CUDA tensors and puts them into a
+    ``util.Queue``."""
+
+    def produce(self, queue, n: int, nbytes: int, seed: int) -> list:
+        import torch
+
+        out = []
+        for i in range(n):
+            g = torch.Generator(device="cuda").manual_seed(seed + i)
+            t = torch.randint(-(1 << 31), (1 << 31) - 1, (nbytes // 4,), generator=g,
+                              device="cuda", dtype=torch.int32)
+            digest = tensor_digest(t)
+            t0 = time.perf_counter()
+            queue.put(t)
+            out.append({"digest": digest, "ptr": t.data_ptr(),
+                        "put_s": time.perf_counter() - t0})
+        return out
+
+
+class QueueConsumer:
+    """(b)'s consumer GPU actor: gets them back and says what arrived."""
+
+    def consume(self, queue, n: int) -> list:
+        out = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            t = queue.get(timeout=120)
+            get_s = time.perf_counter() - t0
+            out.append({"type": type(t).__name__, "device": str(t.device),
+                        "digest": tensor_digest(t), "ptr": t.data_ptr(), "get_s": get_s})
+        return out
+
+
+@contextlib.contextmanager
+def decode_steps_by_role():
+    """Count each paged engine's decode steps by its ``role`` while inside
+    (``"prefill"``, ``"decode"``, ``""`` co-located): each step launches K1
+    once a layer, so this says which replicas the K1 launches came from."""
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    counts, lock = {}, threading.Lock()
+    real = LLMEngine._decode_k_paged
+
+    def counted(self, *args):
+        with lock:
+            counts[self.role] = counts.get(self.role, 0) + self.decode_chunk
+        return real(self, *args)
+
+    LLMEngine._decode_k_paged = counted
+    try:
+        yield counts
+    finally:
+        LLMEngine._decode_k_paged = real
+
+
+def chaos_pool(torch, rt, util, cfg, params, kernels_of: dict) -> dict:
+    """(a) + (c): a STRICT_PACK placement group of two ``{"GPU": 0.5, "CPU":
+    1}`` bundles, an engine actor in each through
+    ``PlacementGroupSchedulingStrategy``, and an ``ActorPool`` of the two
+    mapping the burst's prompts one request an item (``map``, then
+    ``map_unordered``); tokens against one engine serving the prompts one
+    at a time; removing the group frees both bundles."""
+    prompts = burst_prompts(cfg, 8, 64)
+    k1 = {"paged_decode_attention": kernels_of["paged_decode_attention"]}
+    direct = EngineActor(cfg, params, False)
+    try:
+        direct.warm(64)
+        t0 = time.perf_counter()
+        want = [direct.generate([p], 32)[0] for p in prompts]
+        direct_s = time.perf_counter() - t0
+    finally:
+        direct.close()
+    del direct
+    torch.cuda.empty_cache()
+
+    free0 = rt.available_resources()
+    pg = util.placement_group([{"GPU": 0.5, "CPU": 1}] * 2, strategy="STRICT_PACK",
+                              name="chaos_pool")
+    if not pg.wait(60):
+        raise AssertionError(f"(c) placement group not placed: {util.placement_group_table(pg)}")
+    held = rt.available_resources()
+    actors = [rt.remote(EngineActor).options(
+        num_gpus=0.5, num_cpus=1, scheduling_strategy=util.PlacementGroupSchedulingStrategy(
+            pg, placement_group_bundle_index=i)).remote(cfg, params, False) for i in range(2)]
+    try:
+        rt.get([a.warm.remote(64) for a in actors])
+        in_pg = rt.get([a.placement_group_id.remote() for a in actors])
+        steps0 = rt.get([a.decode_steps.remote() for a in actors])
+        pool = util.ActorPool(actors)
+        zero_counters(k1)
+        t0 = time.perf_counter()
+        got = [r[0] for r in pool.map(lambda a, p: a.generate.remote([p], 32), prompts)]
+        map_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        unordered = [r[0] for r in pool.map_unordered(lambda a, p: a.generate.remote([p], 32),
+                                                      prompts)]
+        unordered_s = time.perf_counter() - t0
+        launches = read_counters(k1)[0]
+        steps = [s - s0 for s, s0 in zip(rt.get([a.decode_steps.remote() for a in actors]), steps0)]
+        rt.get([a.close.remote() for a in actors])
+    finally:
+        for a in actors:
+            rt.kill(a)
+    del actors
+    table = util.placement_group_table(pg)
+    util.remove_placement_group(pg)
+    t0 = time.perf_counter()
+    while rt.available_resources() != free0 and time.perf_counter() - t0 < 30:
+        time.sleep(0.05)
+    freed = rt.available_resources()
+    torch.cuda.empty_cache()
+    if got != want:
+        raise AssertionError("(a) ActorPool.map: tokens differ from one engine's, one at a time")
+    if sorted(unordered) != sorted(want):
+        raise AssertionError("(a) ActorPool.map_unordered: not the same set of answers")
+    if launches["paged_decode_attention"] != cfg.n_layers * sum(steps) or min(steps) <= 0:
+        raise AssertionError(f"(a) K1 {launches} over {steps} decode steps of the two actors")
+    if in_pg != [pg.id.hex()] * 2 or held.get("GPU", 0) != 0 or table["strategy"] != "STRICT_PACK" \
+            or len(table["bundle_placements"]) != 2:
+        raise AssertionError(f"(c) actors in {in_pg}, not {pg.id.hex()}; available while "
+                             f"held {held}; table {table}")
+    if freed != free0 or util.placement_group_table(pg)["state"] != "REMOVED":
+        raise AssertionError(f"(c) after remove_placement_group: {freed}, before {free0}")
+    n_tok = sum(len(r) for r in got)
+    return {
+        "a_actor_pool": {
+            "actors": 2, "num_gpus_each": 0.5, "requests": len(prompts), "prompt_len": 64,
+            "max_tokens": 32, "tokens_equal_one_at_a_time": True,
+            "map_unordered_same_set": True, "tokens_per_s_map": n_tok / map_s,
+            "tokens_per_s_map_unordered": n_tok / unordered_s,
+            "tokens_per_s_one_engine_one_at_a_time": n_tok / direct_s, "map_wall_s": map_s,
+            "map_unordered_wall_s": unordered_s, "decode_steps_by_actor": steps,
+            "k1_launches": launches["paged_decode_attention"],
+            "k1_launches_by_actor": [cfg.n_layers * s for s in steps]},
+        "c_placement_group": {
+            "bundles": [{"GPU": 0.5, "CPU": 1}] * 2, "strategy": "STRICT_PACK",
+            "actors_in_group": True, "gpu_available_while_held": held.get("GPU", 0),
+            "freed_on_remove": True},
+        "launches": launches,
+    }
+
+
+def chaos_queue(torch, rt, util) -> dict:
+    """(b) a producer GPU actor puts 16 CUDA tensors of 4 MiB into a
+    ``util.Queue``; a consumer GPU actor gets them, concurrently."""
+    q = util.Queue()
+    producer = rt.remote(QueueProducer).options(num_gpus=0.5).remote()
+    consumer = rt.remote(QueueConsumer).options(num_gpus=0.5).remote()
+    try:
+        t0 = time.perf_counter()
+        got_ref = consumer.consume.remote(q, CHAOS_QUEUE_ITEMS)
+        put = rt.get(producer.produce.remote(q, CHAOS_QUEUE_ITEMS, CHAOS_QUEUE_BYTES, 0),
+                     timeout=300)
+        got = rt.get(got_ref, timeout=300)
+        wall = time.perf_counter() - t0
+        left = q.qsize()
+    finally:
+        q.shutdown()
+        rt.kill(producer)
+        rt.kill(consumer)
+    bad = [i for i, (p, g) in enumerate(zip(put, got))
+           if g["type"] != "Tensor" or not g["device"].startswith("cuda")
+           or g["digest"] != p["digest"]]
+    if bad or len(got) != CHAOS_QUEUE_ITEMS or left:
+        raise AssertionError(f"(b) items {bad} arrived off the card or changed: "
+                             f"{[got[i] for i in bad]}; {left} left in the queue")
+    return {"b_queue": {
+        "items": CHAOS_QUEUE_ITEMS, "bytes_each": CHAOS_QUEUE_BYTES, "all_cuda": True,
+        "bitwise_equal": True,
+        "same_storage": sum(p["ptr"] == g["ptr"] for p, g in zip(put, got)),
+        "ms_per_put_get_pair": wall * 1e3 / CHAOS_QUEUE_ITEMS,
+        "put_ms_median": statistics.median(p["put_s"] for p in put) * 1e3,
+        "get_ms_median": statistics.median(g["get_s"] for g in got) * 1e3,
+        "wall_s": wall}}
+
+
+def run_schedule_twice(rt, name: str, seed: int, events: list, make_workload,
+                       check) -> dict:
+    """One seeded schedule through ``ChaosRunner`` twice, each on a fresh
+    ``init(num_cpus=8)``: both runs ``ok``, fault logs byte-identical;
+    ``check(result, seen)`` holds the run's own contract and returns its
+    numbers."""
+    from ray_tpu_torch.chaos import ChaosEvent, ChaosRunner, ChaosSchedule
+    from ray_tpu_torch.runtime import failpoints
+
+    runs = []
+    for _ in range(2):
+        failpoints.reset()
+        rt.init(num_cpus=8)
+        try:
+            schedule = ChaosSchedule([ChaosEvent(t, kind, **p) for t, kind, p in events],
+                                     seed=seed, name=name)
+            seen = {}
+            t0 = time.perf_counter()
+            result = ChaosRunner(schedule, quiesce_timeout=300).run(make_workload(seen))
+            wall = time.perf_counter() - t0
+            if not result.ok:
+                raise AssertionError(f"{name}: {result.workload_error!r}, invariants "
+                                     f"{result.invariants.violations}")
+            nums = check(result, seen)
+        finally:
+            rt.shutdown()
+        log = json.dumps(result.faults, sort_keys=True).encode()
+        runs.append({"wall_s": wall, "digest": hashlib.sha256(log).hexdigest(), "faults": len(result.faults),
+                     "events_applied": result.events_applied,
+                     "invariants_checked": result.invariants.checked, **nums})
+    if runs[0]["digest"] != runs[1]["digest"]:
+        raise AssertionError(f"{name}: same seed, fault logs differ: {runs}")
+    return {"seed": seed, "runs": runs,
+            "fault_log_digests": [r["digest"] for r in runs]}
+
+
+def chaos_disagg(torch, rt, serve, cfg, params, kernels_of: dict) -> dict:
+    """``disagg-decode-kill`` (tests/test_disagg.py:376-450, seed 41) on GPU
+    replicas of the serving decoder in bf16: ``roles={"prefill": 1,
+    "decode": 2}``, 0.3 of the card each; ``kill_decode_replica`` at t=0.8,
+    then ``disagg.decode_call=raise(0.4)`` over 5 sequential requests.
+    Co-located tokens are computed before the runs."""
+    from ray_tpu_torch.runtime import failpoints
+    from ray_tpu_torch.serve.disagg import KVMigrationError
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    kw = dict(max_batch_size=4, max_seq_len=64)
+    prompts = [CHAOS_PROMPT] + [CHAOS_PROMPT + [i + 1] for i in range(5)]
+    direct = LLMServer(lambda: (cfg, params), device="cuda", **kw)
+    try:
+        want = {tuple(p): direct({"prompt": p, "max_tokens": 4 if i == 0 else 3})["tokens"]
+                for i, p in enumerate(prompts)}
+    finally:
+        direct.engine.shutdown()
+    del direct
+    torch.cuda.empty_cache()
+    k1 = {"paged_decode_attention": kernels_of["paged_decode_attention"]}
+
+    def make_workload(seen):
+        def workload():
+            t_start = time.perf_counter()
+            serve.start(http_port=0)
+            app = serve.deployment(LLMServer, roles={"prefill": 1, "decode": 2},
+                                   ray_actor_options={"num_gpus": 0.3}).bind(
+                lambda: (cfg, params), **kw)
+            handle = serve.run(app, route_prefix=None)
+            ctls = list(rt.get_cluster().serve_controllers.values())
+            deadline = time.perf_counter() + 60
+            while (ctls[0].pool_status().get("LLMServer", {}).get("decode", {})
+                   .get("replicas", 0) < 2 and time.perf_counter() < deadline):
+                time.sleep(0.02)
+            seen["deployed_s"] = time.perf_counter() - t_start
+            handle._router._refresh(force=True)
+            try:  # races the scheduled kill
+                r = handle.remote({"prompt": CHAOS_PROMPT, "max_tokens": 4}).result(timeout=120)
+                seen["phase1"] = "equal" if r["tokens"] == want[tuple(CHAOS_PROMPT)] else r
+            except KVMigrationError:
+                seen["phase1"] = "KVMigrationError"
+            time.sleep(max(0.0, 2.0 - (time.perf_counter() - t_start)))
+            handle._router._refresh(force=True)
+            failpoints.arm("disagg.decode_call=raise(0.4)")
+            seen["phase2"] = []
+            for p in prompts[1:]:
+                try:
+                    r = handle.remote({"prompt": p, "max_tokens": 3}).result(timeout=120)
+                    seen["phase2"].append("equal" if r["tokens"] == want[tuple(p)] else r)
+                except KVMigrationError:
+                    seen["phase2"].append("KVMigrationError")
+            serve.shutdown()
+            return seen["phase2"].count("KVMigrationError")
+        return workload
+
+    def check(result, seen):
+        kills = [e for e in result.events_applied if e["kind"] == "kill_decode_replica"]
+        if len(kills) != 1 or "skipped" in kills[0]:
+            raise AssertionError(f"disagg-decode-kill: the kill was {kills}")
+        if seen["phase1"] not in ("equal", "KVMigrationError") or any(
+                x not in ("equal", "KVMigrationError") for x in seen["phase2"]):
+            raise AssertionError(f"disagg-decode-kill: tokens differ from co-located: {seen}")
+        if result.invariants.checked["kv_migrations"] < 5:
+            raise AssertionError(f"disagg-decode-kill: invariant 13 swept "
+                                 f"{result.invariants.checked}")
+        return {"phase1": seen["phase1"], "phase2": seen["phase2"],
+                "deployed_s": seen["deployed_s"]}
+
+    with decode_steps_by_role() as by_role:
+        zero_counters(k1)
+        out = run_schedule_twice(
+            rt, "disagg-decode-kill", CHAOS_DISAGG_SEED,
+            [(0.8, "kill_decode_replica", {"deployment": "LLMServer", "role": "decode",
+                                            "index": 0})],
+            make_workload, check)
+        launches = read_counters(k1)[0]
+        steps = dict(by_role)
+    if (steps.get("prefill", 0) != 0 or steps.get("decode", 0) <= 0 or set(steps) - {"prefill", "decode"}
+            or launches["paged_decode_attention"] != cfg.n_layers * steps["decode"]):
+        raise AssertionError(f"disagg-decode-kill: K1 {launches}, decode steps by role {steps}")
+    return {**out, "replicas": {"prefill": 1, "decode": 2}, "num_gpus_each": 0.3,
+            "decode_steps_by_role": {"prefill": 0, **steps},
+            "k1_launches_decode_replicas": launches["paged_decode_attention"],
+            "k1_launches_prefill_replica": 0, "launches": launches}
+
+
+def chaos_lose_objects(torch, rt) -> dict:
+    """``lose-device-objects``: 32 GPU tasks (``num_gpus=0.1``,
+    ``max_retries=2``) each return 4 MiB drawn on the card; at t=1.0
+    ``lose_objects`` drops half of them, lineage rebuilds them on the card
+    bitwise; invariants 1-5 hold; the device memory is back at its baseline
+    after the refs are dropped."""
+    import gc
+
+    n = CHAOS_FANOUT_BYTES // 4
+
+    def make_workload(seen):
+        def workload():
+            t0 = time.perf_counter()
+            seen["base"] = torch.cuda.memory_allocated()
+            f = rt.remote(chaos_draw).options(num_gpus=0.1, max_retries=2, execution="thread")
+            refs = [f.remote(i, n) for i in range(CHAOS_FANOUT)]
+            first = rt.get(refs, timeout=300)
+            seen["devices"] = sorted({str(t.device) for t in first})
+            seen["first"] = [tensor_digest(t) for t in first]
+            del first
+            time.sleep(max(0.0, 1.5 - (time.perf_counter() - t0)))  # past the loss
+            again = rt.get(refs, timeout=300)
+            seen["again_devices"] = sorted({str(t.device) for t in again})
+            seen["again"] = [tensor_digest(t) for t in again]
+            del again
+            return refs
+        return workload
+
+    def check(result, seen):
+        lose = next(e for e in result.events_applied if e["kind"] == "lose_objects")
+        gc.collect()
+        t0 = time.perf_counter()
+        while (torch.cuda.memory_allocated() - seen["base"] > CHAOS_MEMORY_SLACK
+               and time.perf_counter() - t0 < 15):
+            time.sleep(0.05)
+            gc.collect()
+        held = torch.cuda.memory_allocated() - seen["base"]
+        want = [tensor_digest(chaos_draw(i, n)) for i in range(CHAOS_FANOUT)]
+        if lose["lost"] <= 0 or seen["first"] != want or seen["again"] != want \
+                or seen["devices"] != ["cuda:0"] or seen["again_devices"] != ["cuda:0"]:
+            raise AssertionError(f"lose-device-objects: lost {lose}, rebuilt bitwise "
+                                 f"{seen['again'] == want}, devices {seen['devices']} "
+                                 f"{seen['again_devices']}")
+        if held > CHAOS_MEMORY_SLACK:
+            raise AssertionError(f"lose-device-objects: {held} device bytes held after the refs "
+                                 f"were dropped: {live_cuda_tensors(torch)}")
+        return {"lost": lose["lost"], "of": lose["of"], "rebuilt_bitwise": True,
+                "device_bytes_held_after": held}
+
+    return run_schedule_twice(rt, "lose-device-objects", CHAOS_LOSE_SEED,
+                              [(1.0, "lose_objects", {"fraction": 0.5})], make_workload, check)
+
+
+def chaos_node_kill(torch, rt, cfg, params, kernels_of: dict) -> dict:
+    """``gpu-actor-node-kill``: ``add_node({"CPU": 2, "GPU": 1})``, an int8
+    engine actor there (``max_restarts=1``), then ``kill_node`` of that
+    node and a replacement ``add_node``: the actor restarts, reloads its
+    weights, and its greedy tokens equal the direct int8 engine's;
+    invariant 7 holds."""
+    from ray_tpu_torch.exceptions import RayActorError
+    from ray_tpu_torch.runtime.scheduler import NodeAffinitySchedulingStrategy
+
+    prompts = burst_prompts(cfg, 2, 64)
+    direct = EngineActor(cfg, params, True)
+    try:
+        want = direct.generate(prompts, 32)
+    finally:
+        direct.close()
+    del direct
+    torch.cuda.empty_cache()
+    names = ("paged_decode_attention", "int8_matmul")
+    counters = {n: kernels_of[n] for n in names}
+
+    def make_workload(seen):
+        def workload():
+            cluster = rt.get_cluster()
+            node = next(n for n in cluster.nodes.values()
+                        if not n.dead and n is not cluster.head_node)
+            actor = rt.remote(EngineActor).options(
+                num_gpus=0.5, max_restarts=1,
+                scheduling_strategy=NodeAffinitySchedulingStrategy(node.node_id, soft=True),
+            ).remote(cfg, params, True)
+            try:
+                seen["before"] = rt.get(actor.generate.remote(prompts, 32), timeout=300) == want
+            except RayActorError as exc:  # the kill landed first
+                seen["before"] = type(exc).__name__
+            while not node.dead:
+                time.sleep(0.05)
+            t0 = time.perf_counter()
+            while True:
+                try:
+                    after = rt.get(actor.generate.remote(prompts, 32), timeout=300)
+                    break
+                except RayActorError:
+                    if time.perf_counter() - t0 > 300:
+                        raise
+                    time.sleep(0.1)
+            seen["restart_s"] = time.perf_counter() - t0
+            seen["after"] = after
+            seen["restarts"] = [(a.max_restarts, a.num_restarts)
+                                for a in cluster.control.actors.list_actors()]
+            rt.get(actor.close.remote())
+            rt.kill(actor)
+            return []
+        return workload
+
+    def check(result, seen):
+        kinds = [e["kind"] for e in result.events_applied]
+        if kinds != ["add_node", "kill_node", "add_node"] or any(
+                "skipped" in e for e in result.events_applied):
+            raise AssertionError(f"gpu-actor-node-kill: events {result.events_applied}")
+        if seen["after"] != want or seen["before"] not in (True, "ActorDiedError",
+                                                           "RayActorError"):
+            raise AssertionError(f"gpu-actor-node-kill: tokens after the restart differ from the "
+                                 f"direct int8 engine's ({seen['before']})")
+        if not any(n == 1 for m, n in seen["restarts"]):
+            raise AssertionError(f"gpu-actor-node-kill: no restart {seen['restarts']}")
+        return {"tokens_before_equal_direct": seen["before"],
+                "tokens_after_restart_equal_direct": True, "restart_s": seen["restart_s"],
+                "restarts": seen["restarts"]}
+
+    zero_counters(counters)
+    out = run_schedule_twice(
+        rt, "gpu-actor-node-kill", CHAOS_NODE_KILL_SEED,
+        [(0.0, "add_node", {"resources": {"CPU": 2, "GPU": 1}}),
+         (CHAOS_KILL_AT_S, "kill_node", {"index": 0}),
+         (CHAOS_KILL_AT_S + 0.5, "add_node", {"resources": {"CPU": 2, "GPU": 1}})],
+        make_workload, check)
+    launches, by_route = read_counters(counters)
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"gpu-actor-node-kill: launches {launches}")
+    return {**out, "launches": launches, "launches_by_route": by_route}
+
+
+def run_chaos(torch, cfg, params, kernels_of: dict, card: str) -> dict:
+    """The chaos phase: (a) + (c) and (b) on one runtime, then (d)'s three
+    schedules, each twice on fresh runtimes; (e) after the last
+    ``shutdown``: no new CUDA storage of 1 MiB or more, no worker process,
+    no failpoint armed. Returns the phase's one report."""
+    import gc
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import serve, util
+    from ray_tpu_torch.runtime import failpoints
+
+    baseline = cuda_storages(torch)
+    t_phase = time.perf_counter()
+    rep = {"card": card}
+    rt.init(num_cpus=8)
+    try:
+        if rt.cluster_resources().get("GPU") != 1:
+            raise AssertionError(f"init on the card: {rt.cluster_resources()}")
+        pool = chaos_pool(torch, rt, util, cfg, params, kernels_of)
+        launches = pool.pop("launches")
+        rep.update(pool)
+        rep.update(chaos_queue(torch, rt, util))
+    finally:
+        rt.shutdown()
+    disagg = chaos_disagg(torch, rt, serve, cfg, params, kernels_of)
+    lose = chaos_lose_objects(torch, rt)
+    node_kill = chaos_node_kill(torch, rt, cfg, params, kernels_of)
+    rep["d_schedules"] = {"disagg-decode-kill": disagg, "lose-device-objects": lose,
+                          "gpu-actor-node-kill": node_kill}
+    for n, x in (*disagg.pop("launches").items(), *node_kill.pop("launches").items()):
+        launches[n] = launches.get(n, 0) + x
+    by_route = node_kill.pop("launches_by_route")
+    t0 = time.perf_counter()
+    while True:
+        gc.collect()
+        new = cuda_storages(torch) - baseline
+        left = worker_processes()
+        if not (new or left) or time.perf_counter() - t0 > SERVE_TEARDOWN_WAIT_S:
+            break
+        time.sleep(0.1)
+    armed = failpoints.armed_spec()
+    if new or left or armed:
+        raise AssertionError(f"after shutdown: {len(new)} CUDA storages of >= 1 MiB "
+                             f"({live_cuda_tensors(torch)}), workers {left}, armed {armed}")
+    rep["e_teardown"] = {"new_cuda_storages_1mib": 0, "workers_left": 0,
+                         "failpoints_armed": armed or None,
+                         "teardown_s": time.perf_counter() - t0}
+    rep["launches"] = launches
+    rep["launches_by_route"] = by_route
+    rep["seconds"] = time.perf_counter() - t_phase
+    return rep
 
 
 def train_config(torch):
@@ -3533,7 +4100,7 @@ def main(argv=None) -> int:
             for r, x in per.items():
                 by_route.setdefault(name, {}).setdefault(r, 0)
                 by_route[name][r] += x
-    if phases & {"forward_parity", "engine", "server", "disagg", "runtime", "serve"}:
+    if phases & {"forward_parity", "engine", "server", "disagg", "runtime", "serve", "chaos"}:
         cfg = serving_config(torch)
         from ray_tpu_torch.models.transformer import init_params
 
@@ -3589,6 +4156,11 @@ def main(argv=None) -> int:
                 emit({"phase": "serve", "ok": True, **rep})
                 if "launches" in rep:
                     count("serve", rep["launches"], rep.get("launches_by_route", {}))
+        if "chaos" in phases:
+            torch.cuda.empty_cache()
+            rep = run_chaos(torch, cfg, params, kernels_of, card)
+            emit({"phase": "chaos", "ok": True, **rep})
+            count("chaos", rep["launches"], rep["launches_by_route"])
         del params
         torch.cuda.empty_cache()
     if "tp_serve" in phases:

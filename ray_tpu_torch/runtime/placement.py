@@ -166,11 +166,10 @@ class PlacementGroupManager:
         """PG-scoped resource names for a committed bundle: both the
         per-bundle name (CPU_group_<idx>_<hex>) and the wildcard
         (CPU_group_<hex>), matching the reference's naming."""
-        hexid = info.pg_id.hex()[:12]
         scoped = {}
         for name, qty in info.bundles[idx].to_dict().items():
-            scoped[f"{name}_group_{idx}_{hexid}"] = qty
-            scoped[f"{name}_group_{hexid}"] = qty
+            scoped[bundle_resource_name(info.pg_id, name, idx)] = qty
+            scoped[bundle_resource_name(info.pg_id, name)] = qty
         return ResourceSet(scoped)
 
     def _schedule(self, info: PlacementGroupInfo) -> Optional[Dict[int, NodeID]]:
@@ -251,3 +250,32 @@ class PlacementGroupManager:
             if not placed:
                 return None
         return placements
+
+
+def bundle_resource_name(pg_id: PlacementGroupID, name: str, idx: int = -1) -> str:
+    """The name a committed bundle's ``name`` resource takes on its node:
+    ``<name>_group_<idx>_<hex>`` for bundle ``idx``, ``<name>_group_<hex>``
+    for any bundle of the group."""
+    hexid = pg_id.hex()[:12]
+    return f"{name}_group_{hexid}" if idx < 0 else f"{name}_group_{idx}_{hexid}"
+
+
+def bundle_demands(resources: Optional[Dict[str, float]], strategy) -> Optional[Dict[str, float]]:
+    """A task's or actor's demands as it takes them from its placement
+    group: under a ``PlacementGroupSchedulingStrategy`` each resource is
+    charged to the group's bundle (``placement_group_bundle_index``, or any
+    bundle for -1) instead of the node's free pool, as Ray rewrites them.
+    Port-only: the JAX package charges the free pool, so a group that
+    reserves a node's whole device leaves no device for the group's own
+    actors (ROADMAP F7). Any other strategy: ``resources`` unchanged."""
+    from ray_tpu_torch.runtime.scheduler import PlacementGroupSchedulingStrategy
+
+    if not isinstance(strategy, PlacementGroupSchedulingStrategy):
+        return resources
+    pg = strategy.placement_group
+    info = pg._info if hasattr(pg, "_info") else pg
+    idx = strategy.placement_group_bundle_index
+    demands = {"CPU": 1.0} if resources is None else resources
+    return {bundle_resource_name(info.pg_id, name, idx): qty
+            for name, qty in demands.items() if qty}
+

@@ -37,6 +37,7 @@ from ray_tpu_torch.exceptions import GetTimeoutError, NotPortedError, raised_cop
 from ray_tpu_torch.observability import metric_defs, tracing
 from ray_tpu_torch.runtime.context import task_context
 from ray_tpu_torch.runtime.control import ActorInfo
+from ray_tpu_torch.runtime.placement import bundle_demands
 from ray_tpu_torch.runtime.scheduler import TaskSpec
 
 
@@ -139,7 +140,7 @@ class CoreWorker:
             dependencies=[r.id() for r in deps],
             num_returns=num_returns,
             return_ids=return_ids,
-            resources=_interned_resource_set(resources),
+            resources=_interned_resource_set(bundle_demands(resources, scheduling_strategy)),
             max_retries=cfg.task_max_retries if max_retries is None else max_retries,
             execution=execution,
             scheduling_strategy=scheduling_strategy,
@@ -240,6 +241,7 @@ class CoreWorker:
         actor_id = ActorID.of(self.job_id)
         task_id = TaskID.for_actor_creation(actor_id)
         deps = _collect_deps(args, kwargs)
+        demands = bundle_demands(resources, scheduling_strategy)
         spec = TaskSpec(
             task_id=task_id,
             name=f"{class_name}.__init__",
@@ -249,7 +251,7 @@ class CoreWorker:
             dependencies=[r.id() for r in deps],
             num_returns=0,
             return_ids=[],
-            resources=ResourceSet({"CPU": 1} if resources is None else resources),
+            resources=ResourceSet({"CPU": 1} if demands is None else demands),
             actor_id=actor_id,
             scheduling_strategy=scheduling_strategy,
             is_actor_creation=True,

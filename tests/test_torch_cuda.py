@@ -17,6 +17,8 @@ output's magnitude). The attention kernels and the int8 matmul have no
 atomics: two launches give the same bits.
 """
 
+import time
+
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -976,3 +978,131 @@ def test_gpu_replicas_share_the_card_in_a_split_deployment(runtime):
             "tokens"] == want
     finally:
         serve.shutdown()
+
+
+# --------------------------------------------------------------------------
+# the utilities and the chaos fabric with GPU actors and device-tier objects
+# --------------------------------------------------------------------------
+class _EngineActor:
+    """A GPU actor holding a paged engine; ``steps`` counts its decode steps
+    (K1 launches once a layer in each)."""
+
+    def __init__(self, cfg, params):
+        from ray_tpu_torch.serve.llm import LLMEngine
+
+        self.engine = LLMEngine(cfg, params, device="cuda", max_batch_size=4, max_seq_len=64)
+        self.steps = [0]
+        real, steps = self.engine._decode_k_paged, self.steps
+
+        def counted(*args):
+            steps[0] += 1
+            return real(*args)
+
+        self.engine._decode_k_paged = counted
+
+    def generate(self, prompt, max_tokens):
+        return self.engine.generate(prompt, max_tokens=max_tokens)
+
+    def decode_steps(self):
+        return self.steps[0]
+
+    def close(self):
+        self.engine.shutdown()
+        return True
+
+
+class _Producer:
+    def produce(self, queue, n):
+        sent = []
+        for i in range(n):
+            g = torch.Generator(device="cuda").manual_seed(i)
+            t = torch.randn(1 << 18, generator=g, device="cuda")
+            queue.put(t)
+            sent.append((t.data_ptr(), t.cpu()))
+        return sent
+
+
+class _Consumer:
+    def consume(self, queue, n):
+        return [queue.get(timeout=60) for _ in range(n)]
+
+
+def test_actor_pool_of_gpu_actors_in_a_placement_group_matches_one_engine(runtime):
+    from ray_tpu_torch import util
+    from ray_tpu_torch.models.transformer import TransformerConfig, init_params
+
+    cfg = TransformerConfig(vocab_size=97, d_model=128, n_layers=2, n_heads=2, n_kv_heads=1,
+                            d_ff=256, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(5))
+    prompts = [[(3 * i + j) % 90 + 1 for j in range(20)] for i in range(4)]
+    direct = _EngineActor(cfg, params)
+    try:
+        want = [direct.generate(p, 6) for p in prompts]
+    finally:
+        direct.close()
+    runtime.init(num_cpus=4)
+    free0 = runtime.available_resources()
+    pg = util.placement_group([{"GPU": 0.5, "CPU": 1}] * 2, strategy="STRICT_PACK")
+    assert pg.wait(30) and runtime.available_resources().get("GPU", 0) == 0
+    actors = [runtime.remote(_EngineActor).options(
+        num_gpus=0.5, num_cpus=1,
+        scheduling_strategy=util.PlacementGroupSchedulingStrategy(pg, i)).remote(cfg, params)
+        for i in range(2)]
+    k1 = tdec.paged_decode_attention.launches
+    pool = util.ActorPool(actors)
+    assert list(pool.map(lambda a, p: a.generate.remote(p, 6), prompts)) == want
+    assert sorted(pool.map_unordered(lambda a, p: a.generate.remote(p, 6), prompts)) == sorted(want)
+    steps = runtime.get([a.decode_steps.remote() for a in actors])
+    assert min(steps) > 0
+    assert tdec.paged_decode_attention.launches - k1 == cfg.n_layers * sum(steps)
+    runtime.get([a.close.remote() for a in actors])
+    for a in actors:
+        runtime.kill(a)
+    util.remove_placement_group(pg)
+    assert runtime.available_resources() == free0
+
+
+def test_queue_carries_cuda_tensors_between_gpu_actors(runtime):
+    from ray_tpu_torch import util
+
+    runtime.init(num_cpus=4)
+    q = util.Queue()
+    producer = runtime.remote(_Producer).options(num_gpus=0.5).remote()
+    consumer = runtime.remote(_Consumer).options(num_gpus=0.5).remote()
+    got_ref = consumer.consume.remote(q, 8)
+    sent = runtime.get(producer.produce.remote(q, 8), timeout=120)
+    got = runtime.get(got_ref, timeout=120)
+    assert all(t.is_cuda for t in got)
+    assert all(torch.equal(t.cpu(), s) for t, (_, s) in zip(got, sent))
+    assert [t.data_ptr() for t in got] == [ptr for ptr, _ in sent]  # the same storage
+    q.shutdown()
+
+
+def _draw(i):
+    g = torch.Generator(device="cuda").manual_seed(i)
+    return torch.randn(1 << 18, generator=g, device="cuda")
+
+
+def test_lose_objects_rebuilds_device_tier_objects_bitwise(runtime):
+    from ray_tpu_torch.chaos import ChaosEvent, ChaosRunner, ChaosSchedule
+
+    runtime.init(num_cpus=4)
+    store = runtime.get_cluster().head_node.store
+    seen = {}
+
+    def workload():
+        f = runtime.remote(_draw).options(num_gpus=0.1, max_retries=2, execution="thread")
+        refs = [f.remote(i) for i in range(8)]
+        first = [t.cpu() for t in runtime.get(refs, timeout=60)]
+        seen["tiers"] = {store.entry_info(r.id())["tier"] for r in refs}
+        time.sleep(1.2)  # past the loss
+        again = runtime.get(refs, timeout=60)
+        seen["cuda"] = all(t.is_cuda for t in again)
+        seen["equal"] = all(torch.equal(a.cpu(), b) for a, b in zip(again, first))
+        return refs
+
+    schedule = ChaosSchedule([ChaosEvent(0.5, "lose_objects", fraction=0.5)], seed=23)
+    result = ChaosRunner(schedule, quiesce_timeout=60).run(workload)
+    assert result.ok, (result.workload_error, result.invariants.violations)
+    lose = next(e for e in result.events_applied if e["kind"] == "lose_objects")
+    assert lose["lost"] > 0 and seen == {"tiers": {"device"}, "cuda": True, "equal": True}

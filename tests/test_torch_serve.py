@@ -117,6 +117,37 @@ def _both(scenario, *args, params=None, num_cpus=8, system_config=None):
     return outs["ray_tpu_torch"]
 
 
+def reap_jax_serve_watchers(timeout=40.0):
+    """Wait out the JAX package's router watchers, then shut down any
+    runtime one of them started. Its ``serve.shutdown()`` leaves each
+    ``serve-watch-*`` thread to notice the dead controller (~1.5 s), and a
+    watcher whose ``ray_tpu.get`` comes after the runtime is gone starts a
+    new one (``ray_tpu/api.py:187-195``), which makes every later
+    ``ray_tpu.init()`` in the process raise (ROADMAP F6). The port's
+    ``serve.shutdown()`` joins its own watchers."""
+    deadline = time.monotonic() + timeout
+    for t in threading.enumerate():
+        if t.name.startswith("serve-watch-"):
+            t.join(max(0.0, deadline - time.monotonic()))
+    _pkg("ray_tpu").shutdown()  # a no-op unless a watcher started a runtime
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _no_jax_runtime_left_behind():
+    """After the file, wait the watchers out (each may sit in its 30 s long
+    poll), so none reaches the next file."""
+    yield
+    reap_jax_serve_watchers()
+
+
+@pytest.fixture(autouse=True)
+def _no_jax_runtime_between_tests():
+    """After each test, shut down a runtime a watcher started while the
+    port's side ran."""
+    yield
+    reap_jax_serve_watchers(timeout=0.0)
+
+
 def _http(url, body=None, headers=None, timeout=60):
     req = urllib.request.Request(
         url, data=json.dumps(body).encode() if body is not None else None,
