@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases build,runtime   # the host runtime and the GPU actor
     python3 chip_smoke.py --phases build,serve     # the Serve runtime: replicas, proxy, dispatcher
     python3 chip_smoke.py --phases build,chaos     # ActorPool, Queue, placement groups, chaos schedules
+    python3 chip_smoke.py --phases build,data      # batch inference, the train on-ramp, the host pipeline
     python3 chip_smoke.py --phases build,profile   # one profiled train step (not in the default run)
     python3 chip_smoke.py --phases build,parallel  # the parallel layer, ranks sharing the card
     python3 chip_smoke.py --phases build,tp_serve  # the tensor-parallel engine on 2 ranks
@@ -151,7 +152,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
    engine's, invariant 7 holds, K1 and K6 launch. (e) after the last
    ``shutdown``: no new CUDA storage of 1 MiB or more, no worker process,
    no failpoint armed.
-4g. ``tp_serve`` — the tensor-parallel engine (``LLMEngine(mesh=)``) on the
+4g. ``data`` — the data library (``ray_tpu_torch.data``) on the card: (a)
+   ``from_items`` of 64 seeded prompts of 64 tokens in 4 blocks, then
+   ``map_batches(LLMPredictor, fn_constructor_args=(factory,), batch_size=16,
+   concurrency=2, num_gpus=0.5)`` on the serving decoder in bf16 (32 new
+   tokens, greedy), float then ``quantize=True``: the two in-process GPU
+   actors find one cached engine (the factory is one object), warmed
+   before; every row's tokens equal a direct ``LLMEngine`` (the same
+   kwargs) fed all 64 prompts at once; K1 16 a decode step, K6 96 a forward
+   on the tensor cores; rows/s, tokens/s and the engine's TTFT sketch
+   beside the direct burst's. After ``clear_engine_cache()`` and
+   ``shutdown``: no engine, engine thread, actor or worker, and
+   ``memory_allocated`` back within the runtime phase's slack. (b) a seeded
+   ``int32[30, 2048]`` token table through ``from_numpy``,
+   ``random_shuffle`` and ``iter_device_batches(batch_size=6, dtypes=int64,
+   device="cuda")`` into the 602M train step (the train phase's config) for
+   5 steps: each batch bitwise equal to the host ``iter_batches`` rows, each
+   loss bitwise equal to the same step given the host tensor directly from
+   a copy of the same state (deterministic algorithms on), K3/K4/K5 16/8/8 a
+   step on the tensor cores; the iterator's ms a batch beside the step's.
+   (c) ``range(16_777_216, parallelism=16)`` with a seeded int64 key column
+   (256 MiB), then ``random_shuffle``, ``sort``, ``groupby(key % 1024).sum()``
+   and ``write_numpy`` / ``read_numpy`` through a temporary directory: the
+   multiset, the order and the sums equal numpy's, blocks reach the workers
+   through the shm arena; rows/s an operation and the peak resident size.
+4h. ``tp_serve`` — the tensor-parallel engine (``LLMEngine(mesh=)``) on the
    serving decoder at full width, ``{"tp": 2}``: two rank processes share
    ``cuda:0`` over gloo (``run_ranks``), rank 0 drives and rank 1
    ``follow()``s. (a) f32 with TF32 off: a prefill of the first prompt
@@ -228,7 +253,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    losses must stray from one device's by more than ``LOSS_RTOL``.
 12. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
    replaces, launches in the main-path runs (engine, server, disagg,
-   runtime, serve, chaos, tp_serve, train, moe_engine, vit_train, parallel) in all and by phase, max
+   runtime, serve, chaos, data, tp_serve, train, moe_engine, vit_train, parallel) in all and by phase, max
    error, device ms, plain ms, bound ms and what bounds it, library ms;
    K1/K2 also the event floor and each timed shape; K3/K4/K5 also the parallel phase's
    shard shapes (``parallel_<shape>_*``).
@@ -262,7 +287,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 PHASES = ("build", "kernels", "forward_parity", "engine", "server", "disagg", "runtime",
-          "serve", "chaos", "tp_serve", "train_parity",
+          "serve", "chaos", "data", "tp_serve", "train_parity",
           "train", "moe_parity", "moe_engine", "vit_train", "dit", "parallel")
 OPTIONAL_PHASES = ("profile",)
 
@@ -1869,14 +1894,15 @@ def live_cuda_tensors(torch, min_bytes: int = 1 << 20) -> list:
 @contextlib.contextmanager
 def encoded_as():
     """The kinds of the values this process encodes for process workers
-    while inside (``ShmRef``: through the native shm arena)."""
+    while inside (``ShmRef``: through the native shm arena); of a dict, the
+    kinds of its values (a data block's columns)."""
     from ray_tpu_torch.runtime import protocol
 
     kinds, real = [], protocol.encode_value
 
     def spy(value, shm_store, id_factory):
         out = real(value, shm_store, id_factory)
-        kinds.append(type(out).__name__)
+        kinds.extend(type(v).__name__ for v in (out.values() if isinstance(out, dict) else [out]))
         return out
 
     protocol.encode_value = spy
@@ -3033,6 +3059,389 @@ def run_chaos(torch, cfg, params, kernels_of: dict, card: str) -> dict:
     return rep
 
 
+DATA_PROMPTS = 64
+DATA_PROMPT_LEN = 64
+DATA_MAX_TOKENS = 32
+DATA_BATCH = 16
+DATA_SEED = 14
+DATA_ENGINE_KW = {"max_batch_size": 32, "max_seq_len": 128, "kv_block_size": 16,
+                  "cache_kind": "paged"}
+DATA_TABLE = (30, 2048)  # part (b): the token table, 5 batches of run_train's [6, 2048]
+DATA_ROWS = 16_777_216  # part (c): two int64 columns, 256 MiB
+DATA_PARALLELISM = 16
+DATA_GROUPS = 1024
+
+
+def data_prompts(cfg):
+    import numpy as np
+
+    rng = np.random.default_rng(DATA_SEED)
+    return rng.integers(1, cfg.vocab_size - 1, (DATA_PROMPTS, DATA_PROMPT_LEN)).tolist()
+
+
+def data_direct_burst(torch, cfg, params, prompts, quantize: bool) -> dict:
+    """A direct ``LLMEngine`` with the predictor's engine kwargs, warmed, fed
+    every prompt at once: the tokens the map is held to, and its numbers."""
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    eng = LLMEngine(cfg, params, device="cuda", quantize=quantize, **DATA_ENGINE_KW)
+    try:
+        eng.generate([5] * DATA_PROMPT_LEN, max_tokens=2)  # cuBLAS handles, kernel load
+        torch.cuda.synchronize()
+        before = engine_sketches(eng)
+        t0 = time.perf_counter()
+        futures = [eng.submit(p, max_tokens=DATA_MAX_TOKENS) for p in prompts]
+        tokens = [f.result(timeout=600) for f in futures]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        ttft = sketch_delta(before["ttft"], engine_sketches(eng)["ttft"])
+    finally:
+        eng.shutdown()
+    n_tok = sum(len(t) for t in tokens)
+    return {"tokens": tokens, "wall_s": wall, "rows_per_s": len(prompts) / wall,
+            "tokens_per_s": n_tok / wall, "ttft_s": ttft}
+
+
+def data_inference(torch, rt, cfg, params, kernels_of: dict, quantize: bool) -> dict:
+    """(a), one dtype: ``map_batches(LLMPredictor, ...)`` over the seeded
+    prompts on two in-process GPU actors of half the card each, against a
+    direct engine's burst; K1 (and K6) zeroed just before the map and read
+    just after."""
+    from ray_tpu_torch.data import LLMPredictor, llm_inference
+    from ray_tpu_torch.runtime.control import ActorState
+
+    prompts = data_prompts(cfg)
+    direct = data_direct_burst(torch, cfg, params, prompts, quantize)
+    torch.cuda.empty_cache()
+    names = ["paged_decode_attention"] + (["int8_matmul"] if quantize else [])
+    counters = {n: kernels_of[n] for n in names}
+    factory = lambda: (cfg, params)  # noqa: E731 - one object: the actors share its engine
+    kw = {"max_tokens": DATA_MAX_TOKENS, "device": "cuda", "quantize": quantize, **DATA_ENGINE_KW}
+    # build and warm the cached engine the map's in-process actors will find
+    warm = LLMPredictor(factory, **kw)
+    warm.engine.generate([5] * DATA_PROMPT_LEN, max_tokens=2)
+    torch.cuda.synchronize()
+    before = engine_sketches(warm.engine)
+    del warm
+    ds = rt.data.from_items([{"prompt": p} for p in prompts], parallelism=DATA_PROMPTS // DATA_BATCH)
+    actors0 = set(rt.get_cluster().control.actors._actors)
+    with decode_steps_by_role() as steps:
+        zero_counters(counters)
+        t0 = time.perf_counter()
+        rows = ds.map_batches(LLMPredictor, fn_constructor_args=(factory,),
+                              fn_constructor_kwargs=kw, batch_size=DATA_BATCH, concurrency=2,
+                              num_gpus=0.5).take_all()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, by_route = read_counters(counters)
+    engines = [e for _, e, _ in llm_inference._engine_cache.values()]
+    ttft = sketch_delta(before["ttft"], engine_sketches(engines[0])["ttft"])
+    workers = [a for aid, a in rt.get_cluster().control.actors._actors.items()
+               if aid not in actors0]
+    what = f"(a) {'int8 ' if quantize else ''}map_batches(LLMPredictor)"
+    got = {tuple(int(t) for t in r["prompt"]): [int(t) for t in r["generated"]] for r in rows}
+    if len(rows) != len(prompts) or [got.get(tuple(p)) for p in prompts] != direct["tokens"]:
+        raise AssertionError(f"{what}: tokens differ from a direct engine's")
+    if len(engines) != 1 or len(workers) != 2 or any(
+            a.state != ActorState.DEAD for a in workers):
+        raise AssertionError(f"{what}: {len(engines)} engines for the two actors, actors "
+                             f"{[(a.class_name, a.state) for a in workers]}")
+    n_steps = steps.get("", 0)
+    if launches["paged_decode_attention"] != cfg.n_layers * n_steps or n_steps < DATA_MAX_TOKENS - 1:
+        raise AssertionError(f"{what}: K1 {launches} over {n_steps} decode steps, want "
+                             f"{cfg.n_layers} a step")
+    per_forward = k6_per_layer(cfg) * cfg.n_layers
+    if quantize and (launches["int8_matmul"] % per_forward
+                     or launches["int8_matmul"] < per_forward * n_steps
+                     or by_route["int8_matmul"] != {"mma_bf16": launches["int8_matmul"],
+                                                    "simt": 0}):
+        raise AssertionError(f"{what}: K6 {launches} {by_route}, want {per_forward} a forward "
+                             "on the tensor cores")
+    llm_inference.clear_engine_cache()
+    del engines
+    n_tok = sum(len(t) for t in direct["tokens"])
+    return {
+        "quantize": quantize, "rows": len(prompts), "prompt_len": DATA_PROMPT_LEN,
+        "max_tokens": DATA_MAX_TOKENS, "batch_size": DATA_BATCH, "actors": 2,
+        "num_gpus_each": 0.5, "engines_on_card": 1, "tokens_equal_direct": True,
+        "decode_steps": n_steps, "launches": launches, "launches_by_route": by_route,
+        "k1_per_decode_step": launches["paged_decode_attention"] / n_steps,
+        **({"k6_forwards": launches["int8_matmul"] // per_forward} if quantize else {}),
+        "map_wall_s": wall, "rows_per_s_map": len(prompts) / wall,
+        "tokens_per_s_map": n_tok / wall, "ttft_s_map": ttft,
+        "direct_wall_s": direct["wall_s"], "rows_per_s_direct": direct["rows_per_s"],
+        "tokens_per_s_direct": direct["tokens_per_s"], "ttft_s_direct": direct["ttft_s"],
+        "map_over_direct_tokens_per_s": (n_tok / wall) / direct["tokens_per_s"],
+    }
+
+
+def run_data_inference(torch, cfg, params, kernels_of: dict, card: str):
+    """(a): batch inference float then int8 on one runtime; after
+    ``clear_engine_cache()`` and ``shutdown`` no engine, actor or worker is
+    left and ``memory_allocated`` is back (within the engine threads'
+    cuBLAS workspaces). Yields one report a dtype, then the teardown's."""
+    import gc
+
+    import ray_tpu_torch as rt
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    rt.init(num_cpus=8)
+    try:
+        if rt.cluster_resources().get("GPU") != 1:
+            raise AssertionError(f"init on the card: {rt.cluster_resources()}")
+        for quantize in (False, True):
+            rep = data_inference(torch, rt, cfg, params, kernels_of, quantize)
+            yield {"part": "a_batch_inference", "card": card, **rep}
+    finally:
+        rt.shutdown()
+    from ray_tpu_torch.data import llm_inference
+
+    t0 = time.perf_counter()
+    while True:
+        gc.collect()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - mem0
+        threads = [t.name for t in threading.enumerate() if t.name == "llm-engine"]
+        left = worker_processes()
+        if (held <= RUNTIME_MEMORY_SLACK and not threads and not left) \
+                or time.perf_counter() - t0 > SERVE_TEARDOWN_WAIT_S:
+            break
+        time.sleep(0.1)
+    if llm_inference._engine_cache or threads or left or held > RUNTIME_MEMORY_SLACK \
+            or rt.is_initialized():
+        raise AssertionError(f"(a) after clear_engine_cache and shutdown: "
+                             f"{len(llm_inference._engine_cache)} cached engines, threads "
+                             f"{threads}, workers {left}, {held} device bytes held by "
+                             f"{live_cuda_tensors(torch)}")
+    yield {"part": "a_teardown", "card": card, "engines_left": 0, "engine_threads_left": 0,
+           "workers_left": 0, "memory_allocated_delta_bytes": held,
+           "teardown_s": time.perf_counter() - t0}
+
+
+def data_on_ramp(torch, kernels_of: dict, card: str) -> dict:
+    """(b): a seeded token table through ``from_numpy``, ``random_shuffle``
+    and ``iter_device_batches`` into the 602M train step for 5 steps. Each
+    device batch equals the host ``iter_batches`` rows bitwise; each step's
+    loss equals the same step given the same tensor directly, from the same
+    state (deterministic algorithms on for both); K3/K4/K5 launches a step
+    on the tensor cores."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.models.transformer import init_params, make_train_step, new_train_state
+    from ray_tpu_torch.parallel.pipeline import tree_map
+
+    cfg = train_config(torch)
+    attention = {n: kernels_of[n] for n in ("flash_attention_forward",
+                                            "flash_attention_backward_dq",
+                                            "flash_attention_backward_dkv")}
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    _, train_step = make_train_step(cfg, device="cuda")
+    state = new_train_state(params)
+    del params
+    table = np.random.default_rng(DATA_SEED).integers(0, cfg.vocab_size, DATA_TABLE,
+                                                      dtype=np.int32)
+    L = cfg.n_layers
+    want_routes = {"flash_attention_forward": {"wgmma_bf16": 2 * L, "simt_f32": 0},
+                   "flash_attention_backward_dq": {"wgmma_bf16": L, "simt_f32": 0},
+                   "flash_attention_backward_dkv": {"wgmma_bf16": L, "simt_f32": 0}}
+    losses, direct_losses, iter_ms, step_ms, launches, routes = [], [], [], [], [], []
+    rt.init(num_cpus=8)
+    torch.use_deterministic_algorithms(True)
+    try:
+        ds = rt.data.from_numpy(table).random_shuffle(seed=DATA_SEED).materialize()
+        host = [b["data"] for b in ds.iter_batches(batch_size=6, drop_last=True)]
+        it = ds.iter_device_batches(batch_size=6, dtypes={"data": torch.int64}, device="cuda",
+                                    drop_last=True)
+        for i in range(len(host)):
+            t0 = time.perf_counter()
+            batch = next(it)["data"]
+            torch.cuda.synchronize()
+            iter_ms.append((time.perf_counter() - t0) * 1e3)
+            direct = torch.from_numpy(host[i]).to("cuda").long()
+            if batch.device.type != "cuda" or batch.dtype != torch.int64 \
+                    or not torch.equal(batch, direct):
+                raise AssertionError(f"(b) batch {i}: {batch.dtype} on {batch.device} differs "
+                                     "from the host iter_batches rows")
+            snapshot = tree_map(torch.clone, state)
+            zero_counters(attention)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, loss = train_step(state, batch)
+            e1.record()
+            torch.cuda.synchronize()
+            n, by_route = read_counters(attention)
+            if by_route != want_routes or n["flash_attention_backward_dq"] != L:
+                raise AssertionError(f"(b) step {i + 1}: launches {n}, routes {by_route}")
+            snapshot, loss_direct = train_step(snapshot, direct)
+            if not torch.equal(loss, loss_direct):
+                raise AssertionError(f"(b) step {i + 1}: loss {float(loss)!r} from the "
+                                     f"iterator, {float(loss_direct)!r} given the tensor")
+            del snapshot
+            losses.append(float(loss))
+            direct_losses.append(float(loss_direct))
+            step_ms.append(e0.elapsed_time(e1))
+            launches.append(n)
+            routes.append(by_route)
+        if next(it, None) is not None:
+            raise AssertionError("(b) the iterator yielded more than its 5 batches")
+    finally:
+        torch.use_deterministic_algorithms(False)
+        rt.shutdown()
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"(b) losses {losses}")
+    del state
+    torch.cuda.empty_cache()
+    return {"part": "b_on_ramp", "card": card, "table": list(DATA_TABLE), "batch": 6,
+            "steps": len(losses), "losses": losses, "losses_bitwise_equal_direct": True,
+            "batches_bitwise_equal_host": True, "iter_ms": iter_ms,
+            "iter_ms_median": statistics.median(iter_ms), "step_ms": step_ms,
+            "step_ms_median": statistics.median(step_ms),
+            "iter_over_step": statistics.median(iter_ms) / statistics.median(step_ms),
+            "launches_per_step": launches, "launches_by_route_per_step": routes}
+
+
+def data_key_column(ids, seed: int):
+    """The pipeline's seeded second column: a 64-bit mix of the row id
+    (splitmix64), kept to 31 bits so sums stay exact in int64."""
+    import numpy as np
+
+    z = ids.astype(np.uint64) + np.uint64(seed * 0x9E3779B97F4A7C15 % (1 << 64))
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    z = z ^ (z >> np.uint64(31))
+    return (z >> np.uint64(33)).astype(np.int64)
+
+
+@contextlib.contextmanager
+def peak_rss(interval_s: float = 0.05):
+    """The largest resident size (bytes) this process and its workers held
+    together while inside, sampled every ``interval_s``, and the size on
+    entry (``before_bytes``). Pages of the shm arena count once in each
+    process that maps them."""
+    page = os.sysconf("SC_PAGE_SIZE")
+
+    def rss(pid) -> int:
+        try:
+            with open(f"/proc/{pid}/statm") as f:
+                return int(f.read().split()[1]) * page
+        except OSError:
+            return 0
+
+    def total() -> int:
+        return rss(os.getpid()) + sum(rss(p) for p in worker_processes())
+
+    peak, stop = {"bytes": total()}, threading.Event()
+    peak["before_bytes"] = peak["bytes"]
+
+    def sample():
+        while not stop.wait(interval_s):
+            peak["bytes"] = max(peak["bytes"], total())
+
+    thread = threading.Thread(target=sample, daemon=True)
+    thread.start()
+    try:
+        yield peak
+    finally:
+        stop.set()
+        thread.join()
+
+
+def data_host_pipeline(rt, rows: int, card: str) -> dict:
+    """(c): ``range(rows, parallelism=16)`` with a seeded int64 key column,
+    then ``random_shuffle``, ``sort``, ``groupby(key % 1024).sum()`` and
+    ``write_numpy`` / ``read_numpy`` through a temporary directory: the
+    multiset, the order and the sums against numpy's; blocks reach the
+    workers through the shm arena. One operator's output is held at a
+    time."""
+    import numpy as np
+
+    rd = rt.data
+    native = native_tier(rt)
+    ids = np.arange(rows, dtype=np.int64)
+    keys = data_key_column(ids, DATA_SEED)
+    seed = DATA_SEED
+
+    def with_key(b):
+        return {"id": b["id"], "key": data_key_column(b["id"], seed)}
+
+    base = rd.range(rows, parallelism=DATA_PARALLELISM).map_batches(with_key)
+    rate, wall = {}, {}
+
+    def timed(name, run):
+        t0 = time.perf_counter()
+        out = run()
+        wall[name] = time.perf_counter() - t0
+        rate[name] = rows / wall[name]
+        return out
+
+    def columns(mat):
+        blocks = [rt.get(r) for r in mat.get_internal_block_refs()]
+        return (np.concatenate([b["id"] for b in blocks if len(b.get("id", ()))]),
+                np.concatenate([b["key"] for b in blocks if len(b.get("key", ()))]))
+
+    with encoded_as() as kinds, peak_rss() as peak:
+        mat = timed("materialize", base.materialize)
+        got_id, got_key = columns(mat)  # blocks in completion order
+        order = np.argsort(got_id, kind="stable")
+        if not (np.array_equal(got_id[order], ids) and np.array_equal(got_key[order], keys)):
+            raise AssertionError("(c) range + key column differ from numpy's")
+        del got_id, got_key, order
+        shuffled = timed("random_shuffle", mat.random_shuffle(seed=seed).materialize)
+        s_id, s_key = columns(shuffled)
+        order = np.argsort(s_id, kind="stable")
+        if np.array_equal(s_id, ids) or not (np.array_equal(s_id[order], ids)
+                                             and np.array_equal(s_key[order], keys)):
+            raise AssertionError("(c) random_shuffle: not a permutation of the rows")
+        del shuffled, s_id, s_key, order
+        by_key = timed("sort", mat.sort("key").materialize)
+        k_id, k_key = columns(by_key)
+        if not (np.array_equal(k_key, np.sort(keys)) and np.array_equal(keys[k_id], k_key)
+                and np.array_equal(np.sort(k_id), ids)):
+            raise AssertionError("(c) sort: keys out of order or rows lost")
+        del by_key, k_id, k_key
+        groups = timed("groupby_sum", lambda: mat.map_batches(
+            lambda b: {"g": b["key"] % DATA_GROUPS, "key": b["key"]}).groupby("g").sum(
+            "key").take_all())
+        # float64 sums are exact here: each is below 2**24 * 2**31 < 2**53
+        want = np.bincount(keys % DATA_GROUPS, weights=keys, minlength=DATA_GROUPS)
+        got = {int(r["g"]): int(r["sum(key)"]) for r in groups}
+        if got != {g: int(want[g]) for g in range(DATA_GROUPS)}:
+            raise AssertionError("(c) groupby(key % 1024).sum(): sums differ from numpy's")
+        with tempfile.TemporaryDirectory() as tmp:
+            timed("write_numpy", lambda: mat.write_numpy(tmp, column="key"))
+            files = sorted(os.listdir(tmp))
+            back = timed("read_numpy", lambda: rd.read_numpy(tmp).materialize())
+            blocks = [rt.get(r) for r in back.get_internal_block_refs()]
+            read = np.concatenate([b["data"] for b in blocks if len(b.get("data", ()))])
+            if not np.array_equal(np.sort(read), np.sort(keys)) or read.shape != keys.shape:
+                raise AssertionError("(c) write_numpy / read_numpy: the key column differs")
+            del back, blocks, read
+        del mat
+    if "ShmRef" not in kinds:
+        raise AssertionError(f"(c) no block reached a worker through the shm arena: {set(kinds)}")
+    return {"part": "c_host_pipeline", "card": card, "rows": rows,
+            "parallelism": DATA_PARALLELISM, "columns": ["id int64", "key int64"],
+            "bytes": rows * 16, "groups": DATA_GROUPS, "cut_from_rows": (
+                DATA_ROWS if rows != DATA_ROWS else None),
+            "rows_per_s": rate, "wall_s": wall, "files_written": len(files),
+            "shm_refs_sent": kinds.count("ShmRef"), "native": native,
+            "peak_rss_gib_driver_and_workers": peak["bytes"] / 2**30,
+            "rss_gib_driver_and_workers_before": peak["before_bytes"] / 2**30,
+            "multiset_order_sums_equal_numpy": True}
+
+
+def run_data_pipeline(torch, card: str, rows: int = DATA_ROWS) -> dict:
+    import ray_tpu_torch as rt
+
+    rt.init(num_cpus=8)
+    try:
+        return data_host_pipeline(rt, rows, card)
+    finally:
+        rt.shutdown()
+
+
 def train_config(torch):
     from ray_tpu_torch.models.transformer import TransformerConfig
 
@@ -4100,7 +4509,8 @@ def main(argv=None) -> int:
             for r, x in per.items():
                 by_route.setdefault(name, {}).setdefault(r, 0)
                 by_route[name][r] += x
-    if phases & {"forward_parity", "engine", "server", "disagg", "runtime", "serve", "chaos"}:
+    if phases & {"forward_parity", "engine", "server", "disagg", "runtime", "serve", "chaos",
+                  "data"}:
         cfg = serving_config(torch)
         from ray_tpu_torch.models.transformer import init_params
 
@@ -4161,8 +4571,20 @@ def main(argv=None) -> int:
             rep = run_chaos(torch, cfg, params, kernels_of, card)
             emit({"phase": "chaos", "ok": True, **rep})
             count("chaos", rep["launches"], rep["launches_by_route"])
+        if "data" in phases:
+            torch.cuda.empty_cache()
+            for rep in run_data_inference(torch, cfg, params, kernels_of, card):
+                emit({"phase": "data", "ok": True, **rep})
+                if "launches" in rep:
+                    count("data", rep["launches"], rep["launches_by_route"])
         del params
         torch.cuda.empty_cache()
+    if "data" in phases:
+        rep = data_on_ramp(torch, kernels_of, card)
+        emit({"phase": "data", "ok": True, **rep})
+        for n, routes in zip(rep["launches_per_step"], rep["launches_by_route_per_step"]):
+            count("data", n, routes)
+        emit({"phase": "data", "ok": True, **run_data_pipeline(torch, card)})
     if "tp_serve" in phases:
         for rep in run_tp_serve(torch, card):
             emit({"phase": "tp_serve", "ok": True, **rep})

@@ -122,6 +122,22 @@ __all__ = [
 ]
 
 
+_LAZY_SUBMODULES = (
+    "accelerators", "chaos", "data", "experimental", "models", "ops", "parallel",
+    "serve", "train", "util",
+)
+
+
+def __getattr__(name: str):
+    # `import ray_tpu_torch as rt; rt.data.range(...)` works without paying
+    # every library's import cost at package import, as in the JAX package
+    if name in _LAZY_SUBMODULES:
+        import importlib
+
+        return importlib.import_module(f"ray_tpu_torch.{name}")
+    raise AttributeError(f"module 'ray_tpu_torch' has no attribute {name!r}")
+
+
 def get_gpu_ids() -> list:
     """The CUDA device indices visible to this process (empty in a worker
     process, which hides the card)."""

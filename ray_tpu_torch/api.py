@@ -153,6 +153,11 @@ def shutdown() -> None:
     with _init_lock:
         if _cluster is None:
             return
+        data_iterator = sys.modules.get("ray_tpu_torch.data.iterator")
+        if data_iterator is not None:
+            # the data library's pumps call get(): stop them while the
+            # runtime is up, or a late get() would start a new one
+            data_iterator.stop_pumps()
         try:
             _cluster.shutdown()
         finally:

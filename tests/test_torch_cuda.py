@@ -1106,3 +1106,61 @@ def test_lose_objects_rebuilds_device_tier_objects_bitwise(runtime):
     assert result.ok, (result.workload_error, result.invariants.violations)
     lose = next(e for e in result.events_applied if e["kind"] == "lose_objects")
     assert lose["lost"] > 0 and seen == {"tiers": {"device"}, "cuda": True, "equal": True}
+
+
+# --------------------------------------------------------------------------
+# the data library on the card (ray_tpu_torch.data)
+# --------------------------------------------------------------------------
+def test_data_llm_predictor_map_runs_on_cuda_and_matches_one_engine(runtime):
+    """``map_batches(LLMPredictor, num_gpus=0.5)``: two in-process GPU actors
+    share one cached engine on ``cuda:0`` (their factory is one object), and
+    every row's greedy tokens equal one engine fed the same prompts."""
+    from ray_tpu_torch.data import LLMPredictor, llm_inference
+    from ray_tpu_torch.models.transformer import TransformerConfig, init_params
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    cfg = TransformerConfig(vocab_size=97, d_model=128, n_layers=2, n_heads=2, n_kv_heads=1,
+                            d_ff=256, dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(5))
+    prompts = [[(3 * i + j) % 90 + 1 for j in range(12)] for i in range(8)]
+    kw = {"max_batch_size": 8, "max_seq_len": 64, "cache_kind": "paged"}
+    eng = LLMEngine(cfg, params, device="cuda", **kw)
+    try:
+        want = [f.result(timeout=120) for f in [eng.submit(p, max_tokens=6) for p in prompts]]
+    finally:
+        eng.shutdown()
+    runtime.init(num_cpus=4)
+    factory = lambda: (cfg, params)  # noqa: E731
+    k1 = tdec.paged_decode_attention.launches
+    try:
+        rows = runtime.data.from_items([{"prompt": p} for p in prompts], parallelism=4).map_batches(
+            LLMPredictor, fn_constructor_args=(factory,),
+            fn_constructor_kwargs={"max_tokens": 6, **kw}, batch_size=2, concurrency=2,
+            num_gpus=0.5).take_all()
+        engines = [e for _, e, _ in llm_inference._engine_cache.values()]
+        assert len(engines) == 1 and engines[0].device == torch.device("cuda")
+        assert engines[0].params["embed"].is_cuda
+    finally:
+        llm_inference.clear_engine_cache()
+    got = {tuple(int(t) for t in r["prompt"]): [int(t) for t in r["generated"]] for r in rows}
+    assert [got[tuple(p)] for p in prompts] == want
+    assert tdec.paged_decode_attention.launches > k1
+
+
+def test_data_iter_device_batches_land_on_cuda(runtime):
+    """``iter_device_batches`` with no device lands on ``cuda:0``, cast as
+    named, bitwise the host batches; an object column stays on the host."""
+    import numpy as np
+
+    runtime.init(num_cpus=2)
+    table = np.random.default_rng(0).integers(0, 32000, (30, 64), dtype=np.int32)
+    ds = runtime.data.from_numpy(table).random_shuffle(seed=1).materialize()
+    host = list(ds.iter_batches(batch_size=6, drop_last=True))
+    dev = list(ds.iter_device_batches(batch_size=6, dtypes={"data": torch.int64}))
+    assert len(dev) == len(host) == 5
+    for h, d in zip(host, dev):
+        assert d["data"].device == torch.device("cuda", 0) and d["data"].dtype == torch.int64
+        assert torch.equal(d["data"].cpu(), torch.from_numpy(h["data"]).long())
+    objs = runtime.data.from_items([{"s": {"k": i}, "v": i} for i in range(4)])
+    batch = next(objs.iter_device_batches(batch_size=4))
+    assert batch["v"].is_cuda and batch["s"].dtype == object

@@ -327,20 +327,43 @@ def scenario_placement_group_lookup(rt):
     return out
 
 
+_LOG_ONCE_KEYS = ("tail_key", "periodic_key", "fresh_key")
+
+
+def _log_once_state(misc):
+    return (set(misc._log_once_seen), dict(misc._last_logged), misc._periodic_s,
+            misc._log_once_disabled)
+
+
+def _set_log_once_state(misc, state):
+    seen, last, misc._periodic_s, misc._log_once_disabled = state
+    misc._log_once_seen.clear()
+    misc._log_once_seen.update(seen)
+    misc._last_logged.clear()
+    misc._last_logged.update(last)
+
+
 def scenario_node_ip_and_log_once(rt):
+    """Runs on a fresh key space and leaves the package's log-once state as
+    it found it: the JAX package's own ``test_node_ip_and_log_once`` may
+    run before or after it in the same process, and expects ``tail_key``
+    unseen."""
     util = _mod(rt, "util")
     ip = util.get_node_ip_address()
     misc = _mod(rt, "util.misc")
-    out = {"dotted_quad": bool(re.fullmatch(r"\d+\.\d+\.\d+\.\d+", ip)),
-           "first": util.log_once("tail_key"), "again": util.log_once("tail_key")}
-    saved = misc._periodic_s, misc._log_once_disabled
+    saved = _log_once_state(misc)
+    seen, last = saved[0] - set(_LOG_ONCE_KEYS), {
+        k: t for k, t in saved[1].items() if k not in _LOG_ONCE_KEYS}
+    _set_log_once_state(misc, (seen, last, 0.0, False))
     try:
+        out = {"dotted_quad": bool(re.fullmatch(r"\d+\.\d+\.\d+\.\d+", ip)),
+               "first": util.log_once("tail_key"), "again": util.log_once("tail_key")}
         util.enable_periodic_logging(1e-9)
         out["periodic"] = [util.log_once("periodic_key"), util.log_once("periodic_key")]
         util.disable_log_once_globally()
         out["disabled"] = util.log_once("fresh_key")
     finally:
-        misc._periodic_s, misc._log_once_disabled = saved
+        _set_log_once_state(misc, saved)
     port = misc.free_port()
     sock = misc.reserve_port()
     out["ports"] = [0 < port < 65536, sock.getsockname()[1] > 0]
@@ -363,6 +386,23 @@ def scenario_pdb_shim(rt):
 ], ids=lambda f: f.__name__.removeprefix("scenario_"))
 def test_util_tail_matches_jax(scenario):
     _run_both(scenario, init={"num_cpus": 4})
+
+
+def test_log_once_scenario_leaves_both_packages_key_space_as_found():
+    """On a fresh key space the scenario leaves every key unseen in both
+    packages, so a later test's first ``log_once("tail_key")`` is True."""
+    miscs = {name: importlib.import_module(name + ".util.misc") for name in PACKAGES}
+    saved = {name: _log_once_state(m) for name, m in miscs.items()}
+    try:
+        for m in miscs.values():
+            _set_log_once_state(m, (set(), {}, 0.0, False))
+        _run_both(scenario_node_ip_and_log_once, init={"num_cpus": 4})
+        for m in miscs.values():
+            assert _log_once_state(m) == (set(), {}, 0.0, False)
+        assert importlib.import_module("ray_tpu.util").log_once("tail_key")
+    finally:
+        for name, m in miscs.items():
+            _set_log_once_state(m, saved[name])
 
 
 def test_util_tail_outputs_are_what_a_user_expects():
