@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases build,serve     # the Serve runtime: replicas, proxy, dispatcher
     python3 chip_smoke.py --phases build,chaos     # ActorPool, Queue, placement groups, chaos schedules
     python3 chip_smoke.py --phases build,data      # batch inference, the train on-ramp, the host pipeline
+    python3 chip_smoke.py --phases build,dag       # plans, StageGroup gangs, compiled DAGs
     python3 chip_smoke.py --phases build,profile   # one profiled train step (not in the default run)
     python3 chip_smoke.py --phases build,parallel  # the parallel layer, ranks sharing the card
     python3 chip_smoke.py --phases build,tp_serve  # the tensor-parallel engine on 2 ranks
@@ -176,7 +177,39 @@ Phases, each printing one JSON line; any failure exits non-zero:
    and ``write_numpy`` / ``read_numpy`` through a temporary directory: the
    multiset, the order and the sums equal numpy's, blocks reach the workers
    through the shm arena; rows/s an operation and the peak resident size.
-4h. ``tp_serve`` — the tensor-parallel engine (``LLMEngine(mesh=)``) on the
+4h. ``dag`` — the compiled-graph layer (``ray_tpu_torch.dag``) on the card,
+   one ``init(num_cpus=8)``: (a) a plan of three in-process actors, a prompt
+   stage (text to a token tensor on the card), a GPU actor holding the
+   paged ``LLMEngine`` on the serving decoder (``num_gpus=0.5``,
+   ``max_restarts=1``) and a detokenising stage, compiled with
+   ``compile_plan``; 64 prompts of the engine phase's form (64 tokens, 32
+   new, greedy) through ``execute_async``, 8 an iteration (the engine
+   phase's burst), float then ``quantize=True``: tokens equal an instance of
+   the engine class driven directly (a batch a call, as the stage calls it)
+   and the same batches sent by ``.remote()`` to the same actors; zero
+   TaskSpecs over the 8 iterations (the counters
+   ``tests/test_plans.py`` reads); every channel ``device`` in
+   ``snapshot()``; K1 16 a decode step, K6 96 a forward on the tensor
+   cores; requests/s and tokens/s of the plan, ``.remote()`` and direct.
+   (c) under an empty chaos schedule: the float plan's engine actor killed
+   with the next prompt in flight: ``ActorDiedError`` within 120 s, the plan
+   BROKEN, ``repair()`` onto the restarted actor, tokens equal direct; then
+   a fresh engine under ``auto_repair=True``, killed the same way, heals
+   itself; invariant 8 counts 6 legal transitions. (d) a ``matmul → relu``
+   function DAG on bf16 CUDA tensors in the inline walk (``jit``) equal to
+   ``torch.relu(x @ w)`` bitwise, and ``fuse="none"`` over two GPU actors'
+   methods equal to their ``.remote()`` calls, and the same two calls as a
+   plan (ms a call alone and pipelined); after ``shutdown``,
+   ``memory_allocated`` back within the runtime phase's slack. (b) the train
+   phase's 602M decoder (bf16, flash attention): two in-process GPU actors
+   sharing one copy of the weights as ``StageGroup([a, b], "forward",
+   split_axis=0, warmup=((8, 1024), "int32"))`` over the input, 20
+   iterations on seeded ``[8, 1024]`` batches: the assembled logits within
+   atol = rtol = 2e-2 of one module's forward of the whole batch (bitwise
+   printed), no tensor pickled, every channel ``device``, 20 group
+   executions, K3 8 layers x 2 members x 21 (the warm-up included) on
+   ``wgmma_bf16``; ms an iteration beside one module's forward.
+4i. ``tp_serve`` — the tensor-parallel engine (``LLMEngine(mesh=)``) on the
    serving decoder at full width, ``{"tp": 2}``: two rank processes share
    ``cuda:0`` over gloo (``run_ranks``), rank 0 drives and rank 1
    ``follow()``s. (a) f32 with TF32 off: a prefill of the first prompt
@@ -253,7 +286,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    losses must stray from one device's by more than ``LOSS_RTOL``.
 12. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
    replaces, launches in the main-path runs (engine, server, disagg,
-   runtime, serve, chaos, data, tp_serve, train, moe_engine, vit_train, parallel) in all and by phase, max
+   runtime, serve, chaos, data, dag, tp_serve, train, moe_engine, vit_train, parallel) in all and by phase, max
    error, device ms, plain ms, bound ms and what bounds it, library ms;
    K1/K2 also the event floor and each timed shape; K3/K4/K5 also the parallel phase's
    shard shapes (``parallel_<shape>_*``).
@@ -287,7 +320,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 PHASES = ("build", "kernels", "forward_parity", "engine", "server", "disagg", "runtime",
-          "serve", "chaos", "data", "tp_serve", "train_parity",
+          "serve", "chaos", "data", "dag", "tp_serve", "train_parity",
           "train", "moe_parity", "moe_engine", "vit_train", "dit", "parallel")
 OPTIONAL_PHASES = ("profile",)
 
@@ -3442,6 +3475,505 @@ def run_data_pipeline(torch, card: str, rows: int = DATA_ROWS) -> dict:
         rt.shutdown()
 
 
+# ---------------------------------------------------------------------------
+# the compiled-graph layer: plans, StageGroup gangs and compiled DAGs
+# ---------------------------------------------------------------------------
+DAG_PROMPTS = 64  # the engine phase's burst form (burst_prompts), 64 of them
+DAG_BATCH = 8  # prompts an iteration: the engine phase's burst, 8 iterations
+DAG_PROMPT_LEN = 64
+DAG_MAX_TOKENS = 32
+DAG_GANG_BATCH = (8, 1024)
+DAG_GANG_ITERS = 20
+DAG_GANG_SEED = 15
+DAG_TIMEOUT_S = 120.0  # a killed stage's typed error on the output channel within this
+# (d): after teardown and shutdown, memory_allocated within the actor threads'
+# cuBLAS workspaces (the runtime phase's slack)
+DAG_MEMORY_SLACK = RUNTIME_MEMORY_SLACK
+
+
+class DagPrompt:
+    """(a)'s first stage: a batch of prompt texts (token ids, space
+    separated) to one token tensor on the card."""
+
+    def encode(self, texts):
+        import torch
+
+        return torch.tensor([[int(t) for t in text.split()] for text in texts],
+                            dtype=torch.int32, device="cuda")
+
+
+class DagEngine(EngineActor):
+    """(a)'s GPU stage: the runtime phase's engine actor; a call (a plan
+    stage's iteration) submits a batch of prompts at once, as the engine
+    phase's burst does, and returns their tokens as a tensor on the card."""
+
+    def generate_batch(self, tokens):
+        import torch
+
+        out = self.generate(tokens.tolist(), DAG_MAX_TOKENS)
+        return torch.tensor(out, dtype=torch.int32, device=tokens.device)
+
+
+class DagDetok:
+    """(a)'s last stage: the token tensor to each prompt's ids and text."""
+
+    def decode(self, tokens):
+        return [(ids, ToyTokenizer().decode(ids)) for ids in tokens.tolist()]
+
+
+class GangMember:
+    """(b)'s gang member: the 602M decoder's forward on its rows, weights
+    shared with the other member (one copy on the card)."""
+
+    def __init__(self, cfg, params):
+        self.cfg, self.params = cfg, params
+
+    def forward(self, tokens):
+        import torch
+
+        from ray_tpu_torch.models.transformer import forward
+
+        with torch.inference_mode():
+            return forward(self.cfg, self.params, tokens)
+
+
+class DagScale:
+    """(d)'s GPU actors: one elementwise op each on a CUDA tensor."""
+
+    def __init__(self, k: float):
+        self.k = k
+
+    def scale(self, x):
+        return x * self.k
+
+    def shift(self, x):
+        return x + self.k
+
+
+def dag_matmul(x, w):
+    return x @ w
+
+
+def dag_relu(x):
+    import torch
+
+    return torch.relu(x)
+
+
+def zero_taskspec_counters():
+    """The counters ``tests/test_plans.py`` reads for 'zero TaskSpecs':
+    tasks and actor calls submitted, scheduler dispatches."""
+    from ray_tpu_torch.observability import metric_defs as md
+
+    return (md.TASKS_SUBMITTED.series(), md.ACTOR_CALLS_SUBMITTED.series(),
+            md.SCHEDULER_TASKS_DISPATCHED.series())
+
+
+def dag_serving_plan(torch, rt, cfg, params, kernels_of: dict, quantize: bool, card: str):
+    """(a) at one dtype: the three-stage plan over the engine actor, the
+    64 prompts through ``execute_async`` (8 an iteration), against the same
+    batches by ``.remote()`` to the same actors and against an instance of
+    the engine class driven directly, a batch a call each. Returns the
+    report, the plan, its stages, the batches and the direct tokens."""
+    from ray_tpu_torch.dag import InputNode
+
+    prompts = burst_prompts(cfg, DAG_PROMPTS, DAG_PROMPT_LEN)
+    texts = [[" ".join(map(str, p)) for p in prompts[i:i + DAG_BATCH]]
+             for i in range(0, DAG_PROMPTS, DAG_BATCH)]
+    names = ["paged_decode_attention"] + (["int8_matmul"] if quantize else [])
+    counters = {n: kernels_of[n] for n in names}
+    what = f"dag (a) {'int8' if quantize else 'float'}"
+
+    direct = DagEngine(cfg, params, quantize)
+    try:
+        direct.warm(DAG_PROMPT_LEN)
+        t0 = time.perf_counter()
+        want = [direct.generate_batch(DagPrompt().encode(t)).tolist() for t in texts]
+        torch.cuda.synchronize()
+        direct_s = time.perf_counter() - t0
+    finally:
+        direct.close()
+    del direct
+    torch.cuda.empty_cache()
+
+    prompt = rt.remote(DagPrompt).options(execution="inproc").remote()
+    engine = rt.remote(DagEngine).options(num_gpus=0.5, max_restarts=1).remote(
+        cfg, params, quantize)
+    detok = rt.remote(DagDetok).options(execution="inproc").remote()
+    rt.get(engine.warm.remote(DAG_PROMPT_LEN))
+    with InputNode() as inp:
+        graph = detok.decode.bind(engine.generate_batch.bind(prompt.encode.bind(inp)))
+    plan = graph.compile_plan(name=f"serve-{'int8' if quantize else 'float'}")
+    try:
+        snap = plan.snapshot()
+        kinds = sorted(set(snap["channel_kinds"].values()))
+        if kinds != ["device"] or len(snap["channels"]) != 4:
+            raise AssertionError(f"{what}: channels {snap['channel_kinds']}")
+        steps0 = rt.get(engine.decode_steps.remote())
+        before = zero_taskspec_counters()
+        zero_counters(counters)
+        t0 = time.perf_counter()
+        futs = [plan.execute_async(t) for t in texts]
+        got = [f.result(timeout=600) for f in futs]
+        plan_s = time.perf_counter() - t0
+        launches, by_route = read_counters(counters)
+        if zero_taskspec_counters() != before:
+            raise AssertionError(f"{what}: plan.execute created TaskSpecs")
+        steps = rt.get(engine.decode_steps.remote()) - steps0
+        executions = plan.snapshot()["executions"]
+    except BaseException:
+        plan.teardown()
+        raise
+    t0 = time.perf_counter()
+    refs = [detok.decode.remote(engine.generate_batch.remote(prompt.encode.remote(t)))
+            for t in texts]
+    by_remote = rt.get(refs, timeout=600)
+    remote_s = time.perf_counter() - t0
+    if [[ids for ids, _ in batch] for batch in got] != want \
+            or [[ids for ids, _ in batch] for batch in by_remote] != want:
+        raise AssertionError(f"{what}: tokens differ from the direct engine's")
+    if executions != len(texts):
+        raise AssertionError(f"{what}: {executions} plan executions")
+    if launches["paged_decode_attention"] != cfg.n_layers * steps \
+            or steps < (DAG_MAX_TOKENS - 1) * len(texts):
+        raise AssertionError(f"{what}: K1 {launches} over {steps} decode steps, "
+                             f"want {cfg.n_layers} a step")
+    per_forward = k6_per_layer(cfg) * cfg.n_layers
+    if quantize and (launches["int8_matmul"] % per_forward
+                     or launches["int8_matmul"] < per_forward * steps
+                     or by_route["int8_matmul"] != {"mma_bf16": launches["int8_matmul"],
+                                                    "simt": 0}):
+        raise AssertionError(f"{what}: K6 {launches} {by_route}, want {per_forward} "
+                             "a forward on the tensor cores")
+    n_tok = DAG_PROMPTS * DAG_MAX_TOKENS
+    rep = {
+        "part": "a_serving_plan", "card": card, "quantize": quantize, "prompts": DAG_PROMPTS,
+        "prompts_per_iteration": DAG_BATCH, "iterations": len(texts),
+        "prompt_len": DAG_PROMPT_LEN, "max_tokens": DAG_MAX_TOKENS,
+        "tokens_equal_direct": True, "remote_tokens_equal_direct": True,
+        "taskspecs_per_iteration": 0, "channel_kinds": snap["channel_kinds"],
+        "decode_steps": steps, "launches": launches, "launches_by_route": by_route,
+        "k1_per_decode_step": launches["paged_decode_attention"] / steps,
+        **({"k6_forwards": launches["int8_matmul"] // per_forward} if quantize else {}),
+        "requests_per_s": {"plan": DAG_PROMPTS / plan_s, "remote": DAG_PROMPTS / remote_s,
+                           "direct": DAG_PROMPTS / direct_s},
+        "tokens_per_s": {"plan": n_tok / plan_s, "remote": n_tok / remote_s,
+                         "direct": n_tok / direct_s},
+        "plan_over_remote": remote_s / plan_s, "plan_over_direct": direct_s / plan_s,
+        "ms_per_request": {"plan": plan_s / DAG_PROMPTS * 1e3,
+                           "remote": remote_s / DAG_PROMPTS * 1e3,
+                           "direct": direct_s / DAG_PROMPTS * 1e3},
+        "text_sample": got[0][0][1][:16],
+    }
+    return rep, plan, (prompt, engine, detok), texts, want
+
+
+def dag_kill_and_repair(torch, rt, plan, stages, texts, want, auto_repair_plan_of):
+    """(c): the engine stage killed with an iteration in flight: the output
+    gives ``ActorDiedError`` within ``DAG_TIMEOUT_S``, the plan is BROKEN,
+    ``repair()`` reinstalls on the restarted actor and its tokens equal the
+    direct engine's again. Then a fresh engine actor under a plan with
+    ``auto_repair=True``, killed the same way, heals itself. Run under an
+    empty chaos schedule: invariant 8 audits the plans' transitions."""
+    from ray_tpu_torch import chaos
+    from ray_tpu_torch.exceptions import ActorDiedError
+
+    seen = {}
+
+    def tokens_of(batch):
+        return [ids for ids, _ in batch]
+
+    def kill_mid_plan(p, actor, tag):
+        futs = [p.execute_async(t) for t in texts[:3]]
+        futs[0].result(timeout=DAG_TIMEOUT_S)  # the engine stage now holds the next prompt
+        t_kill = time.perf_counter()
+        rt.kill(actor, no_restart=False)  # restartable: the FSM brings it back
+        errors = []
+        for f in futs[1:]:
+            try:
+                f.result(timeout=DAG_TIMEOUT_S)
+            except ActorDiedError as exc:
+                errors.append(type(exc).__name__)
+        seen[f"{tag}_error_s"] = time.perf_counter() - t_kill
+        if not errors:
+            raise AssertionError(f"dag (c) {tag}: no ActorDiedError from the killed stage")
+        seen[f"{tag}_errors"] = errors
+
+    def workload():
+        kill_mid_plan(plan, stages[1], "repair")
+        if plan.state != "BROKEN":
+            raise AssertionError(f"dag (c): plan {plan.state} after the kill")
+        t0 = time.perf_counter()
+        plan.repair(timeout=DAG_TIMEOUT_S)
+        seen["repair_s"] = time.perf_counter() - t0
+        again = tokens_of(plan.execute(texts[0]))
+        if again != want[0] or plan.state_history != ["READY", "BROKEN", "READY"]:
+            raise AssertionError(f"dag (c): after repair {plan.state_history}, tokens equal "
+                                 f"{again == want[0]}")
+        plan.teardown()
+        auto, engine = auto_repair_plan_of()
+        try:
+            if tokens_of(auto.execute(texts[0])) != want[0]:
+                raise AssertionError("dag (c): the auto-repair plan's tokens differ")
+            kill_mid_plan(auto, engine, "auto")
+            t0 = time.perf_counter()
+            while auto.state != "READY" or auto.state_history[-1] != "READY" \
+                    or "BROKEN" not in auto.state_history:
+                if time.perf_counter() - t0 > DAG_TIMEOUT_S:
+                    raise AssertionError(f"dag (c): auto repair stuck at {auto.state_history}")
+                time.sleep(0.05)
+            seen["auto_repair_s"] = time.perf_counter() - t0
+            healed = tokens_of(auto.execute(texts[0]))
+            if healed != want[0]:
+                raise AssertionError("dag (c): tokens after the auto repair differ")
+            seen["auto_history"] = list(auto.state_history)
+        finally:
+            auto.teardown()
+            rt.kill(engine)
+        return []
+
+    schedule = chaos.ChaosSchedule([], seed=0, name="dag-stage-kill-repair")
+    result = chaos.ChaosRunner(schedule, quiesce_timeout=600).run(workload)
+    inv = result.invariants.to_dict() if result.invariants else {}
+    if not result.ok:
+        raise AssertionError(f"dag (c): {result.workload_error!r} {inv.get('violations')}")
+    transitions = inv["checked"]["plan_transitions"]
+    # repair plan READY->BROKEN->READY->TORN_DOWN, auto the same
+    if transitions != 6 or inv["violations"]:
+        raise AssertionError(f"dag (c): invariant 8 counted {transitions} transitions, "
+                             f"violations {inv['violations']}")
+    return {"part": "c_kill_and_repair", "prompts_after_repair": len(texts[0]),
+            "tokens_equal_direct_after_repair": True, "plan_transitions": transitions,
+            "invariant_violations": 0, **seen}
+
+
+def dag_compiled(torch, rt) -> dict:
+    """(d): a pure-function DAG on bf16 CUDA tensors takes the inline walk
+    (``jit``) and equals ``torch.relu(x @ w)`` bitwise; ``fuse="none"`` over
+    two GPU actors' methods equals the same calls by ``.remote()``."""
+    from ray_tpu_torch.dag import InputNode
+
+    g = torch.Generator(device="cuda").manual_seed(16)
+    x = torch.randn(2048, 2048, generator=g, device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(2048, 2048, generator=g, device="cuda", dtype=torch.bfloat16)
+    mm, act = rt.remote(dag_matmul), rt.remote(dag_relu)
+    with InputNode() as inp:
+        graph = act.bind(mm.bind(inp.x, inp.w))
+    compiled = graph.experimental_compile()
+    mode = compiled.mode
+    out = compiled.execute(x=x, w=w)
+    want = torch.relu(x @ w)
+    if mode != "jit" or not out.is_cuda or not torch.equal(out, want):
+        raise AssertionError(f"dag (d): mode {mode}, equal {torch.equal(out, want)}")
+    reps = 50
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        compiled.execute(x=x, w=w)
+    torch.cuda.synchronize()
+    jit_ms = (time.perf_counter() - t0) / reps * 1e3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        torch.relu(x @ w)
+    torch.cuda.synchronize()
+    eager_ms = (time.perf_counter() - t0) / reps * 1e3
+    compiled.teardown()
+
+    a = rt.remote(DagScale).options(num_gpus=0.5).remote(2.0)
+    b = rt.remote(DagScale).options(num_gpus=0.5).remote(1.0)
+    with InputNode() as inp:
+        chain = b.shift.bind(a.scale.bind(inp))
+    direct = chain.experimental_compile(fuse="none")
+    got = direct.execute(x)
+    by_remote = rt.get(b.shift.remote(a.scale.remote(x)))
+    if direct.mode != "direct" or not torch.equal(got, by_remote) or not got.is_cuda:
+        raise AssertionError(f"dag (d): fuse='none' {direct.mode}, equal "
+                             f"{torch.equal(got, by_remote)}")
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        direct.execute(x)
+    torch.cuda.synchronize()
+    direct_ms = (time.perf_counter() - t0) / reps * 1e3
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        rt.get(b.shift.remote(a.scale.remote(x)))
+    torch.cuda.synchronize()
+    remote_ms = (time.perf_counter() - t0) / reps * 1e3
+    direct.teardown()
+    # the same two calls as a plan: what a plan adds to a call (the entry,
+    # the hand-off between the stages and the output channel, two stage
+    # threads woken), alone and with iterations in flight
+    plan = chain.compile_plan(name="two-actors")
+    try:
+        if not torch.equal(plan.execute(x), by_remote):
+            raise AssertionError("dag (d): the plan's result differs from .remote()'s")
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            plan.execute(x)
+        torch.cuda.synchronize()
+        plan_ms = (time.perf_counter() - t0) / reps * 1e3
+        t0 = time.perf_counter()
+        futs = [plan.execute_async(x) for _ in range(reps)]
+        for f in futs:
+            f.result(timeout=60)
+        torch.cuda.synchronize()
+        plan_pipelined_ms = (time.perf_counter() - t0) / reps * 1e3
+    finally:
+        plan.teardown()
+    rt.kill(a)
+    rt.kill(b)
+    return {"part": "d_compiled_dag", "jit_mode": mode, "jit_equal_bitwise": True,
+            "shape": [2048, 2048], "dtype": "bfloat16", "jit_ms": jit_ms,
+            "eager_ms": eager_ms, "direct_mode": "direct", "direct_equal_remote": True,
+            "direct_ms": direct_ms, "remote_ms": remote_ms, "plan_ms": plan_ms,
+            "plan_pipelined_ms": plan_pipelined_ms}
+
+
+def run_dag_serving(torch, cfg, params, kernels_of: dict, card: str):
+    """(a) float and int8, (c) on (a)'s float plan, (d), on one runtime;
+    after ``shutdown`` nothing is left and ``memory_allocated`` is back
+    within ``DAG_MEMORY_SLACK``. Yields one report a part."""
+    import gc
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.dag import InputNode
+
+    torch.cuda.synchronize()
+    mem0 = torch.cuda.memory_allocated()
+    rt.init(num_cpus=8)
+    try:
+        if rt.cluster_resources().get("GPU") != 1:
+            raise AssertionError(f"init on the card: {rt.cluster_resources()}")
+        rep, plan, stages, texts, want = dag_serving_plan(
+            torch, rt, cfg, params, kernels_of, False, card)
+        yield rep
+        try:
+            rep, plan_q, stages_q, _, _ = dag_serving_plan(
+                torch, rt, cfg, params, kernels_of, True, card)
+            plan_q.teardown()
+            for actor in stages_q:
+                rt.kill(actor)
+            yield rep
+
+            def auto_repair_plan():
+                engine = rt.remote(DagEngine).options(num_gpus=0.5, max_restarts=1).remote(
+                    cfg, params, False)
+                rt.get(engine.warm.remote(DAG_PROMPT_LEN))
+                with InputNode() as inp:
+                    graph = stages[2].decode.bind(engine.generate_batch.bind(
+                        stages[0].encode.bind(inp)))
+                return graph.compile_plan(name="serve-auto", auto_repair=True), engine
+
+            rep = dag_kill_and_repair(torch, rt, plan, stages, texts, want, auto_repair_plan)
+            yield {"card": card, **rep}
+        finally:
+            plan.teardown()
+            for actor in stages:
+                rt.kill(actor)
+        yield {"card": card, **dag_compiled(torch, rt)}
+    finally:
+        rt.shutdown()
+    # a plan holds its cluster and its stages' actor instances (engines, the
+    # object store) until it is dropped, torn down or not
+    del plan, stages, plan_q, stages_q
+    t0 = time.perf_counter()
+    while True:
+        gc.collect()
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated() - mem0
+        left = worker_processes()
+        if (held <= DAG_MEMORY_SLACK and not left) \
+                or time.perf_counter() - t0 > SERVE_TEARDOWN_WAIT_S:
+            break
+        time.sleep(0.1)
+    if held > DAG_MEMORY_SLACK or left or rt.is_initialized():
+        raise AssertionError(f"dag after teardown and shutdown: workers {left}, {held} device "
+                             f"bytes held by {live_cuda_tensors(torch)}")
+    yield {"part": "d_teardown", "card": card, "memory_allocated_delta_bytes": held,
+           "memory_slack_bytes": DAG_MEMORY_SLACK, "workers_left": 0,
+           "teardown_s": time.perf_counter() - t0}
+
+
+def run_dag_gang(torch, kernels_of: dict, card: str) -> dict:
+    """(b): two in-process GPU actors sharing one copy of the 602M decoder's
+    weights form a ``StageGroup`` over the input; 20 iterations on seeded
+    ``[8, 1024]`` batches against one module's forward of the whole batch."""
+    from ray_tpu_torch.dag import InputNode, StageGroup
+    from ray_tpu_torch.models.transformer import forward, init_params
+    from ray_tpu_torch.observability import metric_defs
+    from ray_tpu_torch.runtime import device_plane
+
+    import ray_tpu_torch as rt
+
+    cfg = train_config(torch)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    n_params = sum(p.numel() for _, p in named_leaves(params))
+    g = torch.Generator(device="cuda").manual_seed(DAG_GANG_SEED)
+    batches = [torch.randint(0, cfg.vocab_size, DAG_GANG_BATCH, generator=g, device="cuda",
+                             dtype=torch.int32) for _ in range(DAG_GANG_ITERS)]
+    k3 = {"flash_attention_forward": kernels_of["flash_attention_forward"]}
+    rt.init(num_cpus=8)
+    try:
+        members = [rt.remote(GangMember).options(num_gpus=0.5).remote(cfg, params)
+                   for _ in range(2)]
+        gang = StageGroup(members, "forward", split_axis=0,
+                          warmup=(DAG_GANG_BATCH, "int32"))
+        with InputNode() as inp:
+            node = gang.bind(inp)
+        zero_counters(k3)
+        plan = node.compile_plan(name="gang-602m")  # the warm-up runs here
+        try:
+            packed0 = device_plane.stats.arrays_packed
+            execs0 = metric_defs.PLAN_STAGE_GROUP_EXECUTIONS.get()
+            kinds = sorted(set(plan.snapshot()["channel_kinds"].values()))
+            outs, ms = [], []
+            for tokens in batches:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs.append(plan.execute(tokens))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            launches, by_route = read_counters(k3)
+            packed = device_plane.stats.arrays_packed - packed0
+            execs = metric_defs.PLAN_STAGE_GROUP_EXECUTIONS.get() - execs0
+            stages = plan.snapshot()["stages"]
+        finally:
+            plan.teardown()
+        for m in members:
+            rt.kill(m)
+    finally:
+        rt.shutdown()
+    ref_ms, worst, bitwise = [], 0.0, True
+    with torch.inference_mode():
+        for tokens, got in zip(batches, outs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = forward(cfg, params, tokens)
+            torch.cuda.synchronize()
+            ref_ms.append((time.perf_counter() - t0) * 1e3)
+            worst = max(worst, max_err(got, want, 2e-2, 2e-2, "dag (b) gang logits"))
+            bitwise = bitwise and torch.equal(got, want)
+            del want
+    del outs, params
+    torch.cuda.empty_cache()
+    want_k3 = cfg.n_layers * 2 * (DAG_GANG_ITERS + 1)
+    if launches["flash_attention_forward"] != want_k3 \
+            or by_route["flash_attention_forward"].get("wgmma_bf16") != want_k3:
+        raise AssertionError(f"dag (b): K3 {launches} {by_route}, want {want_k3} on wgmma_bf16")
+    if packed or kinds != ["device"] or execs != DAG_GANG_ITERS \
+            or [s["group"] for s in stages] != [2]:
+        raise AssertionError(f"dag (b): {packed} tensors pickled, kinds {kinds}, "
+                             f"{execs} group executions, stages {stages}")
+    return {"part": "b_stage_group", "card": card, "params": n_params,
+            "batch": list(DAG_GANG_BATCH), "iterations": DAG_GANG_ITERS,
+            "members": 2, "logits_max_abs_err": worst, "logits_bitwise": bitwise,
+            "tolerance": {"atol": 2e-2, "rtol": 2e-2}, "arrays_packed": packed,
+            "channel_kinds": kinds, "group_executions": execs,
+            "launches": launches, "launches_by_route": by_route,
+            "ms_per_iteration_median": statistics.median(ms),
+            "one_module_forward_ms_median": statistics.median(ref_ms),
+            "gang_over_one_module": statistics.median(ref_ms) / statistics.median(ms)}
+
 def train_config(torch):
     from ray_tpu_torch.models.transformer import TransformerConfig
 
@@ -4510,7 +5042,7 @@ def main(argv=None) -> int:
                 by_route.setdefault(name, {}).setdefault(r, 0)
                 by_route[name][r] += x
     if phases & {"forward_parity", "engine", "server", "disagg", "runtime", "serve", "chaos",
-                  "data"}:
+                  "data", "dag"}:
         cfg = serving_config(torch)
         from ray_tpu_torch.models.transformer import init_params
 
@@ -4577,6 +5109,13 @@ def main(argv=None) -> int:
                 emit({"phase": "data", "ok": True, **rep})
                 if "launches" in rep:
                     count("data", rep["launches"], rep["launches_by_route"])
+        if "dag" in phases:
+            torch.cuda.empty_cache()
+            t_dag = time.perf_counter()
+            for rep in run_dag_serving(torch, cfg, params, kernels_of, card):
+                emit({"phase": "dag", "ok": True, **rep})
+                if "launches" in rep:
+                    count("dag", rep["launches"], rep["launches_by_route"])
         del params
         torch.cuda.empty_cache()
     if "data" in phases:
@@ -4585,6 +5124,12 @@ def main(argv=None) -> int:
         for n, routes in zip(rep["launches_per_step"], rep["launches_by_route_per_step"]):
             count("data", n, routes)
         emit({"phase": "data", "ok": True, **run_data_pipeline(torch, card)})
+    if "dag" in phases:
+        rep = run_dag_gang(torch, kernels_of, card)
+        emit({"phase": "dag", "ok": True, **rep})
+        count("dag", rep["launches"], rep["launches_by_route"])
+        emit({"phase": "dag", "ok": True, "card": card, "seconds": time.perf_counter() - t_dag})
+        torch.cuda.empty_cache()
     if "tp_serve" in phases:
         for rep in run_tp_serve(torch, card):
             emit({"phase": "tp_serve", "ok": True, **rep})

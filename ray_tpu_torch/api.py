@@ -423,7 +423,9 @@ class RemoteFunction:
 
     def bind(self, *args, **kwargs):
         """Lazy DAG construction (reference: dag_node.py bind)."""
-        raise NotPortedError("lazy DAGs (.bind)", "ray_tpu/dag/dag_node.py")
+        from ray_tpu_torch.dag.dag_node import FunctionNode
+
+        return FunctionNode(self, args, kwargs)
 
     def __call__(self, *args, **kwargs):
         raise TypeError(
@@ -459,7 +461,9 @@ class ActorMethod:
 
     def bind(self, *args, **kwargs):
         """Lazy DAG construction (reference: dag_node.py bind)."""
-        raise NotPortedError("lazy DAGs (.bind)", "ray_tpu/dag/dag_node.py")
+        from ray_tpu_torch.dag.dag_node import ClassMethodNode
+
+        return ClassMethodNode(self, args, kwargs)
 
 
 class ActorHandle:

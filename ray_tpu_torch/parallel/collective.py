@@ -1,8 +1,10 @@
 """SPMD collectives over the axes of the current mesh.
 
 Counterpart of layer 1 of ``ray_tpu/parallel/collective.py`` (the functional
-collectives the reference calls inside ``shard_map``; its actor collective
-groups and device-channel stager need the host runtime and are not here).
+collectives the reference calls inside ``shard_map``) and of its layer 3,
+the device-channel exchange of compiled plans (:class:`DeviceChannelStager`
+and the functions after it); its actor collective groups (layer 2) wait for
+the train slice.
 Every rank calls the same function on its own shard, and ``axis_name`` means
 that axis of ``mesh=`` where the caller gives one, else of the current mesh
 (:func:`ray_tpu_torch.parallel.mesh.current_mesh`). Code that autograd may
@@ -28,7 +30,8 @@ card; only the transfer goes through the host.
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence, Tuple
+import threading
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -353,8 +356,93 @@ def barrier(axis_name: str, *, mesh: Optional[Mesh] = None) -> torch.Tensor:
     return _all_reduce(zero, _mesh(mesh).group(axis_name))
 
 
+# --------------------------------------------------------------------------
+# layer 3: device-channel exchange (compiled-plan DEVICE edges)
+# --------------------------------------------------------------------------
+# A device edge between processes demotes chan_push to a control-only
+# header; the tensor either rides a device-to-device pull of a
+# producer-staged tensor (below, DeviceChannelStager, over the process's
+# transfer server: CUDA IPC on one host) or, when no transfer server is up
+# (the CPU), host-staged raw bytes rebuilt into a tensor by
+# ``_rendezvous_device_frame``.  Either way pickle never sees the payload.
+
+
+class DeviceChannelStager:
+    """Producer half of a device edge's device-to-device exchange.
+
+    Each ``offer`` stages the tensor with the local transfer server under a
+    deterministic (edge, seq) uuid and returns the pull descriptor the
+    control header carries, or ``None`` when no transfer server is running
+    (callers then send the payload host-staged).  Double-buffered: with
+    ``device_channel_double_buffer`` on, the stager keeps the last TWO
+    seqs' tensors referenced (seq-parity slots) so a late or retried
+    consumer pull can still fetch seq N-1 while seq N stages.
+    """
+
+    def __init__(self, edge_key: str, double_buffer: bool = True):
+        self._edge_key = edge_key
+        self._double = double_buffer
+        self._lock = threading.Lock()
+        # parity -> (seq, tensor): holding the ref keeps the staged memory
+        # until the slot is overwritten by seq+2 (or seq+1, single-buffered)
+        self._slots: Dict[int, Any] = {}
+
+    def offer(self, seq: int, array) -> Optional[Dict[str, Any]]:
+        from ray_tpu_torch.runtime import device_plane
+
+        addr = device_plane.transfer_address()
+        if addr is None:
+            return None
+        uuid = _device_frame_uuid(self._edge_key, seq)
+        if not device_plane.offer_device_pull(uuid, array):
+            return None
+        with self._lock:
+            parity = (seq & 1) if self._double else 0
+            self._slots[parity] = (seq, array)
+        return {"addr": addr, "uuid": uuid}
+
+
+def _device_frame_uuid(edge_key: str, seq: int) -> int:
+    """Deterministic per-(edge, seq) staging uuid: both ends derive it
+    from the control header alone, no extra negotiation round."""
+    import zlib
+
+    h = zlib.crc32(edge_key.encode("utf-8")) & 0x7FFFFFFF
+    return ((h << 32) | (seq & 0xFFFFFFFF)) or 1
+
+
+def _dtype(dtype_str: str) -> torch.dtype:
+    return getattr(torch, dtype_str.removeprefix("torch."))
+
+
+def pull_device_value(desc: Dict[str, Any], shape, dtype_str: str):
+    """Consumer half: pull a producer-staged tensor device-to-device.
+
+    Returns the tensor, or ``None`` when the pull could not be served (no
+    local transfer server, entry already consumed or withdrawn): the caller
+    nacks with a fallback flag and the producer resends host-staged."""
+    from ray_tpu_torch.runtime import device_plane
+
+    template = torch.empty(tuple(shape), dtype=_dtype(dtype_str), device="meta")
+    return device_plane.device_pull(desc["addr"], desc["uuid"], template)
+
+
+def _rendezvous_device_frame(shape, dtype_str: str, buf, device=None) -> torch.Tensor:
+    """Host-staged rendezvous of one device-channel frame (the CPU and
+    fallback transport): raw wire bytes -> a tensor on ``device`` (this
+    process's current CUDA device when it has one, else the CPU).  No
+    pickle anywhere: the bytes ARE the tensor."""
+    view = memoryview(buf).cast("B")
+    raw = torch.frombuffer(bytearray(view) if view.readonly else view, dtype=torch.uint8) \
+        if view.nbytes else torch.empty(0, dtype=torch.uint8)
+    out = raw.view(_dtype(dtype_str)).reshape(tuple(shape))
+    if device is None and torch.cuda.is_available():
+        device = torch.device("cuda", torch.cuda.current_device())
+    return out if device is None else out.to(device)
+
+
 __all__: List[str] = [
     "allreduce", "allreduce_mean", "allgather", "reducescatter", "broadcast", "ppermute",
     "all_to_all", "send_recv", "axis_index", "axis_size", "barrier", "replicated_sum",
-    "tie", "staged", "calls", "reset_staged",
+    "tie", "staged", "calls", "reset_staged", "DeviceChannelStager", "pull_device_value",
 ]

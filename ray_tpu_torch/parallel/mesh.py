@@ -287,6 +287,45 @@ def gather_tree(tree, specs, mesh: Mesh):
     return gather_array(tree, mesh, *specs)
 
 
+# --------------------------------------------------------------------------
+# SPMD stage-group split/assemble (compiled-plan gang stages, dag/plan.py)
+# --------------------------------------------------------------------------
+def split_for_group(value: torch.Tensor, n: int, axis: int = 0) -> List[torch.Tensor]:
+    """Split a tensor into ``n`` member shards along ``axis``.
+
+    ``torch.split`` gives views on the tensor's device: no copy and no host
+    round trip, so a gang stage's input fan-out is pure device work.  The
+    split dimension must divide evenly (callers replicate non-divisible
+    args instead)."""
+    if n <= 1:
+        return [value]
+    size = int(value.shape[axis])
+    if size % n:
+        raise ValueError(f"dimension {axis} of size {size} does not split into {n} equal parts")
+    return list(torch.split(value, size // n, dim=axis))
+
+
+def assemble_from_group(parts: Sequence[torch.Tensor], mesh: Optional[Mesh] = None,
+                        axis: int = 0) -> torch.Tensor:
+    """Assemble gang-member outputs into one tensor.
+
+    With a mesh over a process group whose size matches the member count,
+    the parts are the blocks of one array sharded over all the mesh's axes
+    (the first axis major, as :func:`shard_array` lays them out), and this
+    rank holds its own block: that part is returned.  Otherwise, a
+    layout-only mesh and the single-process gang included, the parts are
+    concatenated on their device along ``axis``."""
+    parts = list(parts)
+    if not parts:
+        raise ValueError("no member outputs to assemble")
+    if len(parts) == 1 and mesh is None:
+        return parts[0]
+    if mesh is not None and mesh.size == len(parts) and mesh.device_mesh is not None:
+        idx, _ = _block(mesh, tuple(mesh.axis_names))
+        return parts[idx]
+    return torch.cat(parts, dim=axis)
+
+
 _global_manager: Optional[MeshManager] = None
 _global_lock = threading.Lock()
 

@@ -38,28 +38,45 @@ read on a connection, the authentication handshake included, is bounded by
 the caller's ``timeout_s``: a stalled producer fails the pull (None), it
 does not hang the decode caller.
 
-The JAX package's object-store envelope (device arrays inside pickled
-objects) is not ported.
+The object-store envelope (``DevicePickler``, the first half of this
+module) is the counterpart of the reference's: a tensor inside a value the
+data plane frames reduces to its shape, dtype, device kind and an
+out-of-band ``PickleBuffer`` of its host bytes, so its bytes never enter
+the pickle stream, and the receiver rebuilds a real tensor: on its own
+current CUDA device when the sender's was on one and the receiver has one,
+else on the CPU.  The envelope takes every concrete tensor, CPU ones
+included (:func:`is_device_array`), as the reference's takes every
+``jax.Array`` on the CPU backend; the object store's device tier
+(``core/object_store._is_device_array``) takes CUDA tensors only.  The
+reducer comes before ``torch.multiprocessing``'s: a CUDA tensor framed by
+the envelope never travels as a CUDA IPC handle.
 """
 
 from __future__ import annotations
 
+import io
 import os
+import pickle
 import socket
 import struct
+import sys
 import threading
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Tuple
 
-_FIELDS = ("bytes_moved", "ici_pulls", "connects", "connect_s", "open_s", "copy_s")
+_FIELDS = ("arrays_packed", "arrays_restored", "bytes_moved", "ici_pulls",
+           "connects", "connect_s", "open_s", "copy_s")
 
 
 class DeviceStats:
-    """Pulls through the transfer server, their bytes, and where a pull's
-    time goes (the JAX package's envelope counters wait with the envelope)."""
+    """Tensors through the envelope, pulls through the transfer server,
+    their bytes, and where a pull's time goes."""
 
     def __init__(self):
         self._lock = threading.Lock()
+        self.arrays_packed = 0     # tensors serialized via the envelope
+        self.arrays_restored = 0   # tensors rebuilt from it
         self.bytes_moved = 0
         self.ici_pulls = 0         # transfers that rode the transfer server
         self.connects = 0          # connections opened to a peer's server
@@ -77,6 +94,103 @@ class DeviceStats:
 
 
 stats = DeviceStats()
+
+
+# --------------------------------------------------------------------------
+# the object-store envelope
+# --------------------------------------------------------------------------
+def is_device_array(value: Any) -> bool:
+    """A concrete tensor the envelope frames: any ``torch.Tensor`` with
+    storage (on the CPU too), not one on the meta device and not a fake or
+    functional tensor of a trace."""
+    torch = sys.modules.get("torch")
+    if torch is None or not isinstance(value, torch.Tensor):
+        return False
+    if value.device.type == "meta":
+        return False
+    # subclasses made while tracing (FakeTensor, FunctionalTensor) hold no data
+    return type(value) in (torch.Tensor, torch.nn.Parameter)
+
+
+def _rebuild_device_array(shape, dtype_str, buf, on_cuda=False):
+    """Unpickle hook: raw host bytes -> a tensor, on this process's current
+    CUDA device when the sender's tensor was on one and this process has
+    one, else on the CPU."""
+    import torch
+
+    view = memoryview(buf).cast("B")
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given buffer is not writable")
+        raw = torch.frombuffer(view, dtype=torch.uint8) if view.nbytes else torch.empty(
+            0, dtype=torch.uint8)
+    out = raw.view(getattr(torch, dtype_str)).reshape(tuple(shape))
+    if on_cuda and torch.cuda.is_available():
+        out = out.to(torch.device("cuda", torch.cuda.current_device()))
+    elif view.readonly:
+        out = out.clone()  # never a tensor that aliases read-only bytes
+    stats.add("arrays_restored")
+    stats.add("bytes_moved", view.nbytes)
+    return out
+
+
+class _DeviceReducerMixin:
+    """reducer_override shared by the pickle and cloudpickle paths."""
+
+    def reducer_override(self, obj):
+        if is_device_array(obj):
+            import torch
+
+            host = obj.detach()
+            on_cuda = host.is_cuda
+            if on_cuda:
+                host = host.cpu()  # device to host: a sync point
+            host = host.contiguous()
+            stats.add("arrays_packed")
+            # uint8 view: bfloat16 and the float8 types have no numpy
+            # dtype; the raw bytes stream identically either way
+            raw = host.reshape(-1).view(torch.uint8).numpy()
+            return (
+                _rebuild_device_array,
+                (tuple(host.shape), str(host.dtype).removeprefix("torch."),
+                 pickle.PickleBuffer(raw), on_cuda),
+            )
+        return NotImplemented
+
+
+class DevicePickler(_DeviceReducerMixin, pickle.Pickler):
+    pass
+
+
+def dumps_with_device_envelope(value: Any, buffer_callback) -> bytes:
+    """pickle-5 dump routing concrete tensors through the device envelope
+    (buffers out-of-band).  The cloudpickle fallback keeps the same reducer
+    via its own pickler subclass.  Buffers reach the caller only from the
+    attempt that SUCCEEDS (a half-failed pass must not leak)."""
+    collected: list = []
+    out = io.BytesIO()
+    try:
+        DevicePickler(out, protocol=5, buffer_callback=collected.append).dump(value)
+    except (AttributeError, TypeError, pickle.PicklingError):
+        import cloudpickle
+
+        class _DeviceCloudPickler(_DeviceReducerMixin, cloudpickle.CloudPickler):
+            def reducer_override(self, obj):
+                r = _DeviceReducerMixin.reducer_override(self, obj)
+                if r is not NotImplemented:
+                    return r
+                return super().reducer_override(obj)
+
+        collected.clear()
+        out = io.BytesIO()
+        _DeviceCloudPickler(out, protocol=5, buffer_callback=collected.append).dump(value)
+    for b in collected:
+        buffer_callback(b)
+    return out.getvalue()
+
+
+def uuid_for_object(oid_bytes: bytes) -> int:
+    """Stable transfer-uuid for an ObjectID (both ends derive it)."""
+    return int.from_bytes(oid_bytes[:8], "little") or 1
 
 
 class _Ticket:

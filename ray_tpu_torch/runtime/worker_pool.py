@@ -1053,7 +1053,14 @@ class ProcessWorkerPool:
                 w.proc.wait(timeout=2)
             except subprocess.TimeoutExpired:
                 w.proc.kill()
-        self._listener.close()  # an accept in flight fails: its spawn kills the child
+        # an accept in flight fails, and its spawn kills the child: close()
+        # alone does not wake a thread blocked in accept() on Linux (it
+        # would sit out its 30 s timeout), shutdown() does
+        try:
+            self._listener.shutdown(socket.SHUT_RDWR)
+        except OSError:
+            pass
+        self._listener.close()
         with self._spawn_cv:
             self._spawn_cv.wait_for(lambda: self._spawns_in_flight == 0, timeout=35.0)
         try:

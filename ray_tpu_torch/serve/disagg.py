@@ -12,10 +12,10 @@ Ladder per block, as the reference's: the in-process staged copy (engines
 of one process: the prefill engine's registry entry in
 ``runtime/data_plane.py``, reported as the ``"host"`` rung, as the JAX
 package reports it) → the device pull (``runtime/device_plane.py``, CUDA IPC
-between processes of one host, the ``"device"`` rung).  The JAX package's
-third rung, the host-staged ``kv_pull`` of its data server, needs the data
-server, which is not ported: a block no rung reaches raises
-:class:`KVMigrationError` with ``stage == "staging"``.
+between processes of one host, the ``"device"`` rung) → the host-staged
+``kv_pull`` of the data server at the ticket's ``data_addr``
+(``runtime/data_plane.py``; a CPU tensor, the ``"host"`` rung).  A block no
+rung reaches raises :class:`KVMigrationError` with ``stage == "staging"``.
 
 :class:`DisaggDispatcher` is the router's half (the reference's, imports
 renamed): prefill → migrate → decode through ``Router.call_replica``, the
@@ -140,9 +140,9 @@ def make_ticket(
 def pull_block(ticket: dict, block_idx: int,
                timeout_s: Optional[float] = None) -> Tuple[Any, str]:
     """Fetch one staged block for ``ticket``: the in-process staged copy,
-    else a device pull from the ticket's transfer server, each of whose
-    reads waits at most ``timeout_s`` (default
-    ``Config.kv_migration_pull_timeout_s``).  Returns ``(tensor, rung)``;
+    else a device pull from the ticket's transfer server, else the
+    host-staged ``kv_pull`` from the ticket's data server; each read waits
+    at most ``timeout_s`` (default ``Config.kv_migration_pull_timeout_s``).  Returns ``(tensor, rung)``;
     raises :class:`KVMigrationError` when no rung reaches the block."""
     import torch
 
@@ -174,6 +174,12 @@ def pull_block(ticket: dict, block_idx: int,
         if arr is not None:
             return arr, "device"
     data_addr = ticket.get("data_addr")
+    if data_addr:
+        # host-staged rung: the block's bytes from the producer's data
+        # server (the kv_pull op), a CPU tensor
+        arr = data_plane.pull_kv_block(data_addr, mig_id, block_idx, timeout=timeout_s)
+        if arr is not None:
+            return arr, "host"
     raise KVMigrationError(
         mig_id, "staging",
         f"block {block_idx}: no rung could reach the staged page "
@@ -183,7 +189,8 @@ def pull_block(ticket: dict, block_idx: int,
 
 def local_data_addr() -> Optional[str]:
     """Address of this node's data server (the host-staged rung a ticket
-    advertises): None, because the port runs no data server."""
+    advertises): the head service's, which the port does not run yet (the
+    multi-node runtime), so None, as the reference returns without one."""
     return None
 
 

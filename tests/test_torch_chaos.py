@@ -24,6 +24,7 @@ and the decode-replica kill of ``test_disagg.py`` on its tiny f32 decoder.
 
 import importlib
 import json
+import threading
 import time
 
 import numpy as np
@@ -248,6 +249,16 @@ def test_node_kill_through_runner_matches_jax():
         assert run["extra"]["dead_nodes"] == 1 and "node" in run["extra"]["killed"][0]
 
 
+def _after_event(event, sleep_until, timeout_s=60.0):
+    """A runner's ``_sleep_until`` that also waits (bounded) for ``event``:
+    the timeline's next event lands no earlier than its offset and no
+    earlier than the point the workload marks."""
+    def wait(deadline):
+        sleep_until(deadline)
+        event.wait(timeout_s)
+    return wait
+
+
 # --------------------------------------------------------------------------
 # 9. head outage mid-workload (test_chaos.py:698)
 # --------------------------------------------------------------------------
@@ -282,13 +293,20 @@ def scenario_head_outage(rt, seed):
                 self.n += k
                 return self.n
 
+        pre_done = threading.Event()
+
         def workload():
-            t0 = time.monotonic()
             c = rt.remote(Counter).options(name="outage-counter", max_restarts=1).remote()
             refs = retried_puts("pre", 6)
             seen["pre"] = rt.get([c.add.remote(1) for _ in range(5)], timeout=30)
             cluster.control.kv.put(b"outage_marker", b"pre-kill")
-            while time.monotonic() - t0 < 4.2:
+            pre_done.set()
+            # the outage is awaited by its events (the head down, then back),
+            # not by a fixed clock that can close before restart_head lands
+            deadline = time.monotonic() + 60.0
+            while not (cluster.head_restarts >= 1 and not cluster._head_down):
+                if time.monotonic() > deadline:
+                    break
                 time.sleep(0.05)
                 if cluster._head_down:
                     cluster.control.kv.put(b"doomed_marker", b"lost")
@@ -299,7 +317,13 @@ def scenario_head_outage(rt, seed):
             seen["after"] = rt.get(rt.get_actor("outage-counter").add.remote(1), timeout=30)
             return refs
 
-        result = chaos.ChaosRunner(schedule, quiesce_timeout=90).run(workload)
+        runner = chaos.ChaosRunner(schedule, quiesce_timeout=90)
+        # the kill lands at 2.0 s or once the pre-outage half of the workload
+        # is done, whichever is later: on a busy host that half can outlast
+        # 2.0 s, and a kill before the marker and the five calls are recorded
+        # loses them with the head (F10)
+        runner._sleep_until = _after_event(pre_done, runner._sleep_until)
+        result = runner.run(workload)
         restart = next(e for e in result.events_applied if e["kind"] == "restart_head")
         return result, {**seen, "reconciled": restart["reconciled"] >= 1}
     finally:

@@ -1164,3 +1164,157 @@ def test_data_iter_device_batches_land_on_cuda(runtime):
     objs = runtime.data.from_items([{"s": {"k": i}, "v": i} for i in range(4)])
     batch = next(objs.iter_device_batches(batch_size=4))
     assert batch["v"].is_cuda and batch["s"].dtype == object
+
+
+# --------------------------------------------------------------------------
+# the compiled-graph layer on the card (ray_tpu_torch.dag)
+# --------------------------------------------------------------------------
+def _slow_fill(value: float, n: int = 1 << 20):
+    """A tensor filled with ``value`` on the current stream after a spin of
+    about 50 ms there: a reader not ordered after this stream sees zeros."""
+    out = torch.zeros(n, device="cuda")
+    torch.cuda._sleep(100_000_000)
+    out.fill_(value)
+    return out
+
+
+class _Mean:
+    def mean(self, t):
+        return t.mean()  # on the actor thread's current stream: the default one
+
+
+def test_dag_seq_channel_orders_a_side_stream_reader_after_its_writer(cuda):
+    """A CUDA tensor written into a device channel by a thread computing on
+    a side stream is read by another thread on another side stream: the
+    reader's stream waits on the writer's event, so it sees the values."""
+    import threading
+
+    from ray_tpu_torch.runtime.channel_manager import SeqChannel
+
+    ch = SeqChannel("fence", kind="device")
+    got = []
+
+    def writer():
+        s = torch.cuda.Stream()
+        for i in range(4):
+            with torch.cuda.stream(s):
+                ch.write(i, _slow_fill(float(i + 1)))
+
+    def reader():
+        s = torch.cuda.Stream()
+        for _ in range(4):
+            with torch.cuda.stream(s):
+                _, t, _ = ch.read()
+                got.append(float(t.sum()) / t.numel())
+
+    threads = [threading.Thread(target=writer), threading.Thread(target=reader)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    assert got == [1.0, 2.0, 3.0, 4.0]
+
+
+def test_dag_plan_orders_a_stage_after_an_input_written_on_a_side_stream(runtime):
+    """The driver fills each input on a side stream and hands it to the plan
+    without synchronising: the entry channel's fence makes the stage's
+    stream wait for the fill, so the GPU actor's mean sees the values, and
+    no tensor is pickled on the way."""
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.runtime import device_plane
+
+    runtime.init(num_cpus=4)
+    actor = runtime.remote(_Mean).options(num_gpus=0.5).remote()
+    with InputNode() as inp:
+        plan = actor.mean.bind(inp).compile_plan(name="streams")
+    side = torch.cuda.Stream()
+    try:
+        packed = device_plane.stats.arrays_packed
+        futs = []
+        with torch.cuda.stream(side):
+            for i in range(1, 5):
+                futs.append(plan.execute_async(_slow_fill(float(i))))
+        assert [float(f.result(timeout=60)) for f in futs] == [1.0, 2.0, 3.0, 4.0]
+        assert device_plane.stats.arrays_packed == packed
+        assert set(plan.snapshot()["channel_kinds"].values()) == {"device"}
+    finally:
+        plan.teardown()
+
+
+class _GangStep:
+    def step(self, x):
+        assert x.is_cuda
+        return x * 2.0 + 1.0
+
+
+def test_dag_gang_splits_and_assembles_on_cuda(runtime):
+    from ray_tpu_torch.dag import InputNode, StageGroup
+    from ray_tpu_torch.parallel import mesh
+
+    x = torch.randn(8, 64, device="cuda", dtype=torch.bfloat16)
+    parts = mesh.split_for_group(x, 2)
+    assert all(p.device == x.device for p in parts)
+    assert torch.equal(mesh.assemble_from_group(parts), x)
+    runtime.init(num_cpus=4)
+    members = [runtime.remote(_GangStep).options(num_gpus=0.5).remote() for _ in range(2)]
+    gang = StageGroup(members, "step", split_axis=0, warmup=((8, 64), "bfloat16"))
+    with InputNode() as inp:
+        plan = gang.bind(inp).compile_plan(name="gang")
+    try:
+        for _ in range(3):
+            out = plan.execute(x)
+            assert out.device == x.device and torch.equal(out, x * 2.0 + 1.0)
+    finally:
+        plan.teardown()
+
+
+def test_dag_envelope_round_trip_of_a_cuda_tensor(cuda):
+    """A CUDA tensor framed by the data plane crosses as its bytes (no CUDA
+    IPC handle in the stream) and is rebuilt on the receiver's card."""
+    import pickletools
+
+    from ray_tpu_torch.runtime import data_plane, device_plane
+
+    x = torch.randn(256, 128, device=cuda).to(torch.bfloat16)
+    before = device_plane.stats.snapshot()
+    meta, buffers = data_plane.to_frames({"x": x, "k": 3})
+    names = [str(arg) for _, arg, _ in pickletools.genops(meta)]
+    assert "_rebuild_device_array" in names and not any("cuda" in n.lower() and "rebuild" in n
+                                                         for n in names)
+    got = data_plane.from_frames(meta, [bytearray(memoryview(b).cast("B")) for b in buffers])
+    assert got["x"].is_cuda and got["x"].dtype == torch.bfloat16 and got["k"] == 3
+    assert torch.equal(got["x"], x)
+    after = device_plane.stats.snapshot()
+    assert after["arrays_packed"] == before["arrays_packed"] + 1
+    assert after["arrays_restored"] == before["arrays_restored"] + 1
+
+
+class _Doubler:
+    def double(self, x):
+        return x * 2
+
+
+def test_dag_plan_of_gpu_actors_killed_and_repaired(runtime):
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.exceptions import ActorDiedError
+
+    runtime.init(num_cpus=4)
+    a = runtime.remote(_Doubler).options(num_gpus=0.5, max_restarts=1).remote()
+    b = runtime.remote(_Doubler).options(num_gpus=0.5).remote()
+    with InputNode() as inp:
+        plan = b.double.bind(a.double.bind(inp)).compile_plan(name="repairable")
+    x = torch.arange(16.0, device="cuda")
+    try:
+        assert torch.equal(plan.execute(x), x * 4)
+        runtime.kill(a, no_restart=False)
+        deadline = time.monotonic() + 30
+        while plan.state != "BROKEN" and time.monotonic() < deadline:
+            time.sleep(0.02)
+        assert plan.state == "BROKEN"
+        with pytest.raises(ActorDiedError):
+            plan.execute(x)
+        plan.repair(timeout=60)
+        assert plan.state == "READY" and torch.equal(plan.execute(x), x * 4)
+        assert plan.state_history == ["READY", "BROKEN", "READY"]
+    finally:
+        plan.teardown()

@@ -232,7 +232,7 @@ def test_kernel_sources_build_into_a_gitignored_directory():
 # the host runtime: light imports, workers that never touch the card
 # --------------------------------------------------------------------------
 _RUNTIME_PARTS = ("__init__.py", "api.py", "exceptions.py", "core", "runtime", "observability",
-                  "dashboard", "accelerators", "native", "data")
+                  "dashboard", "accelerators", "native", "data", "dag")
 
 
 def _runtime_files():
@@ -260,7 +260,9 @@ def test_no_runtime_module_imports_torch_at_its_top():
     code = (
         "import sys, ray_tpu_torch, ray_tpu_torch.runtime.worker_main, "
         "ray_tpu_torch.runtime.worker_api, ray_tpu_torch.dashboard.reporter, "
-        "ray_tpu_torch.data, ray_tpu_torch.data.executor\n"
+        "ray_tpu_torch.data, ray_tpu_torch.data.executor, ray_tpu_torch.dag, "
+        "ray_tpu_torch.dag.plan, ray_tpu_torch.runtime.channel_manager, "
+        "ray_tpu_torch.runtime.data_plane\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'ray_tpu'))\n"
         "assert not bad, bad\n"

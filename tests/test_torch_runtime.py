@@ -502,8 +502,13 @@ def test_not_ported_features_raise_typed_errors():
     assert not rt.is_initialized()
     rt.init(num_cpus=1)
     try:
-        with pytest.raises(NotPortedError, match="bind"):
-            rt.remote(_inc).bind(1)
+        # .bind builds DAG nodes since the dag layer was ported; the data
+        # plane's relay tree (the multi-node runtime) is still to come
+        assert rt.get(rt.remote(_inc).bind(1).execute()) == 2
+        from ray_tpu_torch.runtime import data_plane
+
+        with pytest.raises(NotPortedError, match="relay"):
+            data_plane.build_relay_tree(["127.0.0.1:1"], 2)
         with pytest.raises(NotPortedError, match="runtime_env"):
             rt.remote(_inc).options(runtime_env={"env_vars": {"A": "1"}}).remote(1)
         with pytest.raises(NotPortedError, match="head service"):
