@@ -14,6 +14,7 @@
     python3 chip_smoke.py --phases build,profile   # one profiled train step (not in the default run)
     python3 chip_smoke.py --phases build,parallel  # the parallel layer, ranks sharing the card
     python3 chip_smoke.py --phases build,tp_serve  # the tensor-parallel engine on 2 ranks
+    python3 chip_smoke.py --phases build,trainer   # trainers, TrainController, collective groups
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -284,9 +285,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``sum_replicas_`` in the rank processes, so each rank updates its
    replicated params with its own half-sequence's gradient; each rank's
    losses must stray from one device's by more than ``LOSS_RTOL``.
-12. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
+12. ``trainer`` — the training library (``ray_tpu_torch.train``) on the
+   train phase's 602M decoder, one ``init(num_cpus=8)``, deterministic
+   algorithms on for (a) and (b): (a) ``DeviceTrainer`` with one GPU rank:
+   a seeded ``int32[24, 2048]`` token table through ``from_numpy`` and the
+   rank's ``get_dataset_shard("train").iter_device_batches(batch_size=6)``
+   into ``make_train_step`` on the rank's device, ``train.report`` a step;
+   after step 2 one framed checkpoint of the train state (params, mu, nu:
+   7.2 GB) is reported and the loop raises once; ``FailureConfig(
+   max_failures=1)`` restarts the gang from that checkpoint on to step 4.
+   The four losses equal a direct ``make_train_step`` from the same state
+   on the same batches bitwise; K3/K4/K5 16/8/8 a step on ``wgmma_bf16``;
+   step ms beside the direct run's and the train phase's, the checkpoint's
+   save and restore seconds, the restart's wall seconds. (b)
+   ``TrainController`` gangs of in-process GPU actors on the 602M loss over
+   the flat f32 row (its leaves views of it), one 2048-token row a member a
+   step drawn from a seeded float32 dataset: 4 steps at world 1 and at
+   world 2 from the same seed, the curves within ``LOSS_RTOL``; a
+   checkpoint after step 2 (params and momentum, 4.8 GB), then
+   ``preempt_member(1, graceful=False)``: the typed error, ``recover()``
+   (the member is gone for good, so the ladder shrinks), 2 more steps
+   bitwise ``replay``'s and invariant 12 green. K3/K4/K5 16/8/8 a member
+   step, warm-ups included and counted apart, as are the replays'; gang
+   step ms beside world 1's, peak memory, checkpoint and recovery seconds;
+   the params and momentum stay on the card. (c) ``TorchTrainer``: two
+   process ranks sharing ``cuda:0`` over gloo run ``tests/test_train.py``'s
+   allreduce and DDP loops with the model on ``get_device()``: ``reduced
+   == 3.0``, ``w0_spread == 0.0``, every rank's tensors on ``cuda:0``. (d)
+   an actor collective group of two in-process GPU actors allreduces a 64
+   MiB f32 CUDA tensor: bitwise the member-order sum, on the card; ms a
+   call.
+13. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
    replaces, launches in the main-path runs (engine, server, disagg,
-   runtime, serve, chaos, data, dag, tp_serve, train, moe_engine, vit_train, parallel) in all and by phase, max
+   runtime, serve, chaos, data, dag, tp_serve, train, moe_engine, vit_train, parallel,
+   trainer) in all and by phase, max
    error, device ms, plain ms, bound ms and what bounds it, library ms;
    K1/K2 also the event floor and each timed shape; K3/K4/K5 also the parallel phase's
    shard shapes (``parallel_<shape>_*``).
@@ -301,6 +333,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import itertools
 import json
@@ -321,7 +354,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 PHASES = ("build", "kernels", "forward_parity", "engine", "server", "disagg", "runtime",
           "serve", "chaos", "data", "dag", "tp_serve", "train_parity",
-          "train", "moe_parity", "moe_engine", "vit_train", "dit", "parallel")
+          "train", "moe_parity", "moe_engine", "vit_train", "dit", "parallel", "trainer")
 OPTIONAL_PHASES = ("profile",)
 
 
@@ -4966,6 +4999,490 @@ def run_tp_serve(torch, card: str):
                         for n in reps[0]["f32_launches"]}}
 
 
+# --------------------------------------------------------------------------
+# the trainer phase: the training library on the 602M step
+# --------------------------------------------------------------------------
+TRAINER_SEED = 16
+TRAINER_TABLE = (24, 2048)  # (a): four batches of the train phase's [6, 2048]
+TRAINER_BATCH = 6
+TRAINER_STEPS = 4
+TRAINER_GANG_ROWS = (16, 2048)  # (b): token rows as float32, one a member a step
+TRAINER_GANG_LR = 1e-2
+TRAINER_AR_BYTES = 64 << 20  # (d): the allreduced f32 tensor
+TRAINER_AR_REPS = 10
+
+
+def attention_want(n_layers: int) -> dict:
+    """K3/K4/K5 launches of one 602M step (``remat="dots"``), by route."""
+    return {"flash_attention_forward": {"wgmma_bf16": 2 * n_layers, "simt_f32": 0},
+            "flash_attention_backward_dq": {"wgmma_bf16": n_layers, "simt_f32": 0},
+            "flash_attention_backward_dkv": {"wgmma_bf16": n_layers, "simt_f32": 0}}
+
+
+def counter_delta(before, after):
+    (n0, r0), (n1, r1) = before, after
+    return ({k: n1[k] - n0[k] for k in n1},
+            {k: {r: r1[k][r] - r0[k].get(r, 0) for r in r1[k]} for k in r1})
+
+
+def check_per_call(what: str, delta, calls: int, want: dict) -> None:
+    """``delta`` (launches, routes) is ``calls`` times one step's ``want``."""
+    n, routes = delta
+    want_routes = {k: {r: x * calls for r, x in per.items()} for k, per in want.items()}
+    want_n = {k: sum(per.values()) for k, per in want_routes.items()}
+    if n != want_n or routes != want_routes:
+        raise AssertionError(f"trainer {what}: launches {n} {routes} over {calls} member "
+                             f"steps, want {want_routes}")
+
+
+def trainer_user_loop(torch, rt, cfg, counters: dict, card: str, train_step_ms) -> dict:
+    """(a): ``DeviceTrainer`` with one GPU rank: the 602M step over
+    ``iter_device_batches`` of a seeded token table, a framed checkpoint of
+    the train state at step 2, one injected failure, the restart from that
+    checkpoint on to step 4; the four losses bitwise those of a direct
+    ``make_train_step`` from the same state on the same batches
+    (deterministic algorithms on for both); K3/K4/K5 16/8/8 a step."""
+    import shutil
+
+    import numpy as np
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.transformer import make_train_step
+
+    table = np.random.default_rng(TRAINER_SEED).integers(0, cfg.vocab_size, TRAINER_TABLE,
+                                                         dtype=np.int32)
+    want = attention_want(cfg.n_layers)
+    log = {"steps": {}, "t": {}}
+    tmp = tempfile.mkdtemp(prefix="trainer_a_")
+
+    def loop(config):
+        ctx = train.get_context()
+        dev = ctx.get_devices()[0]
+        init_state, step = make_train_step(cfg, device=dev)
+        ckpt = train.get_checkpoint()
+        if ckpt is None:
+            state, start = init_state(TRAINER_SEED), 0
+        else:
+            log["t"]["restart_begin"] = time.perf_counter()
+            t0 = time.perf_counter()
+            state = ckpt.to_pytree(device=dev)
+            torch.cuda.synchronize()
+            log["t"]["restore_s"] = time.perf_counter() - t0
+            start = int(state["step"])
+        shard = train.get_dataset_shard("train")
+        batches = shard.iter_device_batches(batch_size=TRAINER_BATCH,
+                                            dtypes={"data": torch.int64}, device=dev,
+                                            drop_last=True)
+        for i, batch in enumerate(batches):
+            if i < start:
+                continue
+            before = read_counters(counters)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, loss = step(state, batch["data"])
+            e1.record()
+            torch.cuda.synchronize()
+            log["steps"][i + 1] = {"loss": float(loss), "ms": e0.elapsed_time(e1),
+                                   "delta": counter_delta(before, read_counters(counters)),
+                                   "device": str(batch["data"].device),
+                                   "attempt": ctx.get_restart_count()}
+            out = None
+            if i + 1 == 2 and ctx.get_restart_count() == 0:
+                t0 = time.perf_counter()
+                out = train.Checkpoint.from_pytree(state, base_dir=tmp)
+                log["t"]["save_s"] = time.perf_counter() - t0
+            train.report({"step": i + 1, "loss": float(loss)}, checkpoint=out)
+            if out is not None:
+                time.sleep(1.0)  # the driver drains reports every 0.2 s
+                log["t"]["raise"] = time.perf_counter()
+                raise RuntimeError("injected failure after the step-2 checkpoint")
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.use_deterministic_algorithms(True)
+    try:
+        ds = rt.data.from_numpy(table)
+        trainer = train.DeviceTrainer(
+            loop, scaling_config=train.ScalingConfig(num_workers=1), datasets={"train": ds},
+            run_config=train.RunConfig(name="trainer-a", storage_path=tmp,
+                                       failure_config=train.FailureConfig(max_failures=1)))
+        zero_counters(counters)
+        t0 = time.perf_counter()
+        result = trainer.fit()
+        fit_s = time.perf_counter() - t0
+        launches, by_route = read_counters(counters)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.empty_cache()
+        init_state, step = make_train_step(cfg, device="cuda")
+        state = init_state(TRAINER_SEED)
+        direct, direct_ms = [], []
+        for i in range(TRAINER_STEPS):
+            batch = torch.from_numpy(table[i * TRAINER_BATCH:(i + 1) * TRAINER_BATCH]).to("cuda").long()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            state, loss = step(state, batch)
+            e1.record()
+            torch.cuda.synchronize()
+            direct.append(float(loss))
+            direct_ms.append(e0.elapsed_time(e1))
+        del state
+    finally:
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+    steps = [log["steps"].get(i + 1) for i in range(TRAINER_STEPS)]
+    if result.error is not None or None in steps or "restore_s" not in log["t"]:
+        raise AssertionError(f"trainer (a): error {result.error!r}, steps {sorted(log['steps'])}, "
+                             f"times {log['t']}")
+    losses = [s["loss"] for s in steps]
+    if losses != direct or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"trainer (a): losses {losses} through the trainer, {direct} direct")
+    if [s["attempt"] for s in steps] != [0, 0, 1, 1] or result.metrics.get("step") != 4 \
+            or any(s["device"] != "cuda:0" for s in steps):
+        raise AssertionError(f"trainer (a): steps {steps}, metrics {result.metrics}")
+    for i, s in enumerate(steps):
+        check_per_call(f"(a) step {i + 1}", s["delta"], 1, want)
+    check_per_call("(a) fit", (launches, by_route), TRAINER_STEPS, want)
+    ms = [s["ms"] for s in steps]
+    return {"part": "a_device_trainer", "card": card, "table": list(TRAINER_TABLE),
+            "batch": TRAINER_BATCH, "steps": TRAINER_STEPS, "losses": losses,
+            "losses_bitwise_equal_direct": True, "attempts": [s["attempt"] for s in steps],
+            "step_ms": ms, "step_ms_median": statistics.median(ms),
+            "direct_step_ms": direct_ms, "direct_step_ms_median": statistics.median(direct_ms),
+            "train_phase_step_ms_median": train_step_ms,
+            "checkpoint_save_s": log["t"]["save_s"], "checkpoint_restore_s": log["t"]["restore_s"],
+            "restart_wall_s": log["t"]["restart_begin"] - log["t"]["raise"], "fit_s": fit_s,
+            "peak_mem_gb": peak_gb, "launches": launches, "launches_by_route": by_route,
+            "launches_per_step": [s["delta"][0] for s in steps]}
+
+
+def gang_loss(torch, cfg):
+    """(b)'s ``loss_fn`` and ``param_init`` over the 602M decoder's flat f32
+    row: the leaves are views of it (in ``named_leaves`` order), the loss
+    the batch's mean next-token loss times its rows (the sum the controller
+    wants), the tokens the batch's float32 values."""
+    from ray_tpu_torch.models.transformer import init_params, loss_fn
+
+    def draw(seed):
+        return init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+
+    specs = [(name, tuple(p.shape)) for name, p in named_leaves(draw(0))]
+    sizes = [math.prod(shape) for _, shape in specs]
+    torch.cuda.empty_cache()
+
+    def unflatten(flat):
+        tree = {}
+        for (name, shape), leaf in zip(specs, torch.split(flat, sizes)):
+            *parents, last = name.split("/")
+            node = tree
+            for p in parents:
+                node = node.setdefault(p, {})
+            node[last] = leaf.view(shape)
+        return tree
+
+    def param_init(seed):
+        return torch.cat([p.reshape(-1) for _, p in named_leaves(draw(seed))])
+
+    def loss(flat, batch):
+        return loss_fn(cfg, unflatten(flat), batch.long()) * batch.shape[0]
+
+    return loss, param_init, sum(sizes)
+
+
+def timed_steps(ctl, n: int) -> list:
+    """``n`` controller steps, wall ms each (a step ends on the loss's
+    ``.item()``, a device sync)."""
+    out = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        ctl.step()
+        out.append((time.perf_counter() - t0) * 1e3)
+    return out
+
+
+def trainer_gang(torch, rt, cfg, counters: dict, card: str) -> dict:
+    """(b): ``TrainController`` gangs of in-process GPU actors on the 602M
+    loss over the flat row, one 2048-token row a member a step: 4 steps at
+    world 1 and at world 2 from the same seed (the curves within
+    ``LOSS_RTOL``); then member 1 killed after the step-2 checkpoint
+    (``preempt_member(graceful=False)``): the typed error, ``recover()``,
+    2 more steps bitwise ``replay``'s, invariant 12 green."""
+    import shutil
+
+    import numpy as np
+
+    from ray_tpu_torch import exceptions
+    from ray_tpu_torch.chaos import invariants
+    from ray_tpu_torch.train import TrainController
+
+    want = attention_want(cfg.n_layers)
+    loss, param_init, n_params = gang_loss(torch, cfg)
+    rows = np.random.default_rng(TRAINER_SEED + 1).integers(
+        0, cfg.vocab_size, TRAINER_GANG_ROWS).astype(np.float32)
+    tmp = tempfile.mkdtemp(prefix="trainer_b_")
+    main_n, main_r = {k: 0 for k in counters}, {k: {} for k in counters}
+    calls, warm, gpu_held = {}, {}, {}
+
+    def account(name: str, n_calls: int, delta) -> None:
+        """``delta``'s launches must be its ``n_calls`` member steps'
+        (16/8/8 each); they add to the main path's counts."""
+        calls[name] = n_calls
+        check_per_call(f"(b) {name}", delta, n_calls, want)
+        n, routes = delta
+        for k in n:
+            main_n[k] += n[k]
+            for r, x in routes[k].items():
+                main_r[k][r] = main_r[k].get(r, 0) + x
+
+    def segment(name: str, ctl, fn):
+        zero_counters(counters)
+        c0 = ctl.step_fn.calls
+        out = fn()
+        account(name, ctl.step_fn.calls - c0, read_counters(counters))
+        return out
+
+    def build(key: str, name: str, world: int, **extra):
+        """A controller; its construction warms every member up once."""
+        zero_counters(counters)
+        free = rt.available_resources().get("GPU", 0)
+        box[key] = TrainController(name, world_size=world, dataset=ds,
+                                   checkpoint_dir=os.path.join(tmp, key), **extra, **kw)
+        gpu_held[key] = free - rt.available_resources().get("GPU", 0)
+        delta = read_counters(counters)
+        account(f"{key}_warmup", box[key].step_fn.calls, delta)
+        warm[key] = delta[0]
+        return box[key]
+
+    kw = dict(batch_size=2, seed=TRAINER_SEED, learning_rate=TRAINER_GANG_LR, loss_fn=loss,
+              param_init=param_init, checkpoint_period=10**9, device="cuda")
+    box = {}
+    # what earlier parts left on the card, before and after a collection
+    # of reference cycles (a failed attempt's frames, say)
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    gc.collect()
+    torch.cuda.empty_cache()
+    held_after_gc_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    torch.use_deterministic_algorithms(True)
+    try:
+        ds = rt.data.from_numpy(rows)
+        baseline = invariants.snapshot_baseline()
+        one = build("w1", "gang602m-w1", 1)
+        w1_ms = segment("w1_steps", one, lambda: timed_steps(one, 4))
+        w1_losses = one.losses()
+        box.pop("w1").shutdown()
+        del one
+        torch.cuda.empty_cache()
+        # world 2, preemptible; a checkpoint after step 2
+        ctl = build("w2", "gang602m", 2, preemptible=True)
+        w2_ms = segment("w2_steps_1_2", ctl, lambda: timed_steps(ctl, 2))
+        t0 = time.perf_counter()
+        ctl.save_checkpoint()
+        save_s = time.perf_counter() - t0
+        w2_ms += segment("w2_steps_3_4", ctl, lambda: timed_steps(ctl, 2))
+        w2_losses = ctl.losses()
+        rel = check_losses(w2_losses, w1_losses, "trainer (b) world 2 against world 1")
+        # member 1 killed: the typed error, then the recovery ladder
+        ctl.preempt_member(1, graceful=False)
+
+        def failing_step():
+            try:
+                ctl.run(1, auto_repair=False)
+            except (exceptions.RayActorError, exceptions.WorkerCrashedError) as exc:
+                return exc
+            raise AssertionError("trainer (b): a step with member 1 dead did not raise")
+
+        err = segment("killed_step", ctl, failing_step)
+        t0 = time.perf_counter()
+        outcome = segment("recover", ctl, lambda: ctl.recover(error=err))
+        recover_s = time.perf_counter() - t0
+        post_ms = segment("post_repair_steps", ctl, lambda: timed_steps(ctl, 2))
+        audit = rt.get_cluster().train_repair_audits[-1]
+        post = list(audit["losses"])
+        if ctl.step_count != 4 or ctl.losses()[2:] != post or len(post) != 2:
+            raise AssertionError(f"trainer (b): step {ctl.step_count}, losses {ctl.losses()}, "
+                                 f"audit {post}")
+        # the comparisons' launches are counted apart
+        zero_counters(counters)
+        c0 = ctl.step_fn.calls
+        replayed = ctl.replay(audit["state"], audit["world_size"], 2)
+        report = invariants.check_invariants(refs=[], baseline=baseline)
+        compare_n, compare_r = read_counters(counters)
+        calls["compare"] = ctl.step_fn.calls - c0
+        check_per_call("(b) replay and invariant 12", (compare_n, compare_r), calls["compare"], want)
+        if np.asarray(replayed, np.float32).tobytes() != np.asarray(post, np.float32).tobytes():
+            raise AssertionError(f"trainer (b): post-repair losses {post}, replay {replayed}")
+        if not report.ok or report.checked.get("train_repairs", 0) < 1 \
+                or report.checked.get("train_replayed_steps", 0) < 2:
+            raise AssertionError(f"trainer (b): invariants {report.violations} {report.checked}")
+        on_card = ctl._params.is_cuda and ctl._mom.is_cuda
+        world_after = ctl.world_size
+        history = list(ctl.repair_history)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        torch.use_deterministic_algorithms(False)
+        for c in box.values():
+            c.shutdown()
+        shutil.rmtree(tmp, ignore_errors=True)
+    box.clear()
+    torch.cuda.empty_cache()
+    # the preempted member is killed for good (no_restart), as in the JAX
+    # package: the ladder cannot repair in place and shrinks to one member
+    if not on_card or outcome != "shrunk" or world_after != 1:
+        raise AssertionError(f"trainer (b): outcome {outcome}, world {world_after}, "
+                             f"state on the card {on_card}")
+    # each gang holds the controller's card: 1/world of it a member
+    if any(abs(g - 1.0) > 1e-9 for g in gpu_held.values()):
+        raise AssertionError(f"trainer (b): the gangs hold {gpu_held} of the card")
+    return {"part": "b_train_controller", "card": card, "params": n_params,
+            "rows": list(TRAINER_GANG_ROWS), "batch": 2, "learning_rate": TRAINER_GANG_LR,
+            "world1_losses": w1_losses, "world2_losses": w2_losses, "loss_rel_gaps": rel,
+            "loss_rtol": LOSS_RTOL, "world1_step_ms": w1_ms,
+            "world1_step_ms_median": statistics.median(w1_ms), "world2_step_ms": w2_ms,
+            "world2_step_ms_median": statistics.median(w2_ms),
+            "gang_over_one_device": statistics.median(w2_ms) / statistics.median(w1_ms),
+            "error_type": type(err).__name__, "recover_outcome": outcome,
+            "world_after_recover": world_after, "repair_history": history,
+            "recover_s": recover_s, "post_repair_losses": post, "post_repair_step_ms": post_ms,
+            "replay_bitwise_equal": True, "invariant12": {
+                k: report.checked.get(k) for k in ("train_repairs", "train_replayed_steps")},
+            "checkpoint_save_s": save_s, "checkpoint_gb": 2 * 4 * n_params / 1e9,
+            "state_on_card": on_card, "gpu_held": gpu_held, "peak_mem_gb": peak_gb, "held_at_start_gb": held_gb,
+            "held_after_gc_gb": held_after_gc_gb,
+            "member_steps": calls,
+            "warmup_launches": warm, "launches": main_n, "launches_by_route": main_r,
+            "compare_launches": compare_n}
+
+
+def trainer_ddp_loop(config):
+    """(c)'s loop (``tests/test_train.py``'s two TorchTrainer loops, the
+    model on ``get_device()``); it travels to the rank processes by value."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.train.torch import get_device, prepare_model
+
+    dev = get_device()
+    rank = train.get_context().get_world_rank()
+    t = torch.tensor([float(rank + 1)], device=dev)
+    dist.all_reduce(t)  # 1 + 2 = 3 across both ranks
+    torch.manual_seed(42)  # same init on every rank
+    model = prepare_model(torch.nn.Linear(4, 1).to(dev))
+    opt = torch.optim.SGD(model.parameters(), lr=0.1)
+    rng = np.random.default_rng(rank)  # different data per rank
+    for _ in range(5):
+        x = torch.tensor(rng.normal(size=(8, 4)), dtype=torch.float32, device=dev)
+        loss = ((model(x) - x.sum(dim=1, keepdim=True)) ** 2).mean()
+        opt.zero_grad()
+        loss.backward()  # DDP all-reduces grads here
+        opt.step()
+    w = model.module.weight if hasattr(model, "module") else model.weight
+    gathered = [torch.zeros(1) for _ in range(dist.get_world_size())]
+    dist.all_gather(gathered, torch.tensor([w[0, 0].item()]))
+    devices = [None] * dist.get_world_size()
+    dist.all_gather_object(devices, [str(dev), str(t.device), str(w.device), os.getpid()])
+    train.report({"reduced": float(t.item()), "world": dist.get_world_size(),
+                  "loss": float(loss.item()), "w0": float(w[0, 0].item()),
+                  "w0_spread": float(max(g.item() for g in gathered)
+                                     - min(g.item() for g in gathered)),
+                  "ddp": hasattr(model, "module"), "ranks": devices})
+
+
+def trainer_torch(torch, card: str) -> dict:
+    """(c): ``TorchTrainer``, two process ranks sharing ``cuda:0`` over
+    gloo: the rank allreduce gives 3.0, DDP keeps the weights identical."""
+    from ray_tpu_torch.train import ScalingConfig
+    from ray_tpu_torch.train.torch import TorchTrainer
+
+    t0 = time.perf_counter()
+    result = TorchTrainer(trainer_ddp_loop, scaling_config=ScalingConfig(num_workers=2)).fit()
+    fit_s = time.perf_counter() - t0
+    m = result.metrics
+    pids = {r[3] for r in m.get("ranks", [])}
+    if result.error is not None or m.get("reduced") != 3.0 or m.get("w0_spread") != 0.0 \
+            or not m.get("ddp") or os.getpid() in pids or len(pids) != 2 \
+            or any(r[:3] != ["cuda:0"] * 3 for r in m["ranks"]) or not math.isfinite(m["loss"]):
+        raise AssertionError(f"trainer (c): error {result.error!r}, metrics {m}")
+    return {"part": "c_torch_trainer", "card": card, "reduced": m["reduced"],
+            "w0_spread": m["w0_spread"], "loss": m["loss"], "ranks": m["ranks"], "fit_s": fit_s}
+
+
+class TrainerAllreduceRank:
+    """(d)'s member: one rank of an actor collective group, holding a
+    seeded f32 tensor on the card."""
+
+    def __init__(self, rank: int, seed: int):
+        import torch
+
+        from ray_tpu_torch.util import collective
+
+        collective.init_collective_group(2, rank, group_name="trainer-ar")
+        g = torch.Generator(device="cuda").manual_seed(seed + rank)
+        self.x = torch.randn(TRAINER_AR_BYTES // 4, generator=g, device="cuda")
+        self.rank = rank
+
+    def value(self):
+        return self.x
+
+    def allreduce(self):
+        import torch
+
+        from ray_tpu_torch.util import collective
+
+        out = collective.allreduce(self.x, group_name="trainer-ar", rank=self.rank)
+        torch.cuda.current_stream().synchronize()
+        return out
+
+
+def trainer_collective(torch, rt, card: str) -> dict:
+    """(d): an actor collective group of two in-process GPU actors
+    allreduces a 64 MiB f32 CUDA tensor: bitwise the member-order sum, on
+    the card; ms a call."""
+    from ray_tpu_torch.parallel import collective
+
+    ranks = [rt.remote(TrainerAllreduceRank).options(num_gpus=0.5).remote(r, TRAINER_SEED)
+             for r in range(2)]
+    try:
+        xs = rt.get([a.value.remote() for a in ranks])
+        want = xs[0] + xs[1]
+        ms, outs = [], None
+        for _ in range(TRAINER_AR_REPS):
+            t0 = time.perf_counter()
+            outs = rt.get([a.allreduce.remote() for a in ranks])
+            ms.append((time.perf_counter() - t0) * 1e3)
+        routing = collective._registry.get("trainer-ar").routing
+        ok = all(o.is_cuda and torch.equal(o, want) for o in outs)
+    finally:
+        for a in ranks:
+            rt.kill(a)
+        collective.destroy_collective_group("trainer-ar")
+    if not ok:
+        raise AssertionError(f"trainer (d): allreduce not the member-order sum on the card "
+                             f"({[str(o.device) for o in outs]})")
+    del xs, want, outs
+    torch.cuda.empty_cache()
+    return {"part": "d_collective_group", "card": card, "bytes": TRAINER_AR_BYTES,
+            "members": 2, "bitwise_member_order_sum": True, "on_card": True,
+            "routing": routing, "ms_per_call": ms, "ms_per_call_median": statistics.median(ms)}
+
+
+def run_trainer(torch, counters: dict, card: str, train_step_ms=None):
+    """The trainer phase: (a)-(d) under one ``init(num_cpus=8)``."""
+    import ray_tpu_torch as rt
+
+    cfg = train_config(torch)
+    rt.init(num_cpus=8)
+    try:
+        yield trainer_user_loop(torch, rt, cfg, counters, card, train_step_ms)
+        yield trainer_gang(torch, rt, cfg, counters, card)
+        yield trainer_torch(torch, card)
+        yield trainer_collective(torch, rt, card)
+    finally:
+        rt.shutdown()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5028,6 +5545,7 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
 
     train_losses = None  # the train phase's, which the parallel phase is held to
+    train_step_ms = None  # the train phase's median step, beside the trainer phase's
     launches = {}  # kernel -> launches over the main-path runs
     by_path = {}  # kernel -> {phase: launches}
     by_route = {}  # K3, K4, K5, K6 -> {route: launches} over the same runs
@@ -5151,6 +5669,7 @@ def main(argv=None) -> int:
         if "train" in phases:
             rep = run_train(torch, cfg, params, attention_kernels)
             train_losses = rep["losses"]
+            train_step_ms = rep["step_ms_median"]
             emit({"phase": "train", "ok": True, "card": card, **rep})
             for n, routes in zip(rep["launches_per_step"], rep["launches_by_route_per_step"]):
                 count("train", n, routes)
@@ -5200,6 +5719,15 @@ def main(argv=None) -> int:
                     count("parallel", r["launches"], r["launches_by_route"])
         emit({"phase": "parallel", "ok": True, "card": card,
               "seconds": time.perf_counter() - t0})
+    if "trainer" in phases:
+        t0 = time.perf_counter()
+        for rep in run_trainer(torch, attention_kernels, card, train_step_ms):
+            emit({"phase": "trainer", "ok": True, **rep})
+            if "launches" in rep:
+                count("trainer", rep["launches"], rep["launches_by_route"])
+        emit({"phase": "trainer", "ok": True, "card": card,
+              "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
     if kernels:
         # the K3 entry's ms/bound are its serving prefill shape; train_* keys
         # hold the same numbers at the train step's shape, vit_* (K3, K4,

@@ -12,7 +12,8 @@ kernels, forward and backward, hand-written CUDA under ``ops/csrc``),
 ``models`` (decoder, its train step, cached generation and model
 checkpoints), ``serve`` (the continuous-batching engine, its block
 allocator and prefix cache), ``parallel`` (meshes, collectives, sharded
-steps), ``train`` (framed checkpoints), plus ``convert`` (JAX param trees
+steps), ``train`` (trainers, the session, ``TrainController`` gangs and
+framed checkpoints), plus ``convert`` (JAX param trees
 and train states as numpy arrays to tensors). Entry points run on the GPU
 unless the caller asks for the CPU.  Importing the package imports no
 torch: CPU worker processes start without it.

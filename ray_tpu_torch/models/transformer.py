@@ -830,12 +830,16 @@ def _leaves(tree) -> list:
 
 def _rebuild(tree, leaves):
     """``tree`` with its leaves replaced, in :func:`_leaves` order."""
-    it = iter(leaves)
+    return _fill(tree, iter(leaves))
 
-    def go(t):
-        return {k: go(v) for k, v in t.items()} if isinstance(t, dict) else next(it)
 
-    return go(tree)
+def _fill(tree, it):
+    # a module-level recursion: a closure calling itself would be a
+    # reference cycle holding ``leaves`` (a state's moments, a step's
+    # gradients) until the garbage collector's next pass
+    if isinstance(tree, dict):
+        return {k: _fill(v, it) for k, v in tree.items()}
+    return next(it)
 
 
 def _adamw_(params: list, grads: list, mu: list, nu: list, count: int, lr: float) -> None:

@@ -6,9 +6,9 @@ a rank, every rank running the function the reference runs inside
 on the process group of a mesh axis. dp/tp by the models' sharding rules,
 sp by ring attention or Ulysses, pp by the microbatch pipeline.
 
-Not here (they need the host runtime): the actor collective groups
-(``init_collective_group`` and the ``*_tensor`` calls), the device channel
-stager, ``rendezvous_via_cluster`` and the gang split/assemble helpers.
+With the host runtime: the actor collective groups
+(``init_collective_group`` and the ``*_tensor`` calls; ``util.collective``
+is their public face) and ``rendezvous_via_cluster`` on the control KV.
 """
 
 from ray_tpu_torch.parallel.mesh import (
@@ -32,6 +32,7 @@ from ray_tpu_torch.parallel.collective import (
     all_to_all,
     barrier,
     broadcast,
+    init_collective_group,
     ppermute,
     reducescatter,
     send_recv,
@@ -39,6 +40,7 @@ from ray_tpu_torch.parallel.collective import (
 from ray_tpu_torch.parallel.distributed import (
     initialize as distributed_initialize,
     multihost_mesh,
+    rendezvous_via_cluster,
 )
 from ray_tpu_torch.parallel.launch import run_ranks
 from ray_tpu_torch.parallel.pipeline import pipeline_apply, pipeline_sharded
@@ -53,7 +55,8 @@ __all__ = [
     "Mesh", "MeshManager", "P", "PartitionSpec", "current_mesh", "gather_array",
     "mesh_manager", "named_sharding", "replicate", "reset_mesh_manager", "shard_array",
     "collective", "allgather", "allreduce", "allreduce_mean", "all_to_all", "barrier",
-    "broadcast", "distributed_initialize", "multihost_mesh", "ppermute", "reducescatter",
+    "broadcast", "init_collective_group", "distributed_initialize", "multihost_mesh",
+    "rendezvous_via_cluster", "ppermute", "reducescatter",
     "send_recv", "pipeline_apply", "pipeline_sharded", "ring_attention",
     "ring_attention_sharded", "ulysses_attention", "ulysses_attention_sharded", "run_ranks",
 ]

@@ -3,8 +3,9 @@
 Counterpart of layer 1 of ``ray_tpu/parallel/collective.py`` (the functional
 collectives the reference calls inside ``shard_map``) and of its layer 3,
 the device-channel exchange of compiled plans (:class:`DeviceChannelStager`
-and the functions after it); its actor collective groups (layer 2) wait for
-the train slice.
+and the functions after it), and its actor collective groups (layer 2:
+``init_collective_group`` and the ``*_tensor`` calls, which
+``ray_tpu_torch.util.collective`` exposes).
 Every rank calls the same function on its own shard, and ``axis_name`` means
 that axis of ``mesh=`` where the caller gives one, else of the current mesh
 (:func:`ray_tpu_torch.parallel.mesh.current_mesh`). Code that autograd may
@@ -33,6 +34,7 @@ from __future__ import annotations
 import threading
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -354,6 +356,387 @@ def barrier(axis_name: str, *, mesh: Optional[Mesh] = None) -> torch.Tensor:
 
     zero = torch.zeros((), dtype=torch.int32, device=distributed.device_type())
     return _all_reduce(zero, _mesh(mesh).group(axis_name))
+
+
+# --------------------------------------------------------------------------
+# layer 2: actor collective groups (ray.util.collective API parity)
+# --------------------------------------------------------------------------
+# The JAX package's layer 2, its own copy: ranks that all live in this
+# process (in-process actors, threads) meet in a shared in-memory group and
+# reduce in member order, on the card when the contributions are CUDA
+# tensors; a group with a rank in a spawned worker process meets over the
+# data-plane transport (``runtime/p2p.py``), tensors crossing as CPU
+# copies.
+class _Group:
+    def __init__(self, world_size: int):
+        self.world_size = world_size
+        self.lock = threading.Lock()
+        self.condition = threading.Condition(self.lock)
+        self.contributions: Dict[int, Any] = {}
+        self.result: Any = None
+        self.generation = 0
+        self.arrived = 0
+        # DISTINCT ranks init_collective_group'd in THIS process: covering
+        # all of range(world_size) proves every rank is local and the
+        # in-memory rendezvous is safe.  A set, not a counter: a restarted
+        # actor re-initing its rank must not inflate the count past world
+        # and mis-latch a cross-process group to "inproc"
+        self.local_ranks: set = set()
+        # Latched routing ("transport" | "inproc"), decided on the group's
+        # first collective.  The latch lives on the (per-process) group
+        # object, so co-located ranks can never split across mechanisms;
+        # cross-process groups see local_inits < world_size in EVERY
+        # process and all choose transport — also consistent.
+        self.routing: Optional[str] = None
+
+
+class _GroupRegistry:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._groups: Dict[str, _Group] = {}
+
+    def get_or_create(self, name: str, world_size: int) -> _Group:
+        with self._lock:
+            group = self._groups.get(name)
+            if group is None:
+                group = _Group(world_size)
+                self._groups[name] = group
+            return group
+
+    def get(self, name: str) -> _Group:
+        with self._lock:
+            if name not in self._groups:
+                raise KeyError(f"collective group {name!r} not initialized")
+            return self._groups[name]
+
+    def destroy(self, name: str) -> None:
+        with self._lock:
+            self._groups.pop(name, None)
+
+    def clear(self) -> None:
+        with self._lock:
+            self._groups.clear()
+
+
+_registry = _GroupRegistry()
+
+
+def reset_module_state() -> None:
+    """Fresh-runtime reset, called from cluster shutdown.  Collective groups
+    belong to a runtime incarnation: a group surviving ``rt.shutdown()``
+    carries stale generation counters and a stale routing latch, and the
+    next ``rt.init()`` in this process would desync against peers that
+    start at generation 0."""
+    _registry.clear()
+    from ray_tpu_torch.util.collective import _reset_binding_state
+
+    _reset_binding_state()
+
+
+def init_collective_group(world_size: int, rank: int, backend: str = "gpu", group_name: str = "default") -> None:
+    """Reference parity: collective.py:120. Each participant calls this once
+    with its rank before using group collectives."""
+    if not 0 <= rank < world_size:
+        raise ValueError(f"rank {rank} out of range for world_size {world_size}")
+    group = _registry.get_or_create(group_name, world_size)
+    if group.world_size != world_size:
+        raise ValueError(
+            f"collective group {group_name!r} already exists with world_size "
+            f"{group.world_size}, got {world_size}; destroy it first"
+        )
+    with group.condition:
+        group.local_ranks.add(rank)
+    # NOTE: stale death notices from a previous runtime incarnation are
+    # prevented at the source (cluster.shutdown marks the incarnation dead
+    # before async death handlers can write into fresh p2p state); clearing
+    # here would also erase GENUINE notices for a live group whose last
+    # rank inits after a peer died.
+    # publish this rank's data-plane address immediately: senders must be
+    # able to reach a rank that has not yet issued any collective call.
+    # ensure_endpoint: process workers and the driver build their transport
+    # lazily here (every execution mode owns one — core_worker.h:292).
+    try:
+        from ray_tpu_torch.runtime import p2p
+        from ray_tpu_torch.runtime.kv_client import is_multiprocess
+
+        if is_multiprocess() and p2p.ensure_endpoint() is not None:
+            p2p.register_rank(group_name, rank)
+    except Exception:  # noqa: BLE001 — in-proc clusters have no data plane
+        pass
+
+
+def destroy_collective_group(group_name: str = "default") -> None:
+    world = None
+    try:
+        world = _registry.get(group_name).world_size
+    except KeyError:
+        pass
+    _registry.destroy(group_name)
+    # drop rank-address registrations so a re-created group with different
+    # placement can't resolve stale endpoints
+    try:
+        from ray_tpu_torch.runtime import p2p
+        from ray_tpu_torch.runtime.kv_client import get_kv
+
+        p2p.forget_group(group_name)
+        kv = get_kv()
+        if kv is not None and world is not None:
+            for r in range(world):
+                kv.delete(p2p.addr_key(group_name, r))
+            kv.delete(f"rt_coll_grp/{group_name}".encode())
+    except Exception:  # noqa: BLE001 — best-effort cleanup
+        pass
+
+
+def _host_value(value: Any) -> Any:
+    """A tensor crosses the process boundary as a CPU copy (a worker
+    process never sees the card)."""
+    if isinstance(value, torch.Tensor) and value.device.type != "cpu":
+        return value.detach().cpu()
+    return value
+
+
+def _rendezvous_transport(
+    group_name: str, group: _Group, rank: int, value: Any, reduce_fn, timeout: float
+):
+    """Cross-process rendezvous over the data plane: contributions flow to
+    rank 0's store as direct store-to-store pushes, rank 0 reduces and
+    pushes the result back to every rank's store.  Receivers block on their
+    LOCAL store condition variable — no polling.  Role parity:
+    the reference's NCCL rendezvous + ring execution in
+    collective_group/nccl_collective_group.py."""
+    from ray_tpu_torch.runtime import p2p
+
+    with group.condition:
+        if not hasattr(group, "kv_gen"):
+            group.kv_gen = {}
+        gen = group.kv_gen.get(rank, 0)
+        group.kv_gen[rank] = gen + 1
+    world = group.world_size
+    # mailbox ids carry the group EPOCH so a re-created same-named group
+    # can never consume a stale contribution left by a timed-out round of
+    # its predecessor
+    epoch = getattr(group, "epoch", "")
+    p2p.register_rank(group_name, rank)
+    if rank == 0:
+        p2p.post(
+            p2p.get_endpoint().address,
+            p2p.mailbox_oid("rdv", group_name, epoch, gen, "c", 0),
+            _host_value(value),
+        )
+        values: List[Any] = [
+            p2p.take_group(group_name, p2p.mailbox_oid("rdv", group_name, epoch, gen, "c", r), timeout)
+            for r in range(world)
+        ]
+        result = reduce_fn(values)
+        host_result = _host_value(result)
+        for r in range(1, world):
+            p2p.post_to_rank(
+                group_name, r, p2p.mailbox_oid("rdv", group_name, epoch, gen, "r", r),
+                host_result, timeout=timeout,
+            )
+        return result
+    p2p.post_to_rank(
+        group_name, 0, p2p.mailbox_oid("rdv", group_name, epoch, gen, "c", rank),
+        _host_value(value), timeout=timeout,
+    )
+    return p2p.take_group(group_name, p2p.mailbox_oid("rdv", group_name, epoch, gen, "r", rank), timeout)
+
+
+def _route(group_name: str, group: _Group) -> str:
+    """Latch the group's rendezvous mechanism.
+
+    ``inproc`` only when PROVABLY safe: every rank of the group called
+    ``init_collective_group`` in this process (``local_inits == world``), so
+    the shared in-memory group object reaches all of them.  Anything less —
+    declaratively-bound groups, ranks in agents or process workers — routes
+    over the data-plane transport, where same-process delivery still
+    short-circuits to a local store put.  Every execution mode can own a
+    transport (``p2p.ensure_endpoint``), so there is exactly ONE
+    cross-process mechanism and mixed thread/process groups cannot split."""
+    from ray_tpu_torch.runtime import p2p
+    from ray_tpu_torch.runtime.kv_client import get_kv, is_multiprocess
+
+    with group.condition:
+        if group.routing is not None:
+            return group.routing
+        provably_local = len(group.local_ranks) >= group.world_size
+    if provably_local:
+        routing = "inproc"
+    elif not is_multiprocess():
+        # single-process clusters stay socket-free (is_multiprocess is True
+        # in agents/workers, with remote nodes, and on a driver hosting
+        # process-actor participants) — but this answer is UNPROVEN, so it
+        # is NOT latched: the evidence can appear moments later (a process
+        # actor finishing its spawn), and a sticky wrong "inproc" would
+        # strand every subsequent send/recv in process-local mailboxes
+        return "inproc"
+    else:
+        # endpoint build (sockets) happens outside the group lock
+        ep = p2p.ensure_endpoint() if get_kv() is not None else None
+        if ep is None:
+            return "inproc"  # also unproven: don't latch
+        routing = "transport"
+    with group.condition:
+        if group.routing is None:
+            group.routing = routing
+        return group.routing
+
+
+def use_transport(group_name: str) -> bool:
+    """Shared routing decision for group ops AND point-to-point send/recv —
+    one answer per group per process, so the two can't disagree."""
+    try:
+        group = _registry.get(group_name)
+    except KeyError:
+        from ray_tpu_torch.runtime import p2p
+        from ray_tpu_torch.runtime.kv_client import get_kv, is_multiprocess
+
+        return (
+            is_multiprocess()
+            and get_kv() is not None
+            and p2p.ensure_endpoint() is not None
+        )
+    return _route(group_name, group) == "transport"
+
+
+class _ReRoute(Exception):
+    """Internal: an unproven in-memory wait detected that the group spans
+    processes after all — unwind and run the round over the transport."""
+
+
+def _run_rendezvous(
+    group_name: str, group: _Group, rank: int, value: Any, reduce_fn,
+    timeout: Optional[float] = None,
+):
+    """Route one collective round (see :func:`_route`).
+
+    An "inproc" route that is NOT proven local (chosen only because no
+    multiprocess evidence existed yet) can be wrong by a race: a thread
+    actor's first collective may run before the process-actor rank's worker
+    even spawns.  Such waits poll the evidence every 250 ms and re-route
+    mid-round — the in-memory contribution is unwound and replayed over the
+    transport with the same generation the remote ranks are using."""
+    from ray_tpu_torch.core.config import get_config
+    from ray_tpu_torch.runtime.kv_client import is_multiprocess
+
+    if timeout is None:
+        timeout = get_config().collective_timeout_s
+    try:
+        if _route(group_name, group) == "transport":
+            return _rendezvous_transport(group_name, group, rank, value, reduce_fn, timeout)
+        with group.condition:
+            proven = len(group.local_ranks) >= group.world_size
+        escape = None if proven else is_multiprocess
+        try:
+            return _rendezvous(group, rank, value, reduce_fn, timeout, escape=escape)
+        except _ReRoute:
+            with group.condition:
+                group.routing = None
+            if _route(group_name, group) != "transport":
+                raise TimeoutError(
+                    f"collective group {group_name!r} spans processes but no "
+                    "transport endpoint could be built"
+                ) from None
+            return _rendezvous_transport(group_name, group, rank, value, reduce_fn, timeout)
+    except TimeoutError:
+        # A timed-out round may mean the latch chose wrong (e.g. the group's
+        # first collective ran before an endpoint became available): clear
+        # it so the next attempt re-evaluates instead of being stuck.
+        with group.condition:
+            group.routing = None
+        raise
+
+
+def _rendezvous(group: _Group, rank: int, value: Any, reduce_fn, timeout: float, escape=None):
+    """All-contribute-then-all-collect with generation counting so groups are
+    reusable across rounds.  ``escape`` (optional zero-arg predicate) is
+    polled during the wait; when it turns true the rank's contribution is
+    unwound and :class:`_ReRoute` raised (see _run_rendezvous)."""
+    import time as _time
+
+    with group.condition:
+        my_generation = group.generation
+        group.contributions[rank] = value
+        group.arrived += 1
+        if group.arrived == group.world_size:
+            ordered = [group.contributions[r] for r in sorted(group.contributions)]
+            group.result = reduce_fn(ordered)
+            group.contributions = {}
+            group.arrived = 0
+            group.generation += 1
+            group.condition.notify_all()
+            return group.result
+        deadline = _time.monotonic() + timeout
+        while True:
+            remaining = deadline - _time.monotonic()
+            if remaining <= 0:
+                raise TimeoutError(f"collective rendezvous timed out (rank {rank})")
+            done = group.condition.wait_for(
+                lambda: group.generation > my_generation,
+                timeout=min(0.25, remaining) if escape is not None else remaining,
+            )
+            if done:
+                return group.result
+            if escape is not None and escape():
+                if group.generation == my_generation and rank in group.contributions:
+                    del group.contributions[rank]
+                    group.arrived -= 1
+                raise _ReRoute()
+
+
+def allreduce_tensor(tensor, rank: int, group_name: str = "default", op: str = "sum"):
+    """Group allreduce (reference: collective.py:258 allreduce): the
+    contributions summed in member order (``acc = v0; acc = acc + v1; ...``),
+    on the contributions' device."""
+    group = _registry.get(group_name)
+
+    def reduce_fn(values: List[Any]):
+        acc = values[0]
+        for v in values[1:]:
+            acc = acc + v
+        if op == "mean":
+            acc = acc / len(values)
+        elif op == "max":
+            if isinstance(values[0], torch.Tensor):
+                acc = torch.stack(list(values)).amax(0)
+            elif hasattr(values[0], "shape"):
+                acc = np.stack([np.asarray(v) for v in values]).max(0)
+            else:
+                acc = max(values)
+        return acc
+
+    return _run_rendezvous(group_name, group, rank, tensor, reduce_fn)
+
+
+def allgather_tensor(tensor, rank: int, group_name: str = "default"):
+    group = _registry.get(group_name)
+    return _run_rendezvous(group_name, group, rank, tensor, lambda values: list(values))
+
+
+def broadcast_tensor(tensor, rank: int, src_rank: int = 0, group_name: str = "default"):
+    group = _registry.get(group_name)
+    return _run_rendezvous(group_name, group, rank, tensor, lambda values: values[src_rank])
+
+
+def reducescatter_tensor(tensor, rank: int, group_name: str = "default"):
+    group = _registry.get(group_name)
+
+    def reduce_fn(values: List[Any]):
+        acc = values[0]
+        for v in values[1:]:
+            acc = acc + v
+        if isinstance(acc, torch.Tensor):
+            return list(torch.tensor_split(acc, group.world_size, dim=0))
+        return np.array_split(np.asarray(acc), group.world_size, axis=0)
+
+    chunks = _run_rendezvous(group_name, group, rank, tensor, reduce_fn)
+    return chunks[rank]
+
+
+def barrier_group(rank: int, group_name: str = "default") -> None:
+    group = _registry.get(group_name)
+    _run_rendezvous(group_name, group, rank, None, lambda values: None)
 
 
 # --------------------------------------------------------------------------

@@ -16,14 +16,17 @@ every host's devices. Here each rank is a process, and joining means
 * :func:`multihost_mesh` — a :class:`~ray_tpu_torch.parallel.mesh.Mesh` whose
   dcn axis owns whole hosts' blocks of ranks (the reference's reshape and
   ``moveaxis``).
+* :func:`rendezvous_via_cluster` — agree on rank 0's address through the
+  runtime's control KV; :func:`initialize` takes what it returns.
 """
 
 from __future__ import annotations
 
 import datetime
 import os
+import time
 import weakref
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -147,3 +150,51 @@ def multihost_mesh(axis_names: Sequence[str], axis_sizes: Sequence[int], *,
     else:
         arr = np.array(devs).reshape(sizes)
     return Mesh(arr, tuple(names))
+
+
+def rendezvous_via_cluster(
+    rank: int,
+    world_size: int,
+    *,
+    group_name: str = "default",
+    port: int = 0,
+    timeout_s: float = 120.0,
+) -> Tuple[str, int, int]:
+    """Agree on a coordinator via the control-plane KV (NCCL-id-actor
+    parity): rank 0 picks ``host:port`` and publishes it; other ranks poll.
+    ``group_name`` scopes the key per gang — a retry or a second job must
+    not read a dead gang's address. Returns (coordinator_address,
+    world_size, rank) ready for :func:`initialize`.
+
+    The port's runtime is one host, so rank 0 publishes its loopback
+    address, where the JAX package publishes a routable one for agents on
+    other hosts (the multi-node runtime is not ported)."""
+    import socket
+
+    from ray_tpu_torch.runtime.kv_client import get_kv
+
+    # the in-process control KV on the driver, the worker-api KV in a pool
+    # worker
+    kv = get_kv()
+    if kv is None:
+        raise RuntimeError("no cluster KV reachable from this process (init ray_tpu_torch first)")
+    key = f"jax_distributed_coordinator/{group_name}".encode()
+    if rank == 0:
+        host = "127.0.0.1"
+        if port == 0:
+            with socket.socket() as s:
+                s.bind((host, 0))
+                port = s.getsockname()[1]
+        address = f"{host}:{port}"
+        kv.put(key, address.encode())
+    else:
+        deadline = time.monotonic() + timeout_s
+        while True:
+            raw = kv.get(key)
+            if raw:
+                address = raw.decode()
+                break
+            if time.monotonic() > deadline:
+                raise TimeoutError("rank 0 never published the coordinator address")
+            time.sleep(0.05)
+    return address, world_size, rank

@@ -2,9 +2,9 @@
 
 The port's copy of ``ray_tpu/runtime/cluster.py`` for one host: the in-process
 nodes, directory, pulls, retries, actors and chaos hooks are the same; the
-multi-host head service raises ``NotPortedError``, and there is no
-collective death notice (actor collective groups are not ported). Bulk
-values cross to worker processes through the port's native shm store.
+multi-host head service raises ``NotPortedError``, and a collective death
+notice reaches this process and its pool workers (no agents). Bulk values
+cross to worker processes through the port's native shm store.
 
 This object stitches together what the reference spreads over processes:
 
@@ -29,6 +29,7 @@ This object stitches together what the reference spreads over processes:
 from __future__ import annotations
 
 import os
+import sys
 import tempfile
 import threading
 import time
@@ -988,6 +989,10 @@ class Cluster:
             self._try_recover(oid)
         # dashboard stores: a dead node must not linger in the UI
         self.metrics_history.drop_node(node_id.hex())
+        # open collective waits involving ranks on this node fail NOW, not
+        # at the rendezvous timeout (direct_actor_task_submitter.h:120: the
+        # reference fails pending calls atomically with the death notice)
+        self._fail_collective_groups_for_node(node_id)
         # actors hosted there follow the restart FSM
         for info in self.control.actors.list_actors():
             if info.node_id == node_id and info.state in (ActorState.ALIVE, ActorState.PENDING_CREATION):
@@ -1986,6 +1991,9 @@ class Cluster:
             if node is not None and not node.dead:
                 node.kill_actor(actor_id)
                 node.pool.release(spec.resources)
+        # declaratively-bound collective groups the actor belongs to fail
+        # open waits immediately (direct_actor_task_submitter.h:120 parity)
+        self._fail_collective_groups_for_actor(actor_id, cause)
         # compiled execution plans using this actor as a stage are BROKEN —
         # even between iterations, so the next execute fails fast
         for plan in list(self.compiled_plans.values()):
@@ -2003,6 +2011,69 @@ class Cluster:
             self._schedule_actor_creation(spec)
         else:
             self._fail_actor_queue(actor_id, ActorDiedError(actor_id, f"The actor died: {cause}"))
+
+    # ------------------------------------------------------------------
+    # collective death notices
+    # ------------------------------------------------------------------
+    def _fail_collective_groups_for_node(self, node_id: NodeID) -> None:
+        """Groups with a rank registered from the dead node (the rank's
+        process published its hosting node beside its address —
+        ``p2p.node_key``) get a death notice."""
+        node_hex = node_id.hex().encode()
+        groups = set()
+        try:
+            for key in self.control.kv.keys(b"rt_coll_node/"):
+                if self.control.kv.get(key) == node_hex:
+                    parts = key.decode().split("/")
+                    if len(parts) == 3:
+                        groups.add(parts[1])
+        except Exception:  # noqa: BLE001 — notice is best-effort
+            return
+        if groups:
+            self._broadcast_collective_failure(
+                groups, f"node {node_id.hex()[:8]} died"
+            )
+
+    def _fail_collective_groups_for_actor(self, actor_id: ActorID, cause: str) -> None:
+        """Groups the actor was declaratively bound to
+        (``create_collective_group`` records actor->rank in the KV)."""
+        import pickle as _pickle
+
+        aid = actor_id.hex()
+        groups = set()
+        try:
+            for key in self.control.kv.keys(b"rt_coll_grp/"):
+                raw = self.control.kv.get(key)
+                if raw is None:
+                    continue
+                record = _pickle.loads(raw)
+                if aid in record.get("binding", {}):
+                    groups.add(key.decode().split("/", 1)[1])
+        except Exception:  # noqa: BLE001
+            return
+        if groups:
+            self._broadcast_collective_failure(groups, f"actor {aid[:8]} died: {cause}")
+
+    def _broadcast_collective_failure(self, groups, reason: str) -> None:
+        """Fan the death notice to every fabric process of this host: this
+        (driver) process and the pool workers (the JAX package also relays
+        it to agents, which the port does not have)."""
+        from ray_tpu_torch.runtime import p2p
+
+        if self._snapshot_stop.is_set():
+            # this cluster is shutting down (or already gone): a late
+            # handler must NOT write failure records into process-global p2p
+            # state — a NEXT runtime in this process may own same-named groups
+            return
+        group_list = sorted(groups)
+        for g in group_list:
+            p2p.fail_group(g, reason)
+        for node in list(self.nodes.values()):
+            if node.dead:
+                continue
+            pool = getattr(node, "worker_pool", None)
+            if pool is not None:
+                pool.broadcast_fail_group(group_list, reason)
 
     def kill_actor(self, actor_id: ActorID, no_restart: bool = True) -> None:
         info = self.control.actors.get(actor_id)
@@ -2307,11 +2378,20 @@ class Cluster:
                 pass
 
     def shutdown(self) -> None:
+        from ray_tpu_torch.runtime import p2p
+
         # FIRST: mark this incarnation dead, so async handlers racing the
         # teardown stop writing state the moment we start clearing it
         self._snapshot_stop.set()
         self.lease_manager.stop()
         self.watchdog.stop()
+        p2p.clear_endpoint()
+        # collective groups/counters index this runtime incarnation; a
+        # survivor would desync the next init against fresh-born peers
+        # (loaded only where a group was used: the module imports torch)
+        collective = sys.modules.get("ray_tpu_torch.parallel.collective")
+        if collective is not None:
+            collective.reset_module_state()
         with self._demand_cv:
             self._demand_stop = True
             self._demand_cv.notify_all()

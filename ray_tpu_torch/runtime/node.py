@@ -732,7 +732,9 @@ class Node:
             inst.call_queue.put(("__create__", spec))
         else:
             try:
-                worker = self.worker_pool.allocate_actor_worker()
+                # a process actor holding a GPU share sees the card
+                worker = self.worker_pool.allocate_actor_worker(
+                    sees_card=spec.resources.get("GPU") > 0)
             except RuntimeError as exc:
                 self.cluster.on_actor_creation_failed(spec, RayActorError(spec.actor_id, f"worker spawn failed: {exc}"))
                 return

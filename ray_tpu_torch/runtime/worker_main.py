@@ -38,10 +38,6 @@ def main() -> None:
     parser.add_argument("--shm", default="")
     args = parser.parse_args()
 
-    # Workers never touch the card: torch, if a task imports it, sees no
-    # CUDA device (the pool's spawn sets this too).
-    os.environ["CUDA_VISIBLE_DEVICES"] = ""
-
     # chaos: a RAY_TPU_FAILPOINTS spec exported on the driver (spawn passes
     # the environment through) arms the same failpoints in this worker
     from ray_tpu_torch.runtime import failpoints
@@ -277,6 +273,13 @@ class Worker:
                     "stacks_reply",
                     {"token": payload.get("token"), "stacks": _format_stacks()},
                 )
+            elif msg_type == "fail_group":
+                # handled on the READER thread: the exec thread may be the
+                # one blocked inside the collective wait being failed
+                from ray_tpu_torch.runtime import p2p
+
+                for g in payload["groups"]:
+                    p2p.fail_group(g, payload["reason"])
             else:
                 self._exec_queue.put((msg_type, payload))
         self._exec_queue.put(None)

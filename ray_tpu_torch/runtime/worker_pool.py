@@ -3,6 +3,10 @@
 The port's copy of ``ray_tpu/runtime/worker_pool.py``.  Workers start as
 ``python -S -m ray_tpu_torch.runtime.worker_main`` with the driver's
 ``sys.path`` and ``CUDA_VISIBLE_DEVICES=""``: they never touch the card.
+The one exception is a process actor that holds a GPU share (a
+``TorchTrainer`` rank on the card): it gets a fresh worker of its own that
+keeps the driver's ``CUDA_VISIBLE_DEVICES``, spawned like every worker,
+never forked.  The spawn environment is the one place that decides.
 
 Parity with the reference's ``WorkerPool`` (``src/ray/raylet/worker_pool.h:159``):
 spawns Python worker processes, prestarts a warm pool, hands idle workers to
@@ -168,19 +172,19 @@ class ProcessWorkerPool:
                     return  # pool torn down mid-prestart: stand down quietly
                 raise
 
-    def _spawn(self, to_idle: bool = True) -> WorkerHandle:
+    def _spawn(self, to_idle: bool = True, sees_card: bool = False) -> WorkerHandle:
         with self._spawn_cv:
             if self._shutdown:
                 raise RuntimeError("pool shut down")
             self._spawns_in_flight += 1
         try:
-            return self._spawn_worker(to_idle)
+            return self._spawn_worker(to_idle, sees_card)
         finally:
             with self._spawn_cv:
                 self._spawns_in_flight -= 1
                 self._spawn_cv.notify_all()
 
-    def _spawn_worker(self, to_idle: bool) -> WorkerHandle:
+    def _spawn_worker(self, to_idle: bool, sees_card: bool = False) -> WorkerHandle:
         chaos_kill = False
         if failpoints.ARMED:
             # chaos: "raise" fails the spawn outright (the growth/backlog
@@ -212,8 +216,9 @@ class ProcessWorkerPool:
                 env={
                     **os.environ,
                     # workers never touch the card: torch in a worker sees
-                    # no CUDA device and creates no CUDA context
-                    "CUDA_VISIBLE_DEVICES": "",
+                    # no CUDA device and creates no CUDA context (a GPU
+                    # process actor's worker keeps the driver's devices)
+                    **({} if sees_card else {"CUDA_VISIBLE_DEVICES": ""}),
                     "PYTHONPATH": pythonpath,
                     # pipes are block-buffered; prints must reach the driver live
                     "PYTHONUNBUFFERED": "1",
@@ -573,13 +578,15 @@ class ProcessWorkerPool:
             self._handle_worker_death(worker)
 
     # -- actors ---------------------------------------------------------
-    def allocate_actor_worker(self) -> Optional[WorkerHandle]:
+    def allocate_actor_worker(self, sees_card: bool = False) -> Optional[WorkerHandle]:
         """Dedicate a worker to an actor; spawns beyond the stateless-task
         cap if needed (dedicated workers don't count against it — actor
-        concurrency is limited by actor resources, not pool size)."""
-        worker = self._acquire_worker()
+        concurrency is limited by actor resources, not pool size).  An actor
+        that holds a GPU share (``sees_card``) gets a fresh worker that sees
+        the card."""
+        worker = None if sees_card else self._acquire_worker()
         if worker is None:
-            worker = self._spawn(to_idle=False)
+            worker = self._spawn(to_idle=False, sees_card=sees_card)
         worker.dedicated = True
         return worker
 
@@ -1022,6 +1029,18 @@ class ProcessWorkerPool:
         return self._kill_worker(worker, only_if_running=task_id)
 
     # ------------------------------------------------------------------
+    def broadcast_fail_group(self, groups, reason: str) -> None:
+        """Relay a collective death notice to every live worker (their
+        reader threads invoke p2p.fail_group locally — a worker blocked in
+        a collective wait can't be reached through the exec queue)."""
+        with self._lock:
+            workers = [w for w in self._all.values() if w.alive]
+        for w in workers:
+            try:
+                w.send("fail_group", {"groups": list(groups), "reason": reason})
+            except Exception:  # noqa: BLE001 — dying worker: its waits die with it
+                pass
+
     def has_process_participants(self) -> bool:
         """True when code that could join a collective is running in a
         spawned worker right now: an actor-dedicated worker exists, or a

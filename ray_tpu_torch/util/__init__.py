@@ -1,9 +1,8 @@
 """ray_tpu_torch.util: utility APIs layered on the core.
 
 The port's copy of ``ray_tpu/util/__init__.py``: the same behaviour, imports renamed
-to ``ray_tpu_torch``. Two names wait for later slices and raise
-``NotPortedError``: ``connect`` (the thin client, ``ray_tpu/util/client/``)
-and ``collective`` (actor collective groups, ``ray_tpu/util/collective.py``).
+to ``ray_tpu_torch``. One name waits for a later slice and raises
+``NotPortedError``: ``connect`` (the thin client, ``ray_tpu/util/client/``).
 
 Parity: ``python/ray/util/`` (SURVEY §2.4 util misc) — ActorPool, Queue,
 collective ops, scheduling strategies, serializability checking.
@@ -46,9 +45,13 @@ def connect(*args, **kwargs):
 
 
 def __getattr__(name: str):
+    # ``collective`` imports torch (its groups reduce tensors): load it on
+    # first use, so that ``import ray_tpu_torch.util`` stays torch-free for
+    # worker processes
     if name == "collective":
-        raise NotPortedError("util.collective (actor collective groups)",
-                             "ray_tpu/util/collective.py")
+        import importlib
+
+        return importlib.import_module(__name__ + ".collective")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
@@ -65,6 +68,7 @@ __all__ = [
     "ActorPool",
     "PlacementGroup",
     "accelerators",
+    "collective",
     "connect",
     "disconnect",
     "get_current_placement_group",

@@ -664,6 +664,76 @@ def test_elastic_kinds_run_on_the_in_process_cluster_as_in_jax():
 
 
 # --------------------------------------------------------------------------
+# 15. elastic gang training under chaos (test_chaos.py:1220): a hard kill
+#     of one gang member mid-step, then a graceful preemption; invariant 12
+#     replays every repair audit against an uninterrupted run
+# --------------------------------------------------------------------------
+def scenario_train_gang_kill_preempt(rt, seed):
+    chaos, fp = _mod(rt, "chaos"), _mod(rt, "runtime.failpoints")
+    controller = _mod(rt, "train.controller")
+    device = {} if rt.__name__ == "ray_tpu" else {"device": "cpu"}
+    rt.init(num_cpus=4)
+    try:
+        schedule = chaos.ChaosSchedule(
+            [chaos.ChaosEvent(0.0, "arm", spec="object_store.put=raise(0.4)"),
+             chaos.ChaosEvent(1.0, "preempt_gang_member", job="chaos_gang", graceful=False),
+             # a second later than the JAX test's 2.0: the repaired gang's
+             # steps before the preemption seals its audit are what
+             # invariant 12 replays, and a loaded worker's first steps
+             # (the JAX side's traces) can eat the whole second
+             chaos.ChaosEvent(3.0, "preempt_gang_member", job="chaos_gang", graceful=True)],
+            seed=seed, name="train-gang-kill-preempt")
+        seen = {}
+
+        def workload():
+            ctl = controller.TrainController(
+                "chaos_gang", world_size=4, batch_size=8, feature_dim=4,
+                seed=29, checkpoint_period=2, preemptible=True, **device)
+            refs = []
+            for i in range(10):
+                while True:
+                    try:
+                        refs.append(rt.put(("train", i)))
+                        break
+                    except fp.FailpointInjected:
+                        continue
+            deadline = time.monotonic() + 3.6
+            while time.monotonic() < deadline:
+                ctl.run(1, auto_repair=True)
+            ctl.run(3, auto_repair=True)
+            seen["outcomes"] = sorted({r["outcome"] for r in ctl.repair_history})
+            seen["preempted"] = any(r["reason"] == "preempt" for r in ctl.resize_history)
+            seen["world"] = ctl.world_size
+            ctl.shutdown()
+            return refs
+
+        result = chaos.ChaosRunner(schedule, quiesce_timeout=90).run(workload)
+        preempts = [e for e in result.events_applied if e["kind"] == "preempt_gang_member"]
+        return result, {**seen, "preempts": [(e.get("job"), e.get("graceful")) for e in preempts]}
+    finally:
+        rt.shutdown()
+
+
+@pytest.mark.parametrize("seed", [37])
+def test_train_gang_kill_preempt_matches_jax(seed):
+    """Both packages: the typed death repairs (or shrinks) the gang, the
+    graceful preemption resizes it, invariant 12 replays the repaired
+    trajectory bit for bit, and same-seed fault logs are byte-identical
+    (run twice each)."""
+    jax_runs, port_runs = _both(scenario_train_gang_kill_preempt, seed,
+                                volatile=("train_replayed_steps",))
+    for run in jax_runs + port_runs:
+        result, extra = run["result"], run["extra"]
+        assert result.ok, (result.workload_error, result.invariants.violations)
+        assert result.faults and all(f["fp"] == "object_store.put" for f in result.faults)
+        assert result.invariants.checked.get("train_repairs", 0) >= 1
+        assert result.invariants.checked.get("train_replayed_steps", 0) >= 1
+        assert set(extra["outcomes"]) <= {"repaired", "shrunk"} and extra["outcomes"]
+        assert extra["preempted"] and extra["world"] < 4
+        assert [list(p) for p in extra["preempts"]] == [["chaos_gang", False], ["chaos_gang", True]]
+
+
+# --------------------------------------------------------------------------
 # the overload kind and invariant 11 (test_overload.py:804)
 # --------------------------------------------------------------------------
 def scenario_overload(rt, seed):

@@ -1318,3 +1318,251 @@ def test_dag_plan_of_gpu_actors_killed_and_repaired(runtime):
         assert plan.state_history == ["READY", "BROKEN", "READY"]
     finally:
         plan.teardown()
+
+
+# --------------------------------------------------------------------------
+# the training library on the card (ray_tpu_torch.train, util.collective)
+# --------------------------------------------------------------------------
+def _tiny_train_cfg():
+    from ray_tpu_torch.models.transformer import TransformerConfig
+
+    # head_dim 64: the flash kernels' tensor-core route
+    return TransformerConfig(vocab_size=256, d_model=128, n_layers=2, n_heads=2, d_ff=256,
+                             max_seq_len=128, dtype=torch.bfloat16, attention="flash",
+                             remat="dots", scan_layers=False)
+
+
+def _attention_counts():
+    return {"fwd": tattn.flash_attention_with_lse, "dq": tattn.flash_attention_backward_dq,
+            "dkv": tattn.flash_attention_backward_dkv}
+
+
+def _read(fns):
+    return {k: dict(fn.launches_by_route) for k, fn in fns.items()}
+
+
+def _sub(after, before):
+    return {k: {r: x - before[k].get(r, 0) for r, x in per.items() if x - before[k].get(r, 0)}
+            for k, per in after.items()}
+
+
+def test_trainer_device_trainer_restarts_from_its_checkpoint_bitwise(runtime, tmp_path):
+    """``DeviceTrainer`` with one GPU rank: the rank's device is ``cuda:0``;
+    a framed checkpoint of the train state at step 2, one failure, the
+    restart resumes from it; the four losses equal a direct
+    ``make_train_step`` bitwise (deterministic algorithms on); each step
+    launches K3/K4/K5 2/1/1 a layer on ``wgmma_bf16``."""
+    import numpy as np
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.transformer import make_train_step
+
+    cfg = _tiny_train_cfg()
+    table = np.random.default_rng(0).integers(0, cfg.vocab_size, (8, 128), dtype=np.int32)
+    fns, log = _attention_counts(), {}
+
+    def loop(config):
+        ctx = train.get_context()
+        dev = ctx.get_devices()[0]
+        init_state, step = make_train_step(cfg, device=dev)
+        ckpt = train.get_checkpoint()
+        state = init_state(5) if ckpt is None else ckpt.to_pytree(device=dev)
+        start = int(state["step"])
+        shard = train.get_dataset_shard("train")
+        for i, batch in enumerate(shard.iter_device_batches(
+                batch_size=2, dtypes={"data": torch.int64}, device=dev, drop_last=True)):
+            if i < start:
+                continue
+            before = _read(fns)
+            state, loss = step(state, batch["data"])
+            torch.cuda.synchronize()
+            log[i + 1] = (float(loss), str(dev), _sub(_read(fns), before))
+            out = None
+            if i + 1 == 2 and ctx.get_restart_count() == 0:
+                out = train.Checkpoint.from_pytree(state, base_dir=str(tmp_path / "ck"))
+            train.report({"step": i + 1}, checkpoint=out)
+            if out is not None:
+                time.sleep(1.0)  # the driver drains reports every 0.2 s
+                raise RuntimeError("injected")
+
+    runtime.init(num_cpus=4)
+    torch.use_deterministic_algorithms(True)
+    try:
+        result = train.DeviceTrainer(
+            loop, datasets={"train": runtime.data.from_numpy(table)},
+            run_config=train.RunConfig(storage_path=str(tmp_path),
+                                       failure_config=train.FailureConfig(max_failures=1))).fit()
+        init_state, step = make_train_step(cfg, device="cuda")
+        state, direct = init_state(5), []
+        for i in range(4):
+            state, loss = step(state, torch.from_numpy(table[2 * i:2 * i + 2]).cuda().long())
+            direct.append(float(loss))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert result.error is None and sorted(log) == [1, 2, 3, 4]
+    assert [log[i][0] for i in range(1, 5)] == direct
+    want = {"fwd": {"wgmma_bf16": 4}, "dq": {"wgmma_bf16": 2}, "dkv": {"wgmma_bf16": 2}}
+    assert all(log[i][1] == "cuda:0" and log[i][2] == want for i in range(1, 5)), log
+
+
+def test_trainer_controller_gang_keeps_its_state_on_the_card(runtime):
+    """``TrainController`` over in-process GPU actors, a decoder's loss
+    over the flat row: world 2's losses within 2e-3 of world 1's; a member
+    preempted (killed for good) after the step-2 checkpoint: the typed
+    error, ``recover()`` shrinks, the next 2 losses bitwise ``replay``'s
+    (deterministic algorithms on); params and momentum stay on the card."""
+    import numpy as np
+
+    from ray_tpu_torch.exceptions import RayActorError
+    from ray_tpu_torch.models.transformer import init_params, loss_fn
+    from ray_tpu_torch.train import TrainController
+
+    cfg = _tiny_train_cfg()
+    tree = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    names = [("embed",), ("final_norm",)] + [("layers", k) for k in tree["layers"]]
+    shapes = [tree[n[0]].shape if len(n) == 1 else tree["layers"][n[1]].shape for n in names]
+    sizes = [int(np.prod(s)) for s in shapes]
+
+    def param_init(seed):
+        t = init_params(cfg, torch.Generator(device="cuda").manual_seed(seed))
+        return torch.cat([(t[n[0]] if len(n) == 1 else t["layers"][n[1]]).reshape(-1)
+                          for n in names])
+
+    def loss(flat, batch):
+        t = {"layers": {}}
+        for n, s, leaf in zip(names, shapes, torch.split(flat, sizes)):
+            (t if len(n) == 1 else t["layers"])[n[-1]] = leaf.view(s)
+        return loss_fn(cfg, t, batch.long()) * batch.shape[0]
+
+    rows = np.random.default_rng(1).integers(0, cfg.vocab_size, (8, 128)).astype(np.float32)
+    runtime.init(num_cpus=4)
+    ds = runtime.data.from_numpy(rows)
+    kw = dict(batch_size=2, seed=3, learning_rate=1e-2, loss_fn=loss, param_init=param_init,
+              dataset=ds, checkpoint_period=10**9, device="cuda")
+    torch.use_deterministic_algorithms(True)
+    ctl = None
+    try:
+        one = TrainController("cuda-w1", world_size=1, **kw)
+        w1 = one.run(4)
+        one.shutdown()
+        gpus = runtime.available_resources().get("GPU", 0)
+        ctl = TrainController("cuda-w2", world_size=2, preemptible=True, **kw)
+        # the gang holds the controller's card, half of it a member
+        assert runtime.available_resources().get("GPU", 0) == pytest.approx(gpus - 1.0)
+        ctl.run(2)
+        ctl.save_checkpoint()
+        w2 = ctl.run(2)
+        ctl.preempt_member(1, graceful=False)
+        with pytest.raises(RayActorError):
+            ctl.run(1, auto_repair=False)
+        assert ctl.recover() == "shrunk" and ctl.world_size == 1
+        post = ctl.run(2)[2:]
+        audit = runtime.get_cluster().train_repair_audits[-1]
+        assert audit["losses"] == post
+        assert ctl.replay(audit["state"], audit["world_size"], 2) == post
+        assert ctl._params.is_cuda and ctl._mom.is_cuda
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if ctl is not None:
+            ctl.shutdown()
+    np.testing.assert_allclose(w2, w1, rtol=2e-3)
+    assert all(np.isfinite(w1))
+
+
+def test_trainer_torch_trainer_ranks_share_the_card(runtime):
+    """``TorchTrainer``: two process ranks (workers that see the card
+    because they hold a GPU share) on ``cuda:0`` over gloo; the allreduce
+    gives 3.0 and DDP keeps the weights identical."""
+    from ray_tpu_torch.train import ScalingConfig
+    from ray_tpu_torch.train.torch import TorchTrainer
+
+    def loop(config):
+        import os
+
+        import torch as _torch
+        import torch.distributed as dist
+
+        from ray_tpu_torch import train
+        from ray_tpu_torch.train.torch import get_device, prepare_model
+
+        dev = get_device()
+        t = _torch.tensor([float(train.get_context().get_world_rank() + 1)], device=dev)
+        dist.all_reduce(t)
+        _torch.manual_seed(42)
+        model = prepare_model(_torch.nn.Linear(4, 1).to(dev))
+        opt = _torch.optim.SGD(model.parameters(), lr=0.1)
+        x = _torch.randn(8, 4, device=dev) * (train.get_context().get_world_rank() + 1)
+        for _ in range(3):
+            loss = ((model(x) - x.sum(1, keepdim=True)) ** 2).mean()
+            opt.zero_grad()
+            loss.backward()
+            opt.step()
+        w = _torch.tensor([model.module.weight[0, 0].item()])
+        got = [_torch.zeros(1) for _ in range(2)]
+        dist.all_gather(got, w)
+        train.report({"reduced": float(t.item()), "device": str(t.device), "pid": os.getpid(),
+                      "spread": float(got[0] - got[1])})
+
+    runtime.init(num_cpus=4)
+    result = TorchTrainer(loop, scaling_config=ScalingConfig(num_workers=2)).fit()
+    import os
+
+    assert result.error is None
+    m = result.metrics
+    assert m["reduced"] == 3.0 and m["device"] == "cuda:0" and m["spread"] == 0.0
+    assert m["pid"] != os.getpid()
+
+
+def test_trainer_torch_predictor_runs_on_the_card(runtime, tmp_path):
+    """``TorchPredictor`` from a ``TorchCheckpoint``: the model and its
+    inputs on ``cuda:0`` (the default), numpy out, the CPU's answers."""
+    import numpy as np
+
+    from ray_tpu_torch.train.torch import TorchCheckpoint, TorchPredictor
+
+    model = torch.nn.Linear(2, 1, bias=False)
+    with torch.no_grad():
+        model.weight.copy_(torch.tensor([[2.0, 3.0]]))
+    ckpt = TorchCheckpoint.from_model(model, base_dir=str(tmp_path))
+    p = TorchPredictor.from_checkpoint(ckpt, torch.nn.Linear(2, 1, bias=False))
+    assert p.device.type == "cuda" and next(p.model.parameters()).is_cuda
+    out = p.predict({"a": np.array([1.0, 0.0]), "b": np.array([0.0, 1.0])})["predictions"]
+    assert isinstance(out, np.ndarray) and out.ravel().tolist() == [2.0, 3.0]
+    cpu = TorchPredictor.from_checkpoint(ckpt, torch.nn.Linear(2, 1, bias=False), device="cpu")
+    x = np.random.default_rng(0).normal(size=(64, 2)).astype(np.float32)
+    np.testing.assert_allclose(p.predict(x)["predictions"], cpu.predict(x)["predictions"],
+                               rtol=1e-5, atol=1e-6)
+
+
+class _ArRank:
+    def __init__(self, rank):
+        from ray_tpu_torch.util import collective
+
+        collective.init_collective_group(2, rank, group_name="cuda-ar")
+        g = torch.Generator(device="cuda").manual_seed(rank)
+        self.x = torch.randn(1 << 20, generator=g, device="cuda")
+        self.rank = rank
+
+    def value(self):
+        return self.x
+
+    def allreduce(self):
+        from ray_tpu_torch.util import collective
+
+        return collective.allreduce(self.x, group_name="cuda-ar", rank=self.rank)
+
+
+def test_trainer_collective_group_allreduces_on_the_card(runtime):
+    """Two in-process GPU actors of one collective group: the allreduce of
+    a CUDA tensor is bitwise the member-order sum and stays on the card."""
+    from ray_tpu_torch.parallel import collective
+
+    runtime.init(num_cpus=4)
+    ranks = [runtime.remote(_ArRank).options(num_gpus=0.5).remote(r) for r in range(2)]
+    try:
+        x0, x1 = runtime.get([a.value.remote() for a in ranks])
+        outs = runtime.get([a.allreduce.remote() for a in ranks])
+        assert collective._registry.get("cuda-ar").routing == "inproc"
+        assert all(o.is_cuda and torch.equal(o, x0 + x1) for o in outs)
+    finally:
+        collective.destroy_collective_group("cuda-ar")

@@ -73,6 +73,11 @@ def _pull_chunked_large_object(s):
         client = s.dp.DataClient(chunk_bytes=1 << 20)
         got, _ = client.pull(server.address, oid.binary())
         client.close()
+        # the server thread counts its bytes after its last send returns,
+        # which can be after the client has them all: wait for the count
+        deadline = time.monotonic() + 10.0
+        while server.stats.snapshot()["bytes_sent"] == 0 and time.monotonic() < deadline:
+            time.sleep(0.005)
         # out-of-band frames: the array bytes moved raw, not as one pickle frame
         sent = server.stats.snapshot()["bytes_sent"]
         return {"equal": np.array_equal(got, value), "raw": sent >= value.nbytes,

@@ -100,6 +100,21 @@ def test_importing_the_engine_and_trainer_loads_no_jax():
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
 
 
+def test_importing_the_training_library_loads_no_jax_or_frameworks():
+    """``import ray_tpu_torch.train`` (trainers, controller, predictors,
+    the torch backend) loads neither JAX nor a framework the card's machine
+    lacks: pandas, tensorflow and transformers stay lazy."""
+    code = (
+        "import sys, ray_tpu_torch.train, ray_tpu_torch.train.torch, "
+        "ray_tpu_torch.train.controller, ray_tpu_torch.tune, ray_tpu_torch.util.collective\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu', 'pandas', "
+        "'tensorflow', 'transformers', 'xgboost', 'lightgbm'))\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
 def test_importing_the_serving_front_loads_no_jax():
     code = (
         "import sys, ray_tpu_torch.serve.llm, ray_tpu_torch.serve.disagg, "
