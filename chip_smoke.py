@@ -15,6 +15,7 @@
     python3 chip_smoke.py --phases build,parallel  # the parallel layer, ranks sharing the card
     python3 chip_smoke.py --phases build,tp_serve  # the tensor-parallel engine on 2 ranks
     python3 chip_smoke.py --phases build,trainer   # trainers, TrainController, collective groups
+    python3 chip_smoke.py --phases build,tune      # Tune: ASHA, Train-on-Tune, restore
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -315,10 +316,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
    an actor collective group of two in-process GPU actors allreduces a 64
    MiB f32 CUDA tensor: bitwise the member-order sum, on the card; ms a
    call.
-13. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
+13. ``tune`` — Tune (``ray_tpu_torch.tune``) over the train phase's 602M
+   step, one ``init(num_cpus=8)``, deterministic algorithms on: (a)
+   ``AsyncHyperBandScheduler`` (max_t 4, grace 1, reduction 2) over a grid
+   of four learning rates, two ``{"GPU": 0.5}`` trials at a time, each a
+   function trainable given the one seeded train state by
+   ``with_parameters``: it trains a copy (the put state is shared by every
+   trial) and reports the loss every step. At least one trial stops before
+   max_t; every loss is finite; the best trial's losses are bitwise a
+   direct run's from the same state at its rate; the put state's digest is
+   unchanged; K3/K4/K5 16/8/8 for every step the trials took, on
+   ``wgmma_bf16``; each trial's step ms beside the train phase's, the
+   experiment's wall seconds and peak memory. (b) Train-on-Tune: a
+   ``DeviceTrainer`` whose one rank holds half the card, two learning rates
+   two trials at a time, 2 steps each: every terminal loss bitwise a direct
+   run's, ``get_best_result()`` the lower, the launches counted. (c) an
+   experiment interrupted when its first trial finishes, then
+   ``Tuner.restore``: only the unfinished trials run, the interrupted one
+   from its checkpoint. Each experiment is waited on at most 600 s.
+14. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
    replaces, launches in the main-path runs (engine, server, disagg,
    runtime, serve, chaos, data, dag, tp_serve, train, moe_engine, vit_train, parallel,
-   trainer) in all and by phase, max
+   trainer, tune) in all and by phase, max
    error, device ms, plain ms, bound ms and what bounds it, library ms;
    K1/K2 also the event floor and each timed shape; K3/K4/K5 also the parallel phase's
    shard shapes (``parallel_<shape>_*``).
@@ -332,6 +351,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
 import gc
 import hashlib
@@ -354,7 +374,8 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 
 PHASES = ("build", "kernels", "forward_parity", "engine", "server", "disagg", "runtime",
           "serve", "chaos", "data", "dag", "tp_serve", "train_parity",
-          "train", "moe_parity", "moe_engine", "vit_train", "dit", "parallel", "trainer")
+          "train", "moe_parity", "moe_engine", "vit_train", "dit", "parallel", "trainer",
+          "tune")
 OPTIONAL_PHASES = ("profile",)
 
 
@@ -5483,6 +5504,303 @@ def run_trainer(torch, counters: dict, card: str, train_step_ms=None):
         rt.shutdown()
 
 
+TUNE_SEED = 17
+# (a): the ASHA grid. Every trial's first loss is the same (the step reports
+# the loss before its update); at rung 2 the later trials (1e-3, 3e-3) reach
+# a rung that already holds 3e-4's lower loss and are pruned
+TUNE_RATES = (1e-4, 3e-4, 1e-3, 3e-3)
+TUNE_MAX_T = 4  # (a): ASHA's max_t, the steps a trial may take
+TUNE_TOT_RATES = (3e-4, 1e-3)  # (b): the Train-on-Tune grid
+TUNE_TOT_STEPS = 2
+TUNE_WAIT_S = 600.0  # the bound on each experiment; a hang fails the phase
+
+
+def state_digest(torch, tree) -> str:
+    """A digest of a train state's bits, computed on the card: each leaf's
+    bit patterns summed plain and weighted by position (any in-place update
+    moves both)."""
+    parts = []
+
+    def walk(t, name):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{name}/{k}")
+            return
+        flat = t.detach().reshape(-1)
+        bits = flat.view(torch.int32 if flat.element_size() == 4 else torch.int16).long()
+        w = torch.arange(bits.numel(), device=bits.device) % 1000003 + 1
+        parts.append(f"{name}:{int(bits.sum())}:{int((bits * w).sum())}")
+
+    walk(tree, "")
+    return hashlib.sha256("|".join(parts).encode()).hexdigest()
+
+
+def bounded(what: str, fn, timeout_s: float = TUNE_WAIT_S):
+    """``fn()`` on a daemon thread, waited on at most ``timeout_s``: an
+    experiment that waits for ever (two demands on one card) fails the
+    phase instead of hanging the script."""
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as exc:  # noqa: BLE001 - re-raised below
+            box["err"] = exc
+
+    t = threading.Thread(target=run, name=f"tune-{what}", daemon=True)
+    t.start()
+    t.join(timeout_s)
+    if t.is_alive():
+        raise AssertionError(f"tune {what}: not done within {timeout_s} s")
+    if "err" in box:
+        raise box["err"]
+    return box["out"]
+
+
+def direct_losses(torch, cfg, state, tokens, lr: float, steps: int) -> list:
+    """``steps`` of ``make_train_step`` at ``lr`` from a copy of ``state``."""
+    from ray_tpu_torch.models.transformer import make_train_step
+
+    _, step = make_train_step(cfg, learning_rate=lr, device="cuda")
+    st, out = copy.deepcopy(state), []
+    for _ in range(steps):
+        st, loss = step(st, tokens)
+        out.append(float(loss))
+    del st
+    torch.cuda.empty_cache()
+    return out
+
+
+def tune_asha(torch, rt, cfg, counters: dict, card: str, train_step_ms) -> dict:
+    """(a): ASHA over a function trainable that trains the 602M step, two
+    half-card trials at a time, every trial from the one put state."""
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models.transformer import make_train_step
+
+    init_state, _ = make_train_step(cfg, device="cuda")
+    state = init_state(TUNE_SEED)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (6, cfg.max_seq_len), generator=g, device="cuda")
+    before = state_digest(torch, state)
+    log = {}  # learning rate -> [(loss, step ms)], every step a trial took
+
+    def step_trial(config, state=None):
+        # the put state is shared by every trial: train a copy of it
+        lr = config["learning_rate"]
+        st = copy.deepcopy(state)
+        _, step = make_train_step(cfg, learning_rate=lr, device="cuda")
+        rows = log.setdefault(lr, [])
+        for _ in range(TUNE_MAX_T):
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            st, loss = step(st, tokens)
+            e1.record()
+            e1.synchronize()
+            rows.append((float(loss), e0.elapsed_time(e1), str(loss.device)))
+            tune.report({"loss": rows[-1][0]})
+
+    trainable = tune.with_resources(tune.with_parameters(step_trial, state=state), {"GPU": 0.5})
+    sched = tune.AsyncHyperBandScheduler(time_attr="training_iteration", max_t=TUNE_MAX_T,
+                                         grace_period=1, reduction_factor=2)
+    tuner = tune.Tuner(trainable,
+                       param_space={"learning_rate": tune.grid_search(list(TUNE_RATES))},
+                       tune_config=tune.TuneConfig(metric="loss", mode="min",
+                                                   max_concurrent_trials=2, scheduler=sched))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    t0 = time.perf_counter()
+    grid = bounded("asha", tuner.fit)
+    wall_s = time.perf_counter() - t0
+    launches, by_route = read_counters(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    after = state_digest(torch, state)
+    if grid.errors or len(grid) != len(TUNE_RATES):
+        raise AssertionError(f"tune (a): {len(grid)} trials, errors {grid.errors}")
+    trials = {}
+    for i in range(len(grid)):
+        r = grid[i]
+        lr = r.config["learning_rate"]
+        took = log.get(lr, [])
+        reported = [row["loss"] for row in r.metrics_dataframe]
+        if not took or reported != [x for x, _, _ in took[:len(reported)]]:
+            raise AssertionError(f"tune (a) lr {lr}: reported {reported}, took {took}")
+        trials[lr] = {"steps": len(took), "reported": len(reported),
+                      "losses": [x for x, _, _ in took],
+                      "step_ms": [ms for _, ms, _ in took],
+                      "step_ms_median": statistics.median(ms for _, ms, _ in took),
+                      "devices": sorted({d for _, _, d in took})}
+    steps = sum(t["steps"] for t in trials.values())
+    if any(t["devices"] != ["cuda:0"] for t in trials.values()):
+        raise AssertionError(f"tune (a): devices {trials}")
+    if not all(math.isfinite(x) for t in trials.values() for x in t["losses"]):
+        raise AssertionError(f"tune (a): losses {trials}")
+    early = sorted(lr for lr, t in trials.items() if t["steps"] < TUNE_MAX_T)
+    if not early:
+        raise AssertionError(f"tune (a): ASHA stopped no trial before max_t {TUNE_MAX_T}: "
+                             f"{ {lr: t['losses'] for lr, t in trials.items()} }")
+    if after != before:
+        raise AssertionError("tune (a): the put state changed during the experiment")
+    check_per_call("tune (a)", (launches, by_route), steps, attention_want(cfg.n_layers))
+    best = grid.get_best_result()
+    best_lr = best.config["learning_rate"]
+    want = direct_losses(torch, cfg, state, tokens, best_lr, trials[best_lr]["steps"])
+    if trials[best_lr]["losses"] != want:
+        raise AssertionError(f"tune (a): best lr {best_lr} losses {trials[best_lr]['losses']}, "
+                             f"direct {want}")
+    del state
+    torch.cuda.empty_cache()
+    return {"part": "a_asha", "card": card, "rates": list(TUNE_RATES), "max_t": TUNE_MAX_T,
+            "trials": {str(lr): t for lr, t in sorted(trials.items())},
+            "stopped_early": early, "best_learning_rate": best_lr,
+            "best_losses_bitwise_equal_direct": True, "put_state_unchanged": True,
+            "put_state_digest": before, "steps": steps,
+            "train_phase_step_ms_median": train_step_ms, "wall_s": wall_s,
+            "peak_mem_gb": peak_gb, "launches": launches, "launches_by_route": by_route}
+
+
+def tune_train_on_tune(torch, rt, cfg, counters: dict, card: str) -> dict:
+    """(b): Train-on-Tune: a ``DeviceTrainer`` per trial, its one rank on a
+    half card, two trials at a time."""
+    from ray_tpu_torch import train, tune
+    from ray_tpu_torch.models.transformer import make_train_step
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, cfg.vocab_size, (6, cfg.max_seq_len), generator=g, device="cuda")
+    devices = []
+
+    def loop(config):
+        dev = train.get_context().get_devices()[0]
+        devices.append(str(dev))
+        init_state, step = make_train_step(cfg, learning_rate=config["learning_rate"], device=dev)
+        st = init_state(TUNE_SEED)
+        for i in range(TUNE_TOT_STEPS):
+            st, loss = step(st, tokens)
+            train.report({"step": i + 1, "loss": float(loss)})
+
+    trainer = train.DeviceTrainer(loop, scaling_config=train.ScalingConfig(
+        num_workers=1, num_devices_per_worker=0.5))
+    tuner = tune.Tuner(trainer, param_space={"train_loop_config": {
+        "learning_rate": tune.grid_search(list(TUNE_TOT_RATES))}},
+        tune_config=tune.TuneConfig(metric="loss", mode="min", max_concurrent_trials=2))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counters(counters)
+    t0 = time.perf_counter()
+    grid = bounded("train_on_tune", tuner.fit)
+    wall_s = time.perf_counter() - t0
+    launches, by_route = read_counters(counters)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if grid.errors or len(grid) != len(TUNE_TOT_RATES):
+        raise AssertionError(f"tune (b): {len(grid)} trials, errors {grid.errors}")
+    init_state, _ = make_train_step(cfg, device="cuda")
+    state = init_state(TUNE_SEED)
+    terminal = {}
+    for i in range(len(grid)):
+        r = grid[i]
+        lr = r.config["learning_rate"]
+        want = direct_losses(torch, cfg, state, tokens, lr, TUNE_TOT_STEPS)
+        terminal[lr] = r.metrics["loss"]
+        if r.metrics["loss"] != want[-1] or r.metrics.get("step") != TUNE_TOT_STEPS:
+            raise AssertionError(f"tune (b) lr {lr}: terminal {r.metrics}, direct {want}")
+    del state
+    torch.cuda.empty_cache()
+    best_lr = grid.get_best_result().config["learning_rate"]
+    if best_lr != min(terminal, key=terminal.get):
+        raise AssertionError(f"tune (b): best {best_lr}, terminal losses {terminal}")
+    if devices != ["cuda:0"] * len(TUNE_TOT_RATES):
+        raise AssertionError(f"tune (b): rank devices {devices}")
+    check_per_call("tune (b)", (launches, by_route), TUNE_TOT_STEPS * len(TUNE_TOT_RATES),
+                   attention_want(cfg.n_layers))
+    return {"part": "b_train_on_tune", "card": card, "rates": list(TUNE_TOT_RATES),
+            "steps": TUNE_TOT_STEPS, "terminal_losses": {str(k): v for k, v in terminal.items()},
+            "terminal_bitwise_equal_direct": True, "best_learning_rate": best_lr,
+            "rank_devices": devices, "wall_s": wall_s, "peak_mem_gb": peak_gb,
+            "launches": launches, "launches_by_route": by_route}
+
+
+def tune_restore(torch, rt, card: str) -> dict:
+    """(c): an experiment interrupted (``KeyboardInterrupt`` from a callback)
+    when its first trial finishes, then ``Tuner.restore``: the finished
+    trial keeps its result, the interrupted one resumes from its checkpoint,
+    the one never started runs whole."""
+    from ray_tpu_torch import train, tune
+
+    tmp = tempfile.mkdtemp(prefix="tune_c_")
+    ran = []  # (stage, x, i): every step any trial took
+    stage = {"now": "first"}
+    released = threading.Event()
+
+    def trainable(config):
+        ckpt = tune.get_checkpoint()
+        start = ckpt.to_dict()["i"] + 1 if ckpt is not None else 0
+        for i in range(start, 4):
+            if config["x"] == 20 and i == 2 and stage["now"] == "first":
+                released.wait(60.0)  # held until the experiment is interrupted
+            v = torch.full((1024,), float(config["x"] + i), device="cuda")
+            ran.append((stage["now"], config["x"], i, float(v.sum()), str(v.device)))
+            time.sleep(0.1 if config["x"] == 10 else 0.01)
+            tune.report({"i": i, "v": float(v.sum())},
+                        checkpoint=train.Checkpoint.from_dict({"i": i}))
+
+    class Interrupt(tune.Callback):
+        def on_trial_complete(self, trial):
+            raise KeyboardInterrupt("interrupted after the first trial finished")
+
+    space = {"x": tune.grid_search([10, 20, 30])}
+    cfg = dict(metric="i", mode="max", max_concurrent_trials=2)
+    t0 = time.perf_counter()
+    try:
+        tune.Tuner(trainable, param_space=space, tune_config=tune.TuneConfig(**cfg),
+                   run_config=train.RunConfig(name="exp", storage_path=tmp,
+                                              callbacks=[Interrupt()])).fit()
+        raise AssertionError("tune (c): the experiment was not interrupted")
+    except KeyboardInterrupt:
+        pass
+    released.set()
+    deadline = time.monotonic() + 60
+    while (20, 3) not in {(x, i) for _, x, i, _, _ in ran} and time.monotonic() < deadline:
+        time.sleep(0.05)  # the interrupted run's trial thread finishes its loop
+    stage["now"] = "restore"
+    path = os.path.join(tmp, "exp")
+    if not tune.Tuner.can_restore(path):
+        raise AssertionError(f"tune (c): nothing to restore in {path}")
+    grid = bounded("restore", tune.Tuner.restore(path, trainable, param_space=space,
+                                                 tune_config=tune.TuneConfig(**cfg)).fit)
+    wall_s = time.perf_counter() - t0
+    again = sorted((x, i) for s, x, i, _, _ in ran if s == "restore")
+    by_x = sorted((r.config["x"], r.metrics["i"]) for r in grid)
+    want = [(20, 2), (20, 3), (30, 0), (30, 1), (30, 2), (30, 3)]
+    if again != want or by_x != [(10, 3), (20, 3), (30, 3)] or grid.errors:
+        raise AssertionError(f"tune (c): restore ran {again}, results {by_x}, "
+                             f"errors {grid.errors}")
+    if any(d != "cuda:0" or v != 1024 * (x + i) for _, x, i, v, d in ran):
+        raise AssertionError(f"tune (c): steps {ran}")
+    import shutil
+
+    shutil.rmtree(tmp, ignore_errors=True)
+    return {"part": "c_restore", "card": card, "first_run": sorted(
+        (x, i) for s, x, i, _, _ in ran if s == "first"), "restore_ran": again,
+        "results": by_x, "wall_s": wall_s}
+
+
+def run_tune(torch, counters: dict, card: str, train_step_ms=None):
+    """The tune phase: (a)-(c) under one ``init(num_cpus=8)``, deterministic
+    algorithms on (the bitwise checks against direct runs)."""
+    import ray_tpu_torch as rt
+
+    cfg = train_config(torch)
+    rt.init(num_cpus=8)
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield tune_asha(torch, rt, cfg, counters, card, train_step_ms)
+        yield tune_train_on_tune(torch, rt, cfg, counters, card)
+        yield tune_restore(torch, rt, card)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        rt.shutdown()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5727,6 +6045,14 @@ def main(argv=None) -> int:
                 count("trainer", rep["launches"], rep["launches_by_route"])
         emit({"phase": "trainer", "ok": True, "card": card,
               "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+    if "tune" in phases:
+        t0 = time.perf_counter()
+        for rep in run_tune(torch, attention_kernels, card, train_step_ms):
+            emit({"phase": "tune", "ok": True, **rep})
+            if "launches" in rep:
+                count("tune", rep["launches"], rep["launches_by_route"])
+        emit({"phase": "tune", "ok": True, "card": card, "seconds": time.perf_counter() - t0})
         torch.cuda.empty_cache()
     if kernels:
         # the K3 entry's ms/bound are its serving prefill shape; train_* keys

@@ -1,8 +1,7 @@
 """Per-trial Tune session (function-trainable API).
 
-The port's copy of ``ray_tpu/tune/session.py``, whole: the rest of
-``tune/`` waits for a later slice; ``train.trainer`` reaches this module's
-``report`` and ``in_tune_session``.
+The port's copy of ``ray_tpu/tune/session.py``, whole; ``train.trainer``
+reaches this module's ``report`` and ``in_tune_session``.
 
 Parity: ``python/ray/tune`` session — ``tune.report(metrics, checkpoint=)``
 inside a function trainable, cooperative early-stopping (the reference stops

@@ -1566,3 +1566,75 @@ def test_trainer_collective_group_allreduces_on_the_card(runtime):
         assert all(o.is_cuda and torch.equal(o, x0 + x1) for o in outs)
     finally:
         collective.destroy_collective_group("cuda-ar")
+
+
+# --------------------------------------------------------------------------
+# Tune on the card
+# --------------------------------------------------------------------------
+def test_tune_gpu_trials_share_the_card(runtime):
+    """``{"GPU": 0.5}`` trials: each runner is an in-process GPU actor and
+    sees ``cuda:0``; two run at once, and a third waits for a slot (the
+    sum over ``max_concurrent_trials`` fits one card)."""
+    import os
+    import threading
+
+    from ray_tpu_torch import tune
+
+    runtime.init(num_cpus=4)
+    lock = threading.Lock()
+    seen = {"now": 0, "most": 0, "rows": []}
+
+    def trainable(config):
+        x = torch.full((4,), float(config["x"]), device="cuda")
+        with lock:
+            seen["now"] += 1
+            seen["most"] = max(seen["most"], seen["now"])
+            seen["rows"].append((os.getpid(), str(x.device),
+                                 runtime.available_resources().get("GPU", 0.0)))
+        time.sleep(0.3)
+        with lock:
+            seen["now"] -= 1
+        tune.report({"s": float(x.sum())})
+
+    grid = tune.run(tune.with_resources(trainable, {"GPU": 0.5}),
+                    config={"x": tune.grid_search([1, 2, 3])}, metric="s", mode="max",
+                    max_concurrent_trials=2)
+    assert len(grid) == 3 and not grid.errors
+    assert grid.get_best_result().metrics["s"] == 12.0
+    assert seen["most"] == 2
+    assert all(pid == os.getpid() and dev == "cuda:0" and free <= 0.5
+               for pid, dev, free in seen["rows"])
+
+
+def test_tune_transformers_predictor_needs_cuda_unless_given_the_cpu(cuda, monkeypatch):
+    """``TransformersPredictor`` on a model that returns ``.logits`` (no
+    transformers needed): on ``cuda:0`` by default, the CPU's answers; no
+    CUDA and no device: it refuses."""
+    import types
+
+    import numpy as np
+
+    from ray_tpu_torch.train.huggingface import TransformersPredictor
+
+    class Logits(torch.nn.Module):
+        def __init__(self):
+            super().__init__()
+            self.emb = torch.nn.Embedding(16, 4)
+
+        def forward(self, input_ids):
+            return types.SimpleNamespace(logits=self.emb(input_ids))
+
+    torch.manual_seed(0)
+    model = Logits()
+    ids = np.array([[1, 2, 3], [4, 5, 6]], dtype=np.int64)
+    want = model(torch.from_numpy(ids)).logits.detach().numpy()
+    p = TransformersPredictor(model)
+    assert p.device.type == "cuda" and next(p.model.parameters()).is_cuda
+    got = p.predict(ids)["predictions"]
+    assert isinstance(got, np.ndarray)
+    np.testing.assert_array_equal(got, want)
+    cpu = TransformersPredictor(Logits(), device="cpu")
+    assert cpu.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TransformersPredictor(Logits())

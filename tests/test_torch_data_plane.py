@@ -95,6 +95,11 @@ def _push_roundtrip(s):
         client.push(server.address, oid.binary(), value)
         got = store.get(oid, timeout=5)
         client.close()
+        # the server thread counts a push after its ack is sent, which can
+        # be after the client has returned: wait for the count (F19)
+        deadline = time.monotonic() + 10.0
+        while server.stats.snapshot()["pushes_received"] == 0 and time.monotonic() < deadline:
+            time.sleep(0.005)
         return {"step": got["step"], "equal": np.array_equal(got["weights"], value["weights"]),
                 "received": server.stats.snapshot()["pushes_received"]}
     finally:

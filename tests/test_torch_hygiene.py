@@ -102,14 +102,23 @@ def test_importing_the_engine_and_trainer_loads_no_jax():
 
 def test_importing_the_training_library_loads_no_jax_or_frameworks():
     """``import ray_tpu_torch.train`` (trainers, controller, predictors,
-    the torch backend) loads neither JAX nor a framework the card's machine
-    lacks: pandas, tensorflow and transformers stay lazy."""
+    the torch backend, the framework trainers) and ``ray_tpu_torch.tune``
+    load neither JAX nor a framework the card's machine lacks: pandas,
+    tensorflow, transformers, accelerate, the GBDT packages, optuna and
+    IPython stay lazy."""
     code = (
         "import sys, ray_tpu_torch.train, ray_tpu_torch.train.torch, "
-        "ray_tpu_torch.train.controller, ray_tpu_torch.tune, ray_tpu_torch.util.collective\n"
+        "ray_tpu_torch.train.controller, ray_tpu_torch.tune, ray_tpu_torch.util.collective, "
+        "ray_tpu_torch.tune.tuner, ray_tpu_torch.tune.controller, "
+        "ray_tpu_torch.tune.schedulers, ray_tpu_torch.tune.search, "
+        "ray_tpu_torch.tune.experiment, ray_tpu_torch.tune.callback, "
+        "ray_tpu_torch.train.gbdt, ray_tpu_torch.train.xgboost, "
+        "ray_tpu_torch.train.lightgbm, ray_tpu_torch.train.tensorflow, "
+        "ray_tpu_torch.train.huggingface\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu', 'pandas', "
-        "'tensorflow', 'transformers', 'xgboost', 'lightgbm'))\n"
+        "'tensorflow', 'transformers', 'accelerate', 'xgboost', 'lightgbm', 'optuna', "
+        "'IPython'))\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
@@ -169,6 +178,42 @@ def test_load_model_without_device_refuses_to_fall_back_to_cpu(monkeypatch, tmp_
         load_model(str(tmp_path))
     _, params = load_model(str(tmp_path), device="cpu")
     assert params["embed"].device.type == "cpu"
+
+
+def test_transformers_predictor_without_device_refuses_to_fall_back_to_cpu(monkeypatch):
+    from ray_tpu_torch.train.huggingface import TransformersPredictor
+
+    class _Logits(torch.nn.Module):
+        def forward(self, input_ids):
+            return input_ids
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TransformersPredictor(_Logits())
+    assert TransformersPredictor(_Logits(), device="cpu").device.type == "cpu"
+
+
+def test_gpu_trial_without_a_gpu_refuses_to_run():
+    """A trial given a GPU share on a cluster with no GPU raises at its
+    start: it neither waits for a card nor runs on the CPU in its place."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import tune
+
+    ran = []
+
+    def trainable(config):
+        ran.append(config)
+        tune.report({"ok": 1})
+
+    rt.init(num_cpus=2, num_gpus=0)
+    try:
+        with pytest.raises(RuntimeError, match="asks for 0.5 GPU and the cluster has none"):
+            tune.run(tune.with_resources(trainable, {"GPU": 0.5}), config={},
+                     metric="ok", mode="max")
+        grid = tune.run(trainable, config={}, metric="ok", mode="max")
+    finally:
+        rt.shutdown()
+    assert ran == [{}] and grid.get_best_result().metrics["ok"] == 1
 
 
 def test_unported_engine_options_raise():

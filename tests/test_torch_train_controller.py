@@ -192,7 +192,11 @@ def sc_claim_after_head_restart(s, tmp):
         ctl2.shutdown()
 
 
-def _kill_one_train_worker(s, cluster, done, timeout=30.0):
+def _kill_one_train_worker(s, cluster, done, timeout=30.0, after=None):
+    """Kill the first live train rank, once ``after`` is set (if given; at
+    most 60 s), and set ``done``."""
+    if after is not None and not after.wait(60.0):
+        return
     deadline = time.monotonic() + timeout
     while time.monotonic() < deadline and not done.is_set():
         for info in cluster.control.actors.list_actors():
@@ -233,22 +237,33 @@ def sc_iterator_member_kill(s, tmp):
 
 
 def sc_iterator_auto_repair(s, tmp):
+    """The kill lands on a running gang: after the consumer's first row (so
+    the gang has started, inside the attempt's ``try`` in both packages;
+    F15 is the JAX package's race of a kill while it starts), and the loop
+    reports until the kill has landed (at most ~60 s), then 20 more times,
+    in the first attempt and in the repaired one."""
     train = s.train
+    started, killed = threading.Event(), threading.Event()
 
     def loop(config):
-        for i in range(20):
+        for i in range(3000):
             train.report({"i": i})
             time.sleep(0.02)
+            if killed.is_set() and i >= 20:
+                break
 
     trainer = s.trainer(loop, scaling_config=train.ScalingConfig(num_workers=2),
                         run_config=train.RunConfig(
                             failure_config=train.FailureConfig(max_failures=2)))
     it = trainer.training_iterator(auto_repair=True)
-    killed = threading.Event()
     killer = threading.Thread(target=_kill_one_train_worker,
-                              args=(s, s.rt.get_cluster(), killed), daemon=True)
+                              args=(s, s.rt.get_cluster(), killed),
+                              kwargs={"after": started}, daemon=True)
     killer.start()
-    rows = list(it)
+    rows = []
+    for row in it:
+        rows.append(row)
+        started.set()
     killer.join(timeout=30)
     return {"error": it.result().error, "rows": bool(rows), "killed": killed.is_set()}
 
