@@ -16,6 +16,7 @@
     python3 chip_smoke.py --phases build,tp_serve  # the tensor-parallel engine on 2 ranks
     python3 chip_smoke.py --phases build,trainer   # trainers, TrainController, collective groups
     python3 chip_smoke.py --phases build,tune      # Tune: ASHA, Train-on-Tune, restore
+    python3 chip_smoke.py --phases build,jobs      # submitted GPU jobs, a durable workflow, state
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -334,10 +335,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
    experiment interrupted when its first trial finishes, then
    ``Tuner.restore``: only the unfinished trials run, the interrupted one
    from its checkpoint. Each experiment is waited on at most 600 s.
+13b. ``jobs`` — jobs, workflows, state and usage on the card, one
+   ``init(num_cpus=8, include_dashboard=True)``: (a) ``JobSubmissionClient``
+   submits a driver (``job_driver``) by ``runtime_env={"working_dir": ...,
+   "env_vars": {seed, mode}}``; in its own process it builds the serving
+   decoder from the serving phases' seed, serves the engine phase's burst
+   through a GPU actor of its own runtime, float and int8, and prints each
+   run's token digest and K1/K6 launches: the job ``SUCCEEDED``, the digests
+   equal this process's own burst, K1 16 a decode step, K6 96 a forward on
+   ``mma_bf16``, the kernels loaded from the build phase's libraries (none
+   rebuilt); job start to first token. (b) a second GPU job decodes in a
+   loop; ``stop_job`` while it runs gives ``STOPPED``, its process group is
+   gone and the card's free memory is back within 1 GiB within 10 s. (c) a
+   job whose ``env_vars`` hide the card asks for it: ``FAILED`` with the
+   engine's refusal. (d) a durable workflow: a step waiting on
+   ``wait_for_event`` (released over the head's HTTP event route), float and
+   int8 generation of the burst in GPU steps through two GPU engine actors,
+   and a comparison that fails once (a marker file); ``workflow.resume``
+   reruns only the comparison, with no new K1 or K6 launch, and its output
+   equals the direct tokens. (e) ``/api/cluster_status`` and
+   ``state.list_nodes`` show the node's GPU, ``list_actors`` the engine
+   actors with their shares, ``list_tasks`` the GPU steps ``FINISHED``; a
+   ``num_gpus`` task with a ``profiling`` runtime env runs on the card in a
+   worker of its own and writes a loadable ``.prof``; ``usage_stats.json``
+   is in the session directory after ``shutdown``, and no job's process is
+   left.
 14. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
    replaces, launches in the main-path runs (engine, server, disagg,
-   runtime, serve, chaos, data, dag, tp_serve, train, moe_engine, vit_train, parallel,
-   trainer, tune) in all and by phase, max
+   runtime, serve, chaos, data, dag, jobs, tp_serve, train, moe_engine,
+   vit_train, parallel, trainer, tune) in all and by phase, max
    error, device ms, plain ms, bound ms and what bounds it, library ms;
    K1/K2 also the event floor and each timed shape; K3/K4/K5 also the parallel phase's
    shard shapes (``parallel_<shape>_*``).
@@ -354,6 +380,7 @@ import contextlib
 import copy
 import dataclasses
 import gc
+import glob
 import hashlib
 import itertools
 import json
@@ -375,7 +402,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PHASES = ("build", "kernels", "forward_parity", "engine", "server", "disagg", "runtime",
           "serve", "chaos", "data", "dag", "tp_serve", "train_parity",
           "train", "moe_parity", "moe_engine", "vit_train", "dit", "parallel", "trainer",
-          "tune")
+          "tune", "jobs")
 OPTIONAL_PHASES = ("profile",)
 
 
@@ -5801,6 +5828,447 @@ def run_tune(torch, counters: dict, card: str, train_step_ms=None):
         rt.shutdown()
 
 
+# ---------------------------------------------------------------------------
+# jobs: submitted GPU jobs, a durable workflow of GPU steps, state and usage
+# ---------------------------------------------------------------------------
+JOBS_SEED = 0  # the serving phases' params seed: a job's tokens equal theirs
+JOBS_EVENT = "chip-smoke-release"  # the workflow's gate, released over HTTP
+JOBS_TIMEOUT_S = 300.0  # the bound on each job and on the workflow
+JOBS_FREE_SLACK = 1 << 30  # (b): free memory back within this of before
+JOBS_FREE_WAIT_S = 10.0  # (b): ... within this many seconds of the stop
+JOBS_PROFILE_N = 2048  # (e): the profiled task's matmul side
+_WF_ENGINES = {}  # quantize -> the GPU engine actor the workflow's steps drive
+
+
+def tokens_digest(tokens) -> str:
+    """sha256 of a burst's greedy tokens (a list of token lists)."""
+    return hashlib.sha256(json.dumps(tokens).encode()).hexdigest()
+
+
+def job_report(**fields) -> None:
+    print("JOBREPORT " + json.dumps(fields), flush=True)
+
+
+def job_reports(logs: str) -> list:
+    return [json.loads(line[len("JOBREPORT "):]) for line in logs.splitlines()
+            if line.startswith("JOBREPORT ")]
+
+
+def job_driver() -> int:
+    """What a jobs-phase job runs (``driver.py`` of its working dir calls
+    it). ``JOB_MODE=serve``: the serving decoder from ``JOB_SEED`` serves the
+    burst through a GPU actor of this process's runtime, float then int8,
+    one ``JOBREPORT`` line a run (token digest, K1/K6 launches, decode
+    steps); ``loop``: the float engine decodes until the job is stopped;
+    ``hidden``: the engine asks for the card by its default device."""
+    import torch
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.ops import _build
+    from ray_tpu_torch.ops.decode_attention import paged_decode_attention
+    from ray_tpu_torch.ops.quantization import int8_matmul
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    mode = os.environ["JOB_MODE"]
+    cfg = serving_config(torch)
+    if mode == "hidden":
+        rt.init(num_cpus=1)
+        try:
+            job_report(mode=mode, gpus=rt.cluster_resources().get("GPU", 0),
+                       cuda_visible_devices=os.environ.get("CUDA_VISIBLE_DEVICES"))
+            LLMEngine(cfg, {})  # no device named: the card, or the engine refuses
+            job_report(mode=mode, served=True)
+        finally:
+            rt.shutdown()
+        return 0
+    from ray_tpu_torch.models.transformer import init_params
+
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(int(os.environ["JOB_SEED"])))
+    prompts = burst_prompts(cfg, 8, 64)
+    if mode == "loop":
+        eng = LLMEngine(cfg, params, device="cuda", max_batch_size=8,
+                        max_seq_len=cfg.max_seq_len, kv_block_size=16, cache_kind="paged")
+        eng.generate(prompts[0], max_tokens=2)
+        torch.cuda.synchronize()
+        job_report(mode=mode, ready=True, pid=os.getpid(),
+                   device_bytes=torch.cuda.memory_reserved())
+        while True:
+            futures = [eng.submit(p, max_tokens=32) for p in prompts]
+            [f.result(timeout=600) for f in futures]
+    counters = {"paged_decode_attention": paged_decode_attention, "int8_matmul": int8_matmul}
+    rt.init(num_cpus=2)
+    try:
+        for quantize in (False, True):
+            actor = rt.remote(EngineActor).options(num_gpus=1).remote(cfg, params, quantize)
+            sid = rt.get(actor.open_stream.remote(prompts[0], 2))
+            first = rt.get(actor.next_token.remote(sid))  # warm: cuBLAS, kernels, first token
+            first_token_unix = time.time()
+            while rt.get(actor.next_token.remote(sid)) is not None:
+                pass
+            steps0 = rt.get(actor.decode_steps.remote())
+            zero_counters(counters)
+            t0 = time.perf_counter()
+            tokens = rt.get(actor.generate.remote(prompts, 32))
+            wall = time.perf_counter() - t0
+            launches, by_route = read_counters(counters)
+            steps = rt.get(actor.decode_steps.remote()) - steps0
+            rt.get(actor.close.remote())
+            rt.kill(actor)
+            del actor
+            torch.cuda.empty_cache()
+            job_report(mode=mode, quantize=quantize, digest=tokens_digest(tokens),
+                       n_tokens=sum(len(t) for t in tokens), launches=launches,
+                       launches_by_route=by_route, decode_steps=steps, wall_s=wall,
+                       first_token=first, first_token_unix=first_token_unix, pid=os.getpid(),
+                       libs={n: lib._name for n, lib in _build._libs.items()})
+    finally:
+        rt.shutdown()
+    return 0
+
+
+def wf_generate(gate, quantize: bool, prompts, max_tokens: int):
+    """A workflow's GPU step: the burst through the engine actor of
+    ``_WF_ENGINES`` (tokens as lists: a step's result is pickled)."""
+    import ray_tpu_torch as rt
+
+    if gate.get("release") is not True:
+        raise ValueError(f"gate payload {gate!r}")
+    return rt.get(_WF_ENGINES[quantize].generate.remote(prompts, max_tokens), timeout=600)
+
+
+def wf_compare(got_float, got_int8, want_float: str, want_int8: str, marker: str):
+    """The workflow's last step: fails once while ``marker`` exists (it
+    removes it), then compares the GPU steps' digests with the direct runs'."""
+    if os.path.exists(marker):
+        os.unlink(marker)
+        raise RuntimeError("the comparison step fails once")
+    return {"float": tokens_digest(got_float), "int8": tokens_digest(got_int8),
+            "float_equal": tokens_digest(got_float) == want_float,
+            "int8_equal": tokens_digest(got_int8) == want_int8}
+
+
+def jobs_profiled_matmul(n: int):
+    """(e): a ``num_gpus`` task's body in its worker that sees the card."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(JOBS_SEED)
+    x = torch.randn(n, n, device="cuda", generator=g)
+    y = (x @ x).sum().item()
+    return {"pid": os.getpid(), "flag": os.environ.get("JOBS_FLAG"),
+            "device": torch.cuda.get_device_name(0), "finite": math.isfinite(y)}
+
+
+def lib_stamps() -> dict:
+    """{kernel library path: mtime ns} of the build directory."""
+    from ray_tpu_torch.ops import _build
+
+    return {p: os.stat(p).st_mtime_ns for p in glob.glob(os.path.join(_build.BUILD, "*", "lib*.so"))}
+
+
+def wait_for(what: str, pred, timeout_s: float, interval_s: float = 0.05):
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        got = pred()
+        if got:
+            return got
+        time.sleep(interval_s)
+    raise AssertionError(f"jobs: {what} not within {timeout_s} s")
+
+
+def check_job_burst(cfg, rep: dict, want_digest: str, what: str) -> None:
+    per_forward = k6_per_layer(cfg) * cfg.n_layers
+    n, steps = rep["launches"], rep["decode_steps"]
+    if rep["digest"] != want_digest:
+        raise AssertionError(f"{what}: token digest {rep['digest']} != this process's {want_digest}")
+    if steps < 31 or n["paged_decode_attention"] != cfg.n_layers * steps:
+        raise AssertionError(f"{what}: K1 {n} over {steps} decode steps, want {cfg.n_layers} a step")
+    if rep["quantize"]:
+        k6 = n["int8_matmul"]
+        if (k6 % per_forward or k6 < per_forward * steps
+                or rep["launches_by_route"]["int8_matmul"] != {"mma_bf16": k6, "simt": 0}):
+            raise AssertionError(f"{what}: K6 {n} {rep['launches_by_route']}, want "
+                                 f"{per_forward} a forward on mma_bf16")
+    elif n["int8_matmul"]:
+        raise AssertionError(f"{what}: K6 launched {n} in the float run")
+
+
+def jobs_submitted(torch, rt, cfg, client, workdir: str, want: dict, libs: dict) -> dict:
+    """(a) the serving job, with (c) the hidden-card job beside it."""
+    env = {"JOB_SEED": str(JOBS_SEED)}
+    t_submit = time.time()
+    sid = client.submit_job(entrypoint=f"{sys.executable} driver.py",
+                            runtime_env={"working_dir": workdir,
+                                         "env_vars": {**env, "JOB_MODE": "serve"}},
+                            metadata={"phase": "jobs", "part": "a"})
+    sid_hidden = client.submit_job(
+        entrypoint=f"{sys.executable} driver.py",
+        runtime_env={"working_dir": workdir,
+                     "env_vars": {**env, "JOB_MODE": "hidden", "CUDA_VISIBLE_DEVICES": ""}})
+    info = client.wait_until_finished(sid, timeout=JOBS_TIMEOUT_S)
+    logs = client.get_job_logs(sid)
+    if info["status"] != "SUCCEEDED":
+        raise AssertionError(f"jobs (a): {info['status']} {info['message']}\n{logs[-4000:]}")
+    reps = job_reports(logs)
+    if [r.get("quantize") for r in reps] != [False, True]:
+        raise AssertionError(f"jobs (a): reports {reps}\n{logs[-4000:]}")
+    for rep in reps:
+        check_job_burst(cfg, rep, tokens_digest(want[rep["quantize"]]),
+                        f"jobs (a) {'int8' if rep['quantize'] else 'float'}")
+        if rep["pid"] == os.getpid():
+            raise AssertionError("jobs (a): the job ran in this process")
+        if not set(rep["libs"].values()) <= set(libs):
+            raise AssertionError(f"jobs (a): the job loaded {rep['libs']}, not the build's {libs}")
+    if lib_stamps() != libs:
+        raise AssertionError("jobs (a): a kernel library was rebuilt while the job ran")
+    hidden = client.wait_until_finished(sid_hidden, timeout=JOBS_TIMEOUT_S)
+    hidden_logs = client.get_job_logs(sid_hidden)
+    hreps = job_reports(hidden_logs)
+    refusal = "runs on CUDA by default and no CUDA device is available"
+    if (hidden["status"] != "FAILED" or refusal not in hidden_logs
+            or any(r.get("served") for r in hreps) or hreps[:1] != [
+                {"mode": "hidden", "gpus": 0, "cuda_visible_devices": ""}]):
+        raise AssertionError(f"jobs (c): {hidden['status']} {hreps}\n{hidden_logs[-4000:]}")
+    return {
+        "job_status": info["status"], "job_wall_s": info["end_time"] - info["start_time"],
+        "job_start_to_first_token_s": reps[0]["first_token_unix"] - t_submit,
+        "digests_equal_in_process": True,
+        "launches": {k: reps[0]["launches"][k] + reps[1]["launches"][k]
+                     for k in reps[0]["launches"]},
+        "launches_by_route": {"int8_matmul": reps[1]["launches_by_route"]["int8_matmul"]},
+        "decode_steps": [r["decode_steps"] for r in reps],
+        "k1_per_decode_step": [r["launches"]["paged_decode_attention"] / r["decode_steps"]
+                               for r in reps],
+        "k6_forwards": reps[1]["launches"]["int8_matmul"] // (k6_per_layer(cfg) * cfg.n_layers),
+        "burst_tokens_per_s": [r["n_tokens"] / r["wall_s"] for r in reps],
+        "libraries_reused": sorted(os.path.basename(p) for p in reps[-1]["libs"].values()),
+        "hidden_job": {"status": hidden["status"], "refusal": refusal,
+                       "gpus_seen": hreps[0]["gpus"]},
+    }
+
+
+def jobs_stop(torch, rt, client, workdir: str) -> dict:
+    """(b) stop a GPU job while it decodes: its group goes, the card's free
+    memory comes back."""
+    from ray_tpu_torch.job.manager import group_members
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    sid = client.submit_job(entrypoint=f"{sys.executable} driver.py",
+                            runtime_env={"working_dir": workdir, "env_vars": {
+                                "JOB_SEED": str(JOBS_SEED), "JOB_MODE": "loop"}})
+    def ready():
+        if client.get_job_status(sid) != "RUNNING":
+            return "ended"
+        return "ready" if any(r.get("ready") for r in job_reports(client.get_job_logs(sid))) else None
+
+    if wait_for("the loop job's ready line", ready, JOBS_TIMEOUT_S, 0.2) != "ready":
+        raise AssertionError(f"jobs (b): {client.get_job_status(sid)}\n"
+                             f"{client.get_job_logs(sid)[-4000:]}")
+    free_running = torch.cuda.mem_get_info()[0]
+    pgid = os.getpgid(rt.get_cluster().dashboard.job_manager._jobs[sid].proc.pid)
+    t0 = time.perf_counter()
+    if not client.stop_job(sid):
+        raise AssertionError("jobs (b): stop_job refused")
+    info = client.wait_until_finished(sid, timeout=30)
+    stopped_s = time.perf_counter() - t0
+    wait_for("the stopped job's group to go", lambda: not group_members(pgid), JOBS_FREE_WAIT_S)
+    gone_s = time.perf_counter() - t0
+    def freed():
+        f = torch.cuda.mem_get_info()[0]
+        return f if f >= free0 - JOBS_FREE_SLACK else None
+
+    free = wait_for("the card's memory to come back", freed,
+                    max(0.0, JOBS_FREE_WAIT_S - (time.perf_counter() - t0)))
+    free_s = time.perf_counter() - t0
+    if info["status"] != "STOPPED":
+        raise AssertionError(f"jobs (b): {info}")
+    return {"status": info["status"], "free_before_gb": free0 / 1e9,
+            "free_running_gb": free_running / 1e9, "free_after_gb": free / 1e9,
+            "held_by_job_gb": (free0 - free_running) / 1e9,
+            "stop_to_stopped_s": stopped_s, "stop_to_group_gone_s": gone_s,
+            "stop_to_free_s": free_s}
+
+
+def jobs_workflow(torch, rt, cfg, params, counters: dict, want: dict, workdir: str, url: str):
+    """(d) the durable workflow; returns its report and the engine actors
+    (left alive for (e))."""
+    import chip_smoke as smoke  # the steps by module name: the DAG is pickled
+    from ray_tpu_torch import workflow
+
+    actors = {q: rt.remote(EngineActor).options(num_gpus=0.25).remote(cfg, params, q)
+              for q in (False, True)}
+    rt.get([a.warm.remote(64) for a in actors.values()])
+    smoke._WF_ENGINES.update(actors)
+    workflow.init(os.path.join(workdir, "workflows"))
+    prompts = burst_prompts(cfg, 8, 64)
+    marker = os.path.join(workdir, "compare_fails_once")
+    open(marker, "w").close()
+    gate = workflow.wait_for_event(workflow.QueueEventListener, JOBS_EVENT, 120.0)
+    gen = rt.remote(smoke.wf_generate).options(num_gpus=0.25, execution="thread")
+    cmp = rt.remote(smoke.wf_compare).options(execution="thread")
+    dag = cmp.bind(gen.bind(gate, False, prompts, 32), gen.bind(gate, True, prompts, 32),
+                   tokens_digest(want[False]), tokens_digest(want[True]), marker)
+    steps0 = {q: rt.get(a.decode_steps.remote()) for q, a in actors.items()}
+    zero_counters(counters)
+    err = {}
+
+    def run():
+        try:
+            workflow.run(dag, workflow_id="chip_smoke_jobs")
+        except Exception as exc:  # noqa: BLE001 - the comparison's first failure
+            err["error"] = exc
+
+    t0 = time.perf_counter()
+    runner = threading.Thread(target=run, name="jobs-workflow", daemon=True)
+    runner.start()
+    refused = 0
+    while True:
+        try:
+            delivered = http_json(f"{url}/api/workflows/events/{JOBS_EVENT}", {"release": True})
+            break
+        except Exception as exc:  # noqa: BLE001 - 404 until the gate waits
+            if getattr(exc, "code", None) != 404 or time.perf_counter() - t0 > 60:
+                raise
+            refused += 1
+            time.sleep(0.05)
+    runner.join(timeout=JOBS_TIMEOUT_S)
+    run_s = time.perf_counter() - t0
+    if runner.is_alive() or "error" not in err or workflow.get_status("chip_smoke_jobs") != "FAILED":
+        raise AssertionError(f"jobs (d): the first run ended {workflow.get_status('chip_smoke_jobs')}"
+                             f" with {err}")
+    launches, by_route = read_counters(counters)
+    steps = {q: rt.get(a.decode_steps.remote()) - steps0[q] for q, a in actors.items()}
+    recorded = workflow.get_metadata("chip_smoke_jobs")["step_names"]
+    t0 = time.perf_counter()
+    out = workflow.resume("chip_smoke_jobs")
+    resume_s = time.perf_counter() - t0
+    after, after_route = read_counters(counters)
+    resumed_steps = {q: rt.get(a.decode_steps.remote()) - steps0[q] for q, a in actors.items()}
+    if not (out["float_equal"] and out["int8_equal"]):
+        raise AssertionError(f"jobs (d): the workflow's tokens differ from the direct runs: {out}")
+    if after != launches or resumed_steps != steps:
+        raise AssertionError(f"jobs (d): resume launched {after} over {resumed_steps} steps, "
+                             f"the run {launches} over {steps}")
+    if recorded != ["step_0000", "step_0001", "step_0002"]:
+        raise AssertionError(f"jobs (d): durable steps after the failure {recorded}")
+    per_forward = k6_per_layer(cfg) * cfg.n_layers
+    total_steps = sum(steps.values())
+    if (launches["paged_decode_attention"] != cfg.n_layers * total_steps
+            or launches["int8_matmul"] % per_forward
+            or launches["int8_matmul"] < per_forward * steps[True]
+            or by_route["int8_matmul"] != {"mma_bf16": launches["int8_matmul"], "simt": 0}):
+        raise AssertionError(f"jobs (d): launches {launches} {by_route} over steps {steps}")
+    return {"status": workflow.get_status("chip_smoke_jobs"), "output": out,
+            "trigger_refusals_before_wait": refused, "trigger": delivered,
+            "steps_durable_after_failure": recorded, "run_s": run_s, "resume_s": resume_s,
+            "decode_steps": {"float": steps[False], "int8": steps[True]},
+            "launches": launches, "launches_by_route": by_route,
+            "launches_after_resume": after}, actors
+
+
+def jobs_state(torch, rt, url: str, workdir: str) -> dict:
+    """(e) the state API and the head on the card; a profiled GPU task."""
+    import pstats
+    import urllib.request
+
+    import chip_smoke as smoke
+    from ray_tpu_torch import state
+
+    with urllib.request.urlopen(url + "/api/cluster_status", timeout=60) as resp:
+        status = json.loads(resp.read())
+    nodes = state.list_nodes()
+    engines = [a for a in state.list_actors() if a["class_name"] == "EngineActor"
+               and a["state"] == "ALIVE"]
+    steps = [t for t in state.list_tasks() if t["name"].endswith("wf_generate")]
+    if status["resources_total"].get("GPU") != 1 or [n["resources_total"].get("GPU")
+                                                      for n in nodes] != [1]:
+        raise AssertionError(f"jobs (e): GPU totals {status} {nodes}")
+    if sorted(a["resources"].get("GPU") for a in engines) != [0.25, 0.25]:
+        raise AssertionError(f"jobs (e): engine actors {engines}")
+    if [t["state"] for t in steps] != ["FINISHED", "FINISHED"]:
+        raise AssertionError(f"jobs (e): the workflow's GPU steps {steps}")
+    prof_dir = os.path.join(workdir, "profiles")
+    t0 = time.perf_counter()
+    got = rt.get(rt.remote(smoke.jobs_profiled_matmul).options(
+        num_gpus=0.5, runtime_env={"profiling": {"dir": prof_dir},
+                                   "env_vars": {"JOBS_FLAG": "on"}}).remote(JOBS_PROFILE_N),
+        timeout=JOBS_TIMEOUT_S)
+    task_s = time.perf_counter() - t0
+    profs = glob.glob(os.path.join(prof_dir, "*jobs_profiled_matmul_*.prof"))
+    if (got["pid"] == os.getpid() or got["flag"] != "on" or not got["finite"]
+            or got["device"] != torch.cuda.get_device_name(0) or len(profs) != 1):
+        raise AssertionError(f"jobs (e): profiled task {got}, profiles {profs}")
+    calls = pstats.Stats(profs[0]).total_calls
+    if calls <= 0:
+        raise AssertionError(f"jobs (e): {profs[0]} holds no calls")
+    return {"cluster_gpu_total": status["resources_total"]["GPU"],
+            "node_gpu_total": nodes[0]["resources_total"]["GPU"],
+            "engine_actor_shares": [a["resources"] for a in engines],
+            "gpu_steps_finished": len(steps), "profiled_task_s": task_s,
+            "profile_calls": calls, "profiled_task_device": got["device"]}
+
+
+def run_jobs(torch, cfg, params, kernels_of: dict, engine_tokens: dict, card: str):
+    """The jobs phase: (a)-(e) under one ``init(num_cpus=8,
+    include_dashboard=True)``, then ``shutdown`` with the usage report
+    written and no job's process left. Yields one report per part."""
+    import gc as _gc
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.job.manager import group_members
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+
+    t_phase = time.perf_counter()
+    want = {}  # quantize -> this process's own burst: the engine phase's, or run now
+    for q in (False, True):
+        want[q] = engine_tokens.get(("paged", q)) or run_engine(
+            torch, cfg, params, "paged", 8, 64, 32, {}, quantize=q)["request_tokens"]
+    torch.cuda.empty_cache()
+    libs = lib_stamps()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_jobs_")
+    with open(os.path.join(workdir, "driver.py"), "w") as f:
+        f.write("import sys\n\nimport chip_smoke\n\nsys.exit(chip_smoke.job_driver())\n")
+    counters = {n: kernels_of[n] for n in ("paged_decode_attention", "int8_matmul")}
+    rt.init(num_cpus=8, include_dashboard=True)
+    actors = {}
+    try:
+        cluster = rt.get_cluster()
+        url = cluster.dashboard.url
+        client = JobSubmissionClient(url)
+        session_dir = cluster.session_dir
+        rep = jobs_submitted(torch, rt, cfg, client, workdir, want, libs)
+        yield {"part": "submitted_job", "card": card, **rep}
+        yield {"part": "stopped_job", "card": card, **jobs_stop(torch, rt, client, workdir)}
+        rep, actors = jobs_workflow(torch, rt, cfg, params, counters, want, workdir, url)
+        yield {"part": "workflow", "card": card, **rep}
+        yield {"part": "state", "card": card, **jobs_state(torch, rt, url, workdir)}
+        pgids = [os.getpgid(e.proc.pid) for e in cluster.dashboard.job_manager._jobs.values()
+                 if e.proc is not None and e.proc.poll() is None]
+        jobs = cluster.dashboard.job_manager.list_jobs()
+        for a in actors.values():
+            rt.get(a.close.remote())
+            rt.kill(a)
+    finally:
+        import chip_smoke as smoke
+
+        smoke._WF_ENGINES.clear()
+        actors.clear()
+        rt.shutdown()
+    _gc.collect()
+    torch.cuda.empty_cache()
+    left = [g for g in pgids if group_members(g)]
+    usage = os.path.join(session_dir, "usage_stats.json")
+    with open(usage) as f:
+        report = json.load(f)
+    if left or report.get("source") != "ray_tpu_torch":
+        raise AssertionError(f"jobs: after shutdown job groups {left} remain, usage {report}")
+    yield {"part": "shutdown", "card": card, "jobs": sorted(j["status"] for j in jobs),
+           "job_groups_left": 0, "usage_stats": {k: report[k] for k in ("source", "version")},
+           "seconds": time.perf_counter() - t_phase}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -5878,7 +6346,7 @@ def main(argv=None) -> int:
                 by_route.setdefault(name, {}).setdefault(r, 0)
                 by_route[name][r] += x
     if phases & {"forward_parity", "engine", "server", "disagg", "runtime", "serve", "chaos",
-                  "data", "dag"}:
+                  "data", "dag", "jobs"}:
         cfg = serving_config(torch)
         from ray_tpu_torch.models.transformer import init_params
 
@@ -5952,6 +6420,12 @@ def main(argv=None) -> int:
                 emit({"phase": "dag", "ok": True, **rep})
                 if "launches" in rep:
                     count("dag", rep["launches"], rep["launches_by_route"])
+        if "jobs" in phases:
+            torch.cuda.empty_cache()
+            for rep in run_jobs(torch, cfg, params, kernels_of, engine_tokens, card):
+                emit({"phase": "jobs", "ok": True, **rep})
+                if "launches" in rep:
+                    count("jobs", rep["launches"], rep["launches_by_route"])
         del params
         torch.cuda.empty_cache()
     if "data" in phases:

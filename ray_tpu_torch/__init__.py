@@ -13,12 +13,14 @@ kernels, forward and backward, hand-written CUDA under ``ops/csrc``),
 checkpoints), ``serve`` (the continuous-batching engine, its block
 allocator and prefix cache), ``parallel`` (meshes, collectives, sharded
 steps), ``train`` (trainers, the session, ``TrainController`` gangs and
-framed checkpoints), plus ``convert`` (JAX param trees
-and train states as numpy arrays to tensors). Entry points run on the GPU
-unless the caller asks for the CPU.  Importing the package imports no
-torch: CPU worker processes start without it.
+framed checkpoints), ``tune``, ``job`` and ``workflow`` (submitted jobs and
+durable DAGs), ``state`` (listings over the control tables), plus
+``convert`` (JAX param trees and train states as numpy arrays to tensors).
+Entry points run on the GPU unless the caller asks for the CPU.  Importing
+the package imports no torch: CPU worker processes start without it.
 """
 
+from ray_tpu_torch._version import version as __version__
 from ray_tpu_torch.api import (
     ActorClass,
     ActorHandle,
@@ -73,6 +75,7 @@ from ray_tpu_torch.exceptions import (
 DynamicObjectRefGenerator = ObjectRefGenerator
 
 __all__ = [
+    "__version__",
     "ActorClass",
     "ActorHandle",
     "ActorMethod",
@@ -124,8 +127,8 @@ __all__ = [
 
 
 _LAZY_SUBMODULES = (
-    "accelerators", "chaos", "data", "experimental", "models", "ops", "parallel",
-    "serve", "train", "util",
+    "accelerators", "air", "chaos", "data", "experimental", "job", "models", "ops",
+    "parallel", "serve", "state", "train", "tune", "util", "workflow",
 )
 
 

@@ -5,8 +5,11 @@ names ``num_gpus``, which the JAX package takes and ignores), the same
 results and errors.  ``init`` detects the node's CUDA devices
 (``accelerators/gpu.py``) as its ``"GPU"`` resource; an actor that asks for
 a GPU (``num_gpus`` or ``resources={"GPU": ...}``) lives in process next to
-the card, as a TPU actor does in the JAX package.  Features the port does
-not have yet raise :class:`~ray_tpu_torch.exceptions.NotPortedError`.
+the card, as a TPU actor does in the JAX package.  ``include_dashboard``
+starts the dashboard head (``dashboard/head.py``: REST, jobs, workflow
+events); a task's ``runtime_env`` is validated at submit.  Features the port
+does not have yet raise :class:`~ray_tpu_torch.exceptions.NotPortedError`:
+``head_port=`` (the multi-host head service) and ``util.connect``.
 
 Parity with the reference's Python frontend
 (``python/ray/_private/worker.py:1214,2509,2641,2706``,
@@ -70,14 +73,10 @@ def init(
             if ignore_reinit_error:
                 return _cluster
             raise RuntimeError("ray_tpu_torch.init() called twice; use shutdown() first.")
-        if include_dashboard:
-            raise NotPortedError("the dashboard head", "ray_tpu/dashboard/head.py")
         if head_port is not None:
             raise NotPortedError(
                 "the multi-host head service", "ray_tpu/runtime/cluster.py:522-543"
             )
-        if os.environ.get("RAY_TPU_USAGE_STATS_ENABLED") in ("1", "true", "True"):
-            raise NotPortedError("usage stats", "ray_tpu/usage/usage_lib.py")
         if _system_config:
             cfg = Config().apply_env_overrides()
             cfg.apply_dict(_system_config)
@@ -118,6 +117,10 @@ def init(
         from ray_tpu_torch.observability import tracing
 
         tracing.set_span_sink(cluster.control.spans.add)
+        if include_dashboard:
+            from ray_tpu_torch.dashboard import DashboardHead
+
+            cluster.dashboard = DashboardHead(cluster, port=dashboard_port)
         _cluster = cluster
         # The default 5ms GIL switch interval lets a busy driver thread
         # starve the pool reader threads for whole scheduling quanta,

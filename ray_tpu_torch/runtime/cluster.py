@@ -1,9 +1,10 @@
 """The in-process cluster fabric: nodes, object directory, transfer, recovery.
 
 The port's copy of ``ray_tpu/runtime/cluster.py`` for one host: the in-process
-nodes, directory, pulls, retries, actors and chaos hooks are the same; the
-multi-host head service raises ``NotPortedError``, and a collective death
-notice reaches this process and its pool workers (no agents). Bulk values
+nodes, directory, pulls, retries, actors and chaos hooks are the same, as
+are the usage report and the dashboard head's shutdown; the multi-host head
+service raises ``NotPortedError``, and a collective death notice reaches
+this process and its pool workers (no agents). Bulk values
 cross to worker processes through the port's native shm store.
 
 This object stitches together what the reference spreads over processes:
@@ -2418,8 +2419,20 @@ class Cluster:
                 self.control.save_snapshot(cfg.control_snapshot_path)
             except Exception:  # noqa: BLE001
                 pass
+        try:
+            from ray_tpu_torch.usage.usage_lib import usage_stats_enabled, write_usage_report
+
+            if usage_stats_enabled():
+                write_usage_report(self.session_dir)
+        except Exception:  # noqa: BLE001 — the report must not fail a shutdown
+            pass
         if self.memory_monitor is not None:
             self.memory_monitor.stop()
+        # the head (and the job children it signals) goes before the nodes
+        dashboard = getattr(self, "dashboard", None)
+        if dashboard is not None:
+            dashboard.shutdown()
+            self.dashboard = None
         self.control.shutdown()
         # Remote handles first: proxy.shutdown marks them dead BEFORE the
         # socket drops, so the disconnect callback doesn't run the

@@ -608,6 +608,8 @@ class Node:
             # the worker installs the deadline around execution so nested
             # submissions from inside the task inherit the remaining budget
             deadline_ts=spec.deadline_ts,
+            # a GPU share with a runtime_env: a worker that sees the card
+            sees_card=bool(spec.runtime_env) and spec.resources.get("GPU") > 0,
         )
 
     def _handle_worker_api(self, task_bin, blob: bytes, op: str = "", worker_key=None) -> bytes:

@@ -1,7 +1,9 @@
 """CoreWorker: the per-driver runtime object.
 
-The port's copy of ``ray_tpu/runtime/worker.py``; a ``runtime_env`` raises
-``NotPortedError``.
+The port's copy of ``ray_tpu/runtime/worker.py``.  A task's ``runtime_env``
+is validated at submit, as in the JAX package; a task that holds a GPU share
+and has one runs in a process worker that sees the card
+(``runtime/worker_pool.py``).
 
 Parity with the reference's ``CoreWorker``
 (``src/ray/core_worker/core_worker.h:292``): Put/Get/Wait, task and actor
@@ -33,7 +35,7 @@ from ray_tpu_torch.core.object_ref import ObjectRef, hooks
 from ray_tpu_torch.core.refcount import ReferenceCounter
 from ray_tpu_torch.core.resources import ResourceSet
 from ray_tpu_torch.core.serialization import get_context
-from ray_tpu_torch.exceptions import GetTimeoutError, NotPortedError, raised_copy
+from ray_tpu_torch.exceptions import GetTimeoutError, raised_copy
 from ray_tpu_torch.observability import metric_defs, tracing
 from ray_tpu_torch.runtime.context import task_context
 from ray_tpu_torch.runtime.control import ActorInfo
@@ -121,7 +123,11 @@ class CoreWorker:
     ) -> List[ObjectRef]:
         cfg = get_config()
         if runtime_env:
-            raise NotPortedError("runtime_env", "ray_tpu/runtime/worker.py:119-125, ray_tpu/runtime_env/")
+            # fail malformed envs HERE with the plugin's own error, not as
+            # an opaque RayTaskError from inside a worker
+            from ray_tpu_torch.runtime_env.plugin import validate_runtime_env
+
+            validate_runtime_env(runtime_env)
         # _task_id: a worker minted the id locally (fire-and-forget nested
         # submission) — use it so its locally-built refs resolve here
         task_id = TaskID(_task_id) if _task_id is not None else TaskID.for_normal_task(self.job_id)

@@ -75,10 +75,10 @@ class _TaskEnv:
         changes = dict(self._env.get("env_vars") or {})
         prof = self._env.get("profiling")
         if prof:
-            import tempfile
+            from ray_tpu_torch.runtime_env.plugin import PROFILE_DIR
 
             out_dir = prof.get("dir") if isinstance(prof, dict) else None
-            out_dir = out_dir or os.path.join(tempfile.gettempdir(), "rt_task_profiles")
+            out_dir = out_dir or PROFILE_DIR
             os.makedirs(out_dir, exist_ok=True)
             changes["RAY_TPU_TASK_PROFILING"] = out_dir
         for k, v in changes.items():
@@ -95,14 +95,38 @@ class _TaskEnv:
         return False
 
 
-def _maybe_profile(name, task_id_bin, fn, args, kwargs, runtime_env=None):
-    """cProfile wrapper for ProfilingPlugin; one getenv when off."""
+def _maybe_profile(name, task_id_bin, fn, args, kwargs, runtime_env=None, gpu_share=False):
+    """cProfile wrapper for ProfilingPlugin; one getenv when off.  A task
+    that holds a GPU share (``gpu_share``) first checks, under its env,
+    that it sees the card."""
     with _TaskEnv(runtime_env):
+        if gpu_share:
+            refuse_without_card(name)
         if not os.environ.get("RAY_TPU_TASK_PROFILING"):
             return fn(*args, **kwargs)
-        from ray_tpu_torch.exceptions import NotPortedError
+        from ray_tpu_torch.runtime_env.plugin import maybe_profile
 
-        raise NotPortedError("per-task profiling (runtime_env)", "ray_tpu/runtime_env/plugin.py")
+        hexid = task_id_bin.hex() if isinstance(task_id_bin, bytes) else str(task_id_bin)
+        return maybe_profile(name, hexid, fn, args, kwargs)
+
+
+def refuse_without_card(name: str) -> None:
+    """Raise before a GPU-share task's body runs if this process does not
+    see a CUDA device: its ``env_vars`` hide the card, or the host has none.
+    Such a task runs in a worker spawned to see the card
+    (``worker_pool.py``); it never runs on the CPU in the card's place."""
+    visible = os.environ.get("CUDA_VISIBLE_DEVICES")
+    if visible is not None and visible.strip() in ("", "-1"):
+        why = f"its environment hides the card (CUDA_VISIBLE_DEVICES={visible!r})"
+    else:
+        import torch
+
+        if torch.cuda.is_available():
+            return
+        why = "no CUDA device is available"
+    raise RuntimeError(
+        f"task {name} holds a GPU share and {why}; a GPU task does not run on the CPU"
+    )
 
 
 def _format_stacks() -> str:
@@ -385,6 +409,7 @@ class Worker:
                 result = _maybe_profile(
                     name, task_id, fn, args, kwargs,
                     runtime_env=payload.get("runtime_env"),
+                    gpu_share=payload.get("gpu_share", False),
                 )
             exec_s = time.perf_counter() - t0
             reply = {"task_id": task_id, "value_blob": self._encode_result(result), "exec_s": exec_s}

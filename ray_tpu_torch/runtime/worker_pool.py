@@ -3,10 +3,14 @@
 The port's copy of ``ray_tpu/runtime/worker_pool.py``.  Workers start as
 ``python -S -m ray_tpu_torch.runtime.worker_main`` with the driver's
 ``sys.path`` and ``CUDA_VISIBLE_DEVICES=""``: they never touch the card.
-The one exception is a process actor that holds a GPU share (a
-``TorchTrainer`` rank on the card): it gets a fresh worker of its own that
-keeps the driver's ``CUDA_VISIBLE_DEVICES``, spawned like every worker,
-never forked.  The spawn environment is the one place that decides.
+The exceptions hold a GPU share: a process actor (a ``TorchTrainer`` rank
+on the card), and a task with a ``runtime_env`` (which must run in a
+process worker, where the env applies).  Each gets a fresh worker of its
+own that keeps the driver's ``CUDA_VISIBLE_DEVICES``, spawned like every
+worker, never forked; the task's worker is retired when the task ends, and
+checks before the body runs that it sees the card
+(``worker_main.refuse_without_card``).  The spawn environment is the one
+place that decides.
 
 Parity with the reference's ``WorkerPool`` (``src/ray/raylet/worker_pool.h:159``):
 spawns Python worker processes, prestarts a warm pool, hands idle workers to
@@ -520,10 +524,20 @@ class ProcessWorkerPool:
         trace: Optional[tuple] = None,
         lease_key: Optional[bytes] = None,
         deadline_ts: Optional[float] = None,
+        sees_card: bool = False,
     ) -> bool:
         """Run a stateless task on an idle worker; queues when saturated.
-        Never blocks: pool growth happens on a spawner thread."""
+        Never blocks: pool growth happens on a spawner thread.  A task that
+        must see the card (``sees_card``) gets a worker of its own, spawned
+        on a thread and retired after the task."""
         metric_defs.WORKER_POOL_TASKS.inc()
+        if sees_card:
+            self._start_thread(
+                self._run_card_task, f"card-task-{task_id.hex()[:8]}",
+                task_id, name, fn_id, fn_blob, args_blob, callback, runtime_env, trace,
+                deadline_ts,
+            )
+            return True
         worker = None
         if lease_key is not None:
             worker = self._take_lease_worker(lease_key)
@@ -548,10 +562,32 @@ class ProcessWorkerPool:
         )
         return True
 
+    def _run_card_task(self, task_id, name, fn_id, fn_blob, args_blob, callback,
+                       runtime_env, trace, deadline_ts) -> None:
+        """One GPU-share task on a fresh worker that sees the card; the
+        worker is killed once the task's result (or error) is delivered."""
+        try:
+            worker = self._spawn(to_idle=False, sees_card=True)
+        except RuntimeError as exc:
+            callback(None, WorkerCrashedError(f"worker spawn failed: {exc}"), None)
+            return
+        worker.dedicated = True
+
+        def retire(*result):
+            try:
+                callback(*result)
+            finally:
+                self._kill_worker(worker)
+
+        self._send_exec(worker, task_id, name, fn_id, fn_blob, args_blob, retire,
+                        runtime_env, trace, deadline_ts, gpu_share=True)
+
     def _send_exec(self, worker, task_id, name, fn_id, fn_blob, args_blob, callback,
                    runtime_env: Optional[dict] = None, trace: Optional[tuple] = None,
-                   deadline_ts: Optional[float] = None) -> None:
+                   deadline_ts: Optional[float] = None, gpu_share: bool = False) -> None:
         payload = {"task_id": task_id, "name": name, "fn_id": fn_id, "args_blob": args_blob}
+        if gpu_share:
+            payload["gpu_share"] = True
         if trace is not None:
             payload["trace"] = trace
         if deadline_ts is not None:

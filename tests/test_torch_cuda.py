@@ -1638,3 +1638,202 @@ def test_tune_transformers_predictor_needs_cuda_unless_given_the_cpu(cuda, monke
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TransformersPredictor(Logits())
+
+
+# --------------------------------------------------------------------------
+# jobs, workflows, state and runtime envs on the card (the jobs phase's
+# checks at a small size: tests/torch_runtime_tasks.py's tiny decoder)
+# --------------------------------------------------------------------------
+def _jobs_client(runtime, tmp_path):
+    """(client, working dir) for GPU jobs whose driver is
+    ``torch_runtime_tasks._job_gpu_driver``."""
+    import os
+
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    workdir = tmp_path / "job"
+    workdir.mkdir()
+    (workdir / "driver.py").write_text(
+        f"import sys\nsys.path.insert(0, {tests!r})\n"
+        "import torch_runtime_tasks\ntorch_runtime_tasks._job_gpu_driver()\n")
+    runtime.init(num_cpus=4, include_dashboard=True)
+    return JobSubmissionClient(runtime.get_cluster().dashboard.url), str(workdir)
+
+
+def _job_reports(logs):
+    import json
+
+    return [json.loads(line[len("JOBREPORT "):]) for line in logs.splitlines()
+            if line.startswith("JOBREPORT ")]
+
+
+def test_jobs_submitted_gpu_job_serves_on_the_card_as_in_process(runtime, tmp_path):
+    import sys
+
+    from torch_runtime_tasks import TINY, _tiny_burst
+
+    client, workdir = _jobs_client(runtime, tmp_path)
+    sid = client.submit_job(entrypoint=f"{sys.executable} driver.py",
+                            runtime_env={"working_dir": workdir,
+                                         "env_vars": {"JOB_MODE": "serve"}})
+    info = client.wait_until_finished(sid, timeout=300)
+    logs = client.get_job_logs(sid)
+    assert info["status"] == "SUCCEEDED", logs
+    reps = _job_reports(logs)
+    assert [r["quantize"] for r in reps] == [False, True]
+    for rep in reps:
+        want, _ = _tiny_burst(rep["quantize"])
+        assert rep["tokens"] == want
+        assert rep["k1"] == TINY["n_layers"] * rep["steps"] and rep["steps"] >= 7
+        if rep["quantize"]:
+            assert rep["k6"] == rep["k6_mma"] > 0 and rep["k6"] % (6 * TINY["n_layers"]) == 0
+        else:
+            assert rep["k6"] == 0
+
+
+def test_jobs_stopped_gpu_job_gives_the_card_memory_back(runtime, tmp_path):
+    import os
+    import sys
+
+    from ray_tpu_torch.job.manager import group_members
+
+    client, workdir = _jobs_client(runtime, tmp_path)
+    torch.cuda.empty_cache()
+    free0 = torch.cuda.mem_get_info()[0]
+    sid = client.submit_job(entrypoint=f"{sys.executable} driver.py",
+                            runtime_env={"working_dir": workdir, "env_vars": {"JOB_MODE": "loop"}})
+    deadline = time.monotonic() + 300
+    while not any(r.get("ready") for r in _job_reports(client.get_job_logs(sid))):
+        assert client.get_job_status(sid) == "RUNNING", client.get_job_logs(sid)
+        assert time.monotonic() < deadline
+        time.sleep(0.2)
+    assert torch.cuda.mem_get_info()[0] < free0  # the job's context holds the card
+    pgid = os.getpgid(runtime.get_cluster().dashboard.job_manager._jobs[sid].proc.pid)
+    t0 = time.monotonic()
+    assert client.stop_job(sid)
+    assert client.wait_until_finished(sid, timeout=30)["status"] == "STOPPED"
+    while (group_members(pgid) or torch.cuda.mem_get_info()[0] < free0 - (1 << 30)) \
+            and time.monotonic() - t0 < 10:
+        time.sleep(0.05)
+    assert group_members(pgid) == []
+    assert torch.cuda.mem_get_info()[0] >= free0 - (1 << 30)
+
+
+def test_jobs_job_with_the_card_hidden_fails_not_on_the_cpu(runtime, tmp_path):
+    import sys
+
+    client, workdir = _jobs_client(runtime, tmp_path)
+    sid = client.submit_job(entrypoint=f"{sys.executable} driver.py",
+                            runtime_env={"working_dir": workdir, "env_vars": {
+                                "JOB_MODE": "hidden", "CUDA_VISIBLE_DEVICES": ""}})
+    info = client.wait_until_finished(sid, timeout=300)
+    logs = client.get_job_logs(sid)
+    assert info["status"] == "FAILED", logs
+    assert "runs on CUDA by default and no CUDA device is available" in logs
+    assert not any(r.get("served") for r in _job_reports(logs))
+
+
+def test_jobs_workflow_gpu_steps_resume_without_new_launches(runtime, tmp_path):
+    import threading
+    import urllib.error
+
+    from ray_tpu_torch import state, workflow
+    from ray_tpu_torch.ops.decode_attention import paged_decode_attention
+    from ray_tpu_torch.ops.quantization import int8_matmul
+    from torch_runtime_tasks import _tiny_burst, _wf_check_once, _wf_gpu_burst
+
+    runtime.init(num_cpus=4, include_dashboard=True)
+    url = runtime.get_cluster().dashboard.url
+    workflow.init(str(tmp_path / "wf"))
+    marker = tmp_path / "fail_once"
+    marker.write_text("x")
+    gate = workflow.wait_for_event(workflow.QueueEventListener, "go", 60.0)
+    gen = runtime.remote(_wf_gpu_burst).options(num_gpus=0.5, execution="thread")
+    dag = runtime.remote(_wf_check_once).options(execution="thread").bind(
+        gen.bind(gate, False), gen.bind(gate, True), str(marker))
+    errors = []
+    t = threading.Thread(target=lambda: errors.append(
+        _raises(lambda: workflow.run(dag, workflow_id="wf_gpu"))))
+    t.start()
+    deadline = time.monotonic() + 60
+    while True:
+        try:
+            _post_json(f"{url}/api/workflows/events/go", {"go": True})
+            break
+        except urllib.error.HTTPError as exc:
+            assert exc.code == 404 and time.monotonic() < deadline
+            time.sleep(0.05)
+    t.join(timeout=300)
+    assert errors and errors[0] is not None and workflow.get_status("wf_gpu") == "FAILED"
+    launches = (paged_decode_attention.launches, int8_matmul.launches)
+    out = workflow.resume("wf_gpu")
+    assert (paged_decode_attention.launches, int8_matmul.launches) == launches
+    assert out == {"float": _tiny_burst(False)[0], "int8": _tiny_burst(True)[0]}
+    steps = [t for t in state.list_tasks() if t["name"].endswith("_wf_gpu_burst")]
+    assert [t["state"] for t in steps] == ["FINISHED", "FINISHED"]
+
+
+def _raises(fn):
+    try:
+        fn()
+    except Exception as exc:  # noqa: BLE001
+        return exc
+    return None
+
+
+def _post_json(url, body):
+    import json
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                                 headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return json.loads(resp.read())
+
+
+@pytest.mark.parametrize("hide", [False, True], ids=["sees_card", "env_hides_card"])
+def test_jobs_gpu_share_task_with_runtime_env_runs_where_it_sees_the_card(runtime, tmp_path, hide):
+    """A ``num_gpus`` task with a ``runtime_env`` runs in a worker of its own
+    that sees the card (and writes its profile there); with ``env_vars``
+    that hide the card it raises before its body runs."""
+    import os
+    import pstats
+
+    from torch_runtime_tasks import _gpu_matmul_task
+
+    runtime.init(num_cpus=2)
+    env = {"MY_GPU_FLAG": "on", **({"CUDA_VISIBLE_DEVICES": ""} if hide else {})}
+    prof = tmp_path / "profs"
+    ref = runtime.remote(_gpu_matmul_task).options(
+        num_gpus=1, runtime_env={"env_vars": env, "profiling": {"dir": str(prof)}}).remote(64)
+    if hide:
+        with pytest.raises(runtime.RayTaskError, match="hides the card"):
+            runtime.get(ref, timeout=300)
+        return
+    pid, flag, total = runtime.get(ref, timeout=300)
+    assert pid != os.getpid() and flag == "on" and total == 64.0 ** 3
+    [path] = prof.glob("*_gpu_matmul_task_*.prof")
+    assert pstats.Stats(str(path)).total_calls > 0
+
+
+def test_jobs_state_shows_the_gpu_and_an_actor_share(runtime):
+    import json
+    import urllib.request
+
+    from ray_tpu_torch import state
+    from torch_runtime_tasks import Counter
+
+    runtime.init(num_cpus=2, include_dashboard=True)
+    actor = runtime.remote(Counter).options(num_gpus=0.5).remote(0)
+    runtime.get(actor.add.remote(1))
+    with urllib.request.urlopen(runtime.get_cluster().dashboard.url + "/api/cluster_status",
+                                timeout=60) as resp:
+        status = json.loads(resp.read())
+    count = torch.cuda.device_count()
+    assert status["resources_total"]["GPU"] == count
+    assert status["resources_available"]["GPU"] == count - 0.5
+    assert [n["resources_total"]["GPU"] for n in state.list_nodes()] == [count]
+    [row] = [a for a in state.list_actors() if a["class_name"] == "Counter"]
+    assert row["resources"]["GPU"] == 0.5 and row["state"] == "ALIVE"
+    runtime.kill(actor)

@@ -291,8 +291,9 @@ def test_kernel_sources_build_into_a_gitignored_directory():
 # --------------------------------------------------------------------------
 # the host runtime: light imports, workers that never touch the card
 # --------------------------------------------------------------------------
-_RUNTIME_PARTS = ("__init__.py", "api.py", "exceptions.py", "core", "runtime", "observability",
-                  "dashboard", "accelerators", "native", "data", "dag")
+_RUNTIME_PARTS = ("__init__.py", "_version.py", "api.py", "exceptions.py", "job_submission.py",
+                  "core", "runtime", "observability", "dashboard", "accelerators", "native",
+                  "data", "dag", "runtime_env", "usage", "state", "job", "workflow")
 
 
 def _runtime_files():
@@ -345,3 +346,121 @@ def test_worker_process_runs_the_port_module_hides_the_card_and_loads_no_jax():
     assert facts["cuda_visible_devices"] == ""
     assert facts["forbidden"] == []
     assert facts["torch_sees_cuda"] in (None, False)
+
+
+def test_importing_jobs_workflows_state_and_the_head_loads_no_jax_or_torch():
+    """The job, workflow, state, runtime-env and usage libraries and the
+    dashboard head load neither JAX nor the JAX package, nor torch: a job
+    driver or a head pays for torch only where it touches the card."""
+    code = (
+        "import sys, ray_tpu_torch.job, ray_tpu_torch.job_submission, "
+        "ray_tpu_torch.workflow, ray_tpu_torch.state, ray_tpu_torch.runtime_env, "
+        "ray_tpu_torch.usage, ray_tpu_torch.dashboard, ray_tpu_torch.dashboard.ui, "
+        "ray_tpu_torch._version\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('torch', 'jax', 'jaxlib', 'ray_tpu'))\n"
+        "assert not bad, bad\n"
+        "import ray_tpu_torch.air, ray_tpu_torch.air.integrations.mlflow, "
+        "ray_tpu_torch.air.integrations.wandb\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'ray_tpu', 'mlflow', 'wandb'))\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def test_lifted_entry_points_no_longer_raise_and_head_port_still_does(monkeypatch):
+    """``include_dashboard``, usage stats on, ``.options(runtime_env=)`` and
+    per-task profiling are ported; ``head_port=`` still raises."""
+    import ray_tpu_torch as rt
+    from torch_runtime_tasks import _crunch
+
+    monkeypatch.setenv("RAY_TPU_USAGE_STATS_ENABLED", "1")
+    with pytest.raises(rt.NotPortedError, match="multi-host head service"):
+        rt.init(num_cpus=1, head_port=0)
+    assert not rt.is_initialized()
+    rt.init(num_cpus=1, include_dashboard=True)
+    try:
+        assert rt.get_cluster().dashboard.url.startswith("http://127.0.0.1:")
+        f = rt.remote(_crunch).options(execution="process", runtime_env={"profiling": True,
+                                                                         "env_vars": {"A": "1"}})
+        assert rt.get(f.remote(10), timeout=120) == 285
+    finally:
+        rt.shutdown()
+
+
+# --------------------------------------------------------------------------
+# GPU work without a card: refused, never run on the CPU
+# --------------------------------------------------------------------------
+_HIDDEN = {"CUDA_VISIBLE_DEVICES": ""}
+
+
+def test_gpu_job_without_a_card_fails_and_never_serves(tmp_path):
+    """A submitted job whose driver asks for the card, where the card is
+    hidden (its ``env_vars``; this host has none anyway), ends ``FAILED``
+    with the engine's refusal; its driver never gets to serve."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.job_submission import JobSubmissionClient
+
+    code = ("from ray_tpu_torch.models.transformer import TransformerConfig; "
+            "from ray_tpu_torch.serve.llm import LLMEngine; "
+            "LLMEngine(TransformerConfig(vocab_size=11, d_model=8, n_layers=1, n_heads=2), {}); "
+            "print('served')")
+    rt.init(num_cpus=1, include_dashboard=True)
+    try:
+        client = JobSubmissionClient(rt.get_cluster().dashboard.url)
+        sid = client.submit_job(entrypoint=f"{sys.executable} -c \"{code}\"",
+                                runtime_env={"env_vars": _HIDDEN})
+        info = client.wait_until_finished(sid, timeout=120)
+        logs = client.get_job_logs(sid)
+    finally:
+        rt.shutdown()
+    assert info["status"] == "FAILED", logs
+    assert "runs on CUDA by default and no CUDA device is available" in logs
+    assert "served" not in logs.split("RuntimeError")[-1]
+
+
+def test_gpu_workflow_step_without_a_card_fails_the_workflow(tmp_path, monkeypatch):
+    """A workflow's GPU step (a GPU share, in process) whose engine finds
+    no card raises: the workflow is ``FAILED`` and the step left no durable
+    result to replay."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.models.transformer import TransformerConfig
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+    def gpu_step(prompt):
+        eng = LLMEngine(TransformerConfig(vocab_size=11, d_model=8, n_layers=1, n_heads=2), {})
+        return eng.generate(prompt, max_tokens=2)
+
+    workflow.init(str(tmp_path / "wf"))
+    rt.init(num_cpus=2, num_gpus=1)
+    try:
+        step = rt.remote(gpu_step).options(num_gpus=1, execution="thread")
+        with pytest.raises(rt.RayTaskError, match="no CUDA device is available"):
+            workflow.run(step.bind([1, 2]), workflow_id="wf_gpu")
+        assert workflow.get_status("wf_gpu") == "FAILED"
+        assert workflow.get_metadata("wf_gpu")["step_names"] == []
+    finally:
+        rt.shutdown()
+
+
+def test_gpu_share_task_with_runtime_env_never_runs_on_the_cpu(tmp_path):
+    """A ``num_gpus`` task with a ``runtime_env`` whose ``env_vars`` hide the
+    card raises before its body runs (the same holds with no card at all:
+    ``tests/test_torch_runtime_env.py``)."""
+    import ray_tpu_torch as rt
+    from torch_runtime_tasks import _gpu_body
+
+    marker = str(tmp_path / "ran")
+    rt.init(num_cpus=2, num_gpus=1)
+    try:
+        ref = rt.remote(_gpu_body).options(
+            num_gpus=1, runtime_env={"env_vars": {**_HIDDEN, "MY_GPU_FLAG": "on"}}).remote(marker)
+        with pytest.raises(rt.RayTaskError, match="hides the card"):
+            rt.get(ref, timeout=120)
+    finally:
+        rt.shutdown()
+    assert not os.path.exists(marker)
