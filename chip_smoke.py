@@ -17,6 +17,7 @@
     python3 chip_smoke.py --phases build,trainer   # trainers, TrainController, collective groups
     python3 chip_smoke.py --phases build,tune      # Tune: ASHA, Train-on-Tune, restore
     python3 chip_smoke.py --phases build,jobs      # submitted GPU jobs, a durable workflow, state
+    python3 chip_smoke.py --phases build,cli       # the rt CLI, scripts/, the autoscaler, rt lint
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -243,9 +244,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    before and read after each step (K4 = K5 = 8, K3 = 16 a step, every K3,
    K4 and K5 launch on the tensor-core route), every loss
    finite and the last below the first; step ms (CUDA events), tokens/s and
-   the model FLOP share of 989 TFLOP/s. The state after step 2 is saved
-   through ``Checkpoint.from_pytree`` and restored into a fresh state: step 3
-   from both, with deterministic algorithms on, gives bitwise equal losses.
+   the model FLOP share of 989 TFLOP/s. Then the resume check, the same
+   ``run_train`` for 3 steps on the same widths at ``CUT_LAYERS`` (2) layers
+   (the phase's depth cut: the 8-layer state's 7.2 GB checkpoint took 80
+   s): the state after step 2 is saved through ``Checkpoint.from_pytree``
+   and restored into a fresh state; step 3 from both, with deterministic
+   algorithms on, gives bitwise equal losses.
 7. ``moe_parity`` — ``forward_parity`` on the serving decoder with 8
    experts, top-2 (1,693,877,248 params; dense dispatch): the same checks,
    K6 three times a layer per forward under int8 (``wq``, ``wk``, ``wv``;
@@ -276,7 +280,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    output (2e-2) and the gradients (relative Frobenius 2e-2) against
    ``flash_attention`` on the full tensors; (c) the train phase's 602M step
    (its seed and tokens) for 3 steps on ``{"sp": 2}`` (ring) and ``{"tp":
-   2}`` (flash): losses within ``LOSS_RTOL`` (2e-3) relative of the one-device steps',
+   2}`` (flash): losses within ``LOSS_RTOL`` (2e-3) relative of the train
+   phase's,
    K3/K4/K5 launches a step per rank, step ms (median after each rank's
    first step), tokens/s, peak memory and the bytes carried through the
    host; (d) the same widths at 2 layers on ``{"dp": 2, "sp": 2}`` (4
@@ -289,26 +294,29 @@ Phases, each printing one JSON line; any failure exits non-zero:
    losses must stray from one device's by more than ``LOSS_RTOL``.
 12. ``trainer`` — the training library (``ray_tpu_torch.train``) on the
    train phase's 602M decoder, one ``init(num_cpus=8)``, deterministic
-   algorithms on for (a) and (b): (a) ``DeviceTrainer`` with one GPU rank:
+   algorithms on for (a) and (b): (a) ``DeviceTrainer`` with one GPU rank
+   on the decoder cut to ``CUT_LAYERS`` (2) layers (its widths kept):
    a seeded ``int32[24, 2048]`` token table through ``from_numpy`` and the
    rank's ``get_dataset_shard("train").iter_device_batches(batch_size=6)``
    into ``make_train_step`` on the rank's device, ``train.report`` a step;
    after step 2 one framed checkpoint of the train state (params, mu, nu:
-   7.2 GB) is reported and the loop raises once; ``FailureConfig(
+   2.4 GB at 2 layers) is reported and the loop raises once; ``FailureConfig(
    max_failures=1)`` restarts the gang from that checkpoint on to step 4.
    The four losses equal a direct ``make_train_step`` from the same state
-   on the same batches bitwise; K3/K4/K5 16/8/8 a step on ``wgmma_bf16``;
+   on the same batches bitwise; K3/K4/K5 2/1/1 a layer and step on
+   ``wgmma_bf16``;
    step ms beside the direct run's and the train phase's, the checkpoint's
    save and restore seconds, the restart's wall seconds. (b)
-   ``TrainController`` gangs of in-process GPU actors on the 602M loss over
+   ``TrainController`` gangs of in-process GPU actors on the 602M widths at
+   ``CUT_LAYERS`` (2) layers, the loss over
    the flat f32 row (its leaves views of it), one 2048-token row a member a
    step drawn from a seeded float32 dataset: 4 steps at world 1 and at
    world 2 from the same seed, the curves within ``LOSS_RTOL``; a
-   checkpoint after step 2 (params and momentum, 4.8 GB), then
+   checkpoint after step 2 (params and momentum, 1.6 GB at 2 layers), then
    ``preempt_member(1, graceful=False)``: the typed error, ``recover()``
    (the member is gone for good, so the ladder shrinks), 2 more steps
-   bitwise ``replay``'s and invariant 12 green. K3/K4/K5 16/8/8 a member
-   step, warm-ups included and counted apart, as are the replays'; gang
+   bitwise ``replay``'s and invariant 12 green. K3/K4/K5 2/1/1 a layer and
+   member step, warm-ups included and counted apart, as are the replays'; gang
    step ms beside world 1's, peak memory, checkpoint and recovery seconds;
    the params and momentum stay on the card. (c) ``TorchTrainer``: two
    process ranks sharing ``cuda:0`` over gloo run ``tests/test_train.py``'s
@@ -360,9 +368,35 @@ Phases, each printing one JSON line; any failure exits non-zero:
    worker of its own and writes a loadable ``.prof``; ``usage_stats.json``
    is in the session directory after ``shutdown``, and no job's process is
    left.
+13c. ``cli`` — the operator surface on the card, over the serving decoder
+   from the serving phases' seed: (a) under ``init(include_dashboard=True)``
+   ``rt serve deploy`` of a YAML with the ``LLMServer`` float and int8 at
+   ``CLI_SHARE`` of the card each; the burst over HTTP (8 requests, prompt
+   64, 32 greedy tokens) equal to the engine phase's tokens, K1 16 a decode
+   step, K6 96 a forward on ``mma_bf16``; during a burst ``rt llm`` shows
+   the engine ``cache=paged`` with blocks in use and ``rt status`` the GPU;
+   after it ``rt requests``, ``rt metrics``, ``rt summary tasks`` and ``rt
+   serve status`` exit 0; ``rt serve shutdown`` frees the replicas' memory.
+   (b) a runtime whose head holds no GPU: a ``num_gpus=1`` engine actor
+   waits until a ``Monitor`` over an ``InProcessNodeProvider`` launches a
+   ``{"CPU": 2, "GPU": 1}`` node (max 1); it serves the burst, tokens equal
+   direct, K1 16 a decode step; after the kill the idle timeout terminates
+   the node; ``sdk.request_resources(bundles=[{"GPU": 1}])`` launches one
+   again and clearing it terminates it. (c) ``python -m
+   ray_tpu_torch.scripts.llm_bench`` at full width: tokens/s, the card's
+   name, K1 16 a decode step of its waves. (d) ``python -m
+   ray_tpu_torch.scripts.kernel_bench``: K2 and K3 at long shapes against
+   their plain versions, then timed beside them and their bounds. (e) ``rt
+   microbenchmark --quick --only`` ``CLI_MICROBENCH_ROWS`` (the LLM rows on
+   the head_dim-64 decoder), every row with its unit; the LLM rows' in-row
+   guards hold, except that a missed chunked-prefill or prefix-cache timing
+   floor (``TimingFloorMissed``) is reported with the row's value. (f) ``rt lint``: zero violations over ``ray_tpu_torch/``. (g)
+   ``python -m ray_tpu_torch start`` and ``stop`` as processes: the port's
+   own address file, ``rt status`` reads the head, the card's memory free
+   again after the stop.
 14. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
    replaces, launches in the main-path runs (engine, server, disagg,
-   runtime, serve, chaos, data, dag, jobs, tp_serve, train, moe_engine,
+   runtime, serve, chaos, data, dag, jobs, cli, tp_serve, train, moe_engine,
    vit_train, parallel, trainer, tune) in all and by phase, max
    error, device ms, plain ms, bound ms and what bounds it, library ms;
    K1/K2 also the event floor and each timed shape; K3/K4/K5 also the parallel phase's
@@ -393,6 +427,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 from typing import Optional
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM3 bytes/s, dense FLOP/s
@@ -402,7 +437,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PHASES = ("build", "kernels", "forward_parity", "engine", "server", "disagg", "runtime",
           "serve", "chaos", "data", "dag", "tp_serve", "train_parity",
           "train", "moe_parity", "moe_engine", "vit_train", "dit", "parallel", "trainer",
-          "tune", "jobs")
+          "tune", "jobs", "cli")
 OPTIONAL_PHASES = ("profile",)
 
 
@@ -4139,11 +4174,19 @@ def train_parity(torch, cfg, params):
     return report
 
 
-def run_train(torch, cfg, params, counters: dict, steps: int = 5, batch: int = 6):
+#: the depth (widths kept) of the 602M decoder where a phase checkpoints its
+#: state: the train phase's resume check and ``trainer`` (a) and (b). At the
+#: full 8 layers the train state's checkpoint is 7.2 GB (PERF.md section 4)
+CUT_LAYERS = 2
+
+
+def run_train(torch, cfg, params, counters: dict, steps: int = 5, batch: int = 6,
+              resume_after: Optional[int] = None):
     """``steps`` AdamW steps on a repeated batch, counters zeroed before
-    and read after each; the state after step 2 is checkpointed and step 3
-    is taken again from the restored copy (deterministic algorithms on for
-    both step 3s): the two losses must be bitwise equal."""
+    and read after each. With ``resume_after``, the state after that step
+    is checkpointed and the next step is taken again from the restored copy
+    (deterministic algorithms on for both): the two losses must be bitwise
+    equal."""
     from ray_tpu_torch.models.transformer import make_train_step, new_train_state
     from ray_tpu_torch.train.checkpoint import Checkpoint
 
@@ -4181,26 +4224,33 @@ def run_train(torch, cfg, params, counters: dict, steps: int = 5, batch: int = 6
         return state
 
     torch.cuda.reset_peak_memory_stats()
-    state = one_step(one_step(state))
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        ckpt = Checkpoint.from_pytree(state, base_dir=tmp)
-        save_s = time.perf_counter() - t0
-        torch.use_deterministic_algorithms(True)
-        try:
-            state = one_step(state)  # the uninterrupted step 3
+    resume = {}
+    for i in range(steps):
+        if i != resume_after:
+            state = one_step(state)
+            continue
+        with tempfile.TemporaryDirectory() as tmp:
             t0 = time.perf_counter()
-            restored = ckpt.to_pytree(device="cuda")
-            restore_s = time.perf_counter() - t0
-            restored, loss_resumed = train_step(restored, tokens)
-        finally:
-            torch.use_deterministic_algorithms(False)
-        if not torch.equal(loss_resumed, losses[2]):
-            raise AssertionError(f"resumed step 3 loss {float(loss_resumed)!r} != "
-                                 f"{float(losses[2])!r}")
-        del restored
-    for _ in range(steps - 3):
-        state = one_step(state)
+            ckpt = Checkpoint.from_pytree(state, base_dir=tmp)
+            save_s = time.perf_counter() - t0
+            torch.use_deterministic_algorithms(True)
+            try:
+                state = one_step(state)  # the uninterrupted step
+                t0 = time.perf_counter()
+                restored = ckpt.to_pytree(device="cuda")
+                restore_s = time.perf_counter() - t0
+                restored, loss_resumed = train_step(restored, tokens)
+            finally:
+                torch.use_deterministic_algorithms(False)
+            if not torch.equal(loss_resumed, losses[i]):
+                raise AssertionError(f"resumed step {i + 1} loss {float(loss_resumed)!r} != "
+                                     f"{float(losses[i])!r}")
+            del restored
+        resume = {"resume_loss_bitwise_equal": True, "checkpoint_save_s": save_s,
+                  "checkpoint_restore_s": restore_s, "resumed_step_deterministic": True}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    torch.cuda.empty_cache()
     losses = [float(x) for x in losses]
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"train: losses {losses}")
@@ -4214,9 +4264,7 @@ def run_train(torch, cfg, params, counters: dict, steps: int = 5, batch: int = 6
         "model_flops_per_token": flops_per_token,
         "flop_share_of_989_tflops": tokens_per_s * flops_per_token / PEAK_FLOPS["bfloat16"],
         "launches_per_step": launches, "launches_by_route_per_step": routes,
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-        "resume_loss_bitwise_equal": True, "checkpoint_save_s": save_s,
-        "checkpoint_restore_s": restore_s, "step3_deterministic_algorithms": True,
+        "peak_mem_gb": peak_gb, **resume,
     }
 
 
@@ -5192,7 +5240,8 @@ def trainer_user_loop(torch, rt, cfg, counters: dict, card: str, train_step_ms) 
         check_per_call(f"(a) step {i + 1}", s["delta"], 1, want)
     check_per_call("(a) fit", (launches, by_route), TRAINER_STEPS, want)
     ms = [s["ms"] for s in steps]
-    return {"part": "a_device_trainer", "card": card, "table": list(TRAINER_TABLE),
+    return {"part": "a_device_trainer", "card": card, "n_layers": cfg.n_layers,
+            "table": list(TRAINER_TABLE),
             "batch": TRAINER_BATCH, "steps": TRAINER_STEPS, "losses": losses,
             "losses_bitwise_equal_direct": True, "attempts": [s["attempt"] for s in steps],
             "step_ms": ms, "step_ms_median": statistics.median(ms),
@@ -5523,8 +5572,10 @@ def run_trainer(torch, counters: dict, card: str, train_step_ms=None):
     cfg = train_config(torch)
     rt.init(num_cpus=8)
     try:
-        yield trainer_user_loop(torch, rt, cfg, counters, card, train_step_ms)
-        yield trainer_gang(torch, rt, cfg, counters, card)
+        yield trainer_user_loop(torch, rt, dataclasses.replace(cfg, n_layers=CUT_LAYERS),
+                                counters, card, train_step_ms)
+        yield trainer_gang(torch, rt, dataclasses.replace(cfg, n_layers=CUT_LAYERS),
+                           counters, card)
         yield trainer_torch(torch, card)
         yield trainer_collective(torch, rt, card)
     finally:
@@ -6269,6 +6320,438 @@ def run_jobs(torch, cfg, params, kernels_of: dict, engine_tokens: dict, card: st
            "seconds": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# the operator surface: the rt CLI, scripts/, the autoscaler, analysis/
+# ---------------------------------------------------------------------------
+CLI_SHARE = 0.5  # (a): the card's share each Serve replica holds
+CLI_TIMEOUT_S = 300.0  # the bound on each wait of the phase
+CLI_FREE_SLACK = 64 << 20  # (a): allocated bytes back within this after shutdown
+CLI_IDLE_TIMEOUT_S = 2.0  # (b): the autoscaler's idle timeout
+CLI_BENCH_TIMEOUT_S = 600.0  # (c), (d), (g): the bound on each subprocess
+#: (e): the rows of ``rt microbenchmark`` the phase runs on the card, in
+#: one call, and the LLM rows, each in a call of its own
+CLI_MICROBENCH_ROWS = ("single_client_tasks_sync", "1_1_actor_calls_sync",
+                       "single_client_put_calls", "single_client_get_calls",
+                       "hbm_put_gigabytes", "hbm_get_gigabytes")
+CLI_LLM_ROWS = ("llm_paged_capacity_x", "llm_chunked_prefill_stall_p99",
+                "llm_concurrent_streams_x", "llm_prefix_cache_ttft_x",
+                "llm_disagg_intertoken_p99")
+CLI_APPS = types.SimpleNamespace()  # (a): the applications the YAML's import paths name
+
+
+def cli_run(argv) -> tuple:
+    """(exit code, stdout) of ``rt <argv>`` run in this process."""
+    import contextlib
+    import io
+
+    from ray_tpu_torch.scripts import cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(list(argv))
+    return rc, out.getvalue()
+
+
+def cli_ok(argv) -> str:
+    rc, out = cli_run(argv)
+    if rc != 0:
+        raise AssertionError(f"cli: `rt {' '.join(argv)}` exited {rc}: {out[-2000:]}")
+    return out
+
+
+def cli_module(argv, timeout_s: float = CLI_BENCH_TIMEOUT_S, **kw):
+    """``python -m ray_tpu_torch...`` from the checkout's root."""
+    return subprocess.run([sys.executable, "-m", *argv], capture_output=True, text=True,
+                          timeout=timeout_s, cwd=os.path.dirname(os.path.abspath(__file__)), **kw)
+
+
+def busy_paged_engine(out: str) -> bool:
+    """``rt llm``'s text lists an engine with ``cache=paged`` that holds
+    blocks while it serves: slots active, requests queued or a prefill in
+    flight."""
+    for block in re.split(r"(?m)^(?=engine \d+:)", out):
+        head = re.match(r"engine \d+: cache=paged,.* (\d+)/\d+ slots, (\d+) queued", block)
+        pool = re.search(r"kv pool: (\d+)/\d+ blocks in use", block)
+        prefill = re.search(r"prefill: (\d+) in flight", block)
+        if head and pool and int(pool.group(1)) > 0 and (
+                int(head.group(1)) > 0 or int(head.group(2)) > 0
+                or (prefill and int(prefill.group(1)) > 0)):
+            return True
+    return False
+
+
+def cli_serve(torch, rt, cfg, params, kernels_of: dict, want: dict, workdir: str) -> dict:
+    """(a) ``rt serve deploy`` of a YAML holding the ``LLMServer`` float and
+    int8 at a share of the card each, the burst over HTTP, the operator
+    commands during and after it, and ``rt serve shutdown``."""
+    import gc as _gc
+
+    import chip_smoke as smoke
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.serve.llm import LLMServer
+
+    kw = dict(max_batch_size=8, max_seq_len=cfg.max_seq_len, kv_block_size=16,
+              cache_kind="paged")
+    for quantize in (False, True):
+        name = "llm_int8" if quantize else "llm_float"
+        setattr(smoke.CLI_APPS, name, serve.deployment(LLMServer, name=name).bind(
+            lambda: (cfg, params), quantize=quantize, **kw))
+    # YAML in its JSON form (JSON is YAML)
+    path = os.path.join(workdir, "serve.yaml")
+    with open(path, "w") as f:
+        json.dump({"applications": [
+            {"name": name, "route_prefix": "/" + name,
+             "import_path": f"chip_smoke:CLI_APPS.{name}",
+             "deployments": [{"name": name, "ray_actor_options": {"num_gpus": CLI_SHARE}}]}
+            for name in ("llm_float", "llm_int8")]}, f, indent=2)
+    url = rt.get_cluster().dashboard.url
+    _gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    deployed = json.loads(cli_ok(["serve", "deploy", path]))["deployed"]
+    deploy_s = time.perf_counter() - t0
+    if sorted(deployed) != ["llm_float", "llm_int8"]:
+        raise AssertionError(f"cli (a): deployed {deployed}")
+    prompts = burst_prompts(cfg, 8, 64)
+    runs = {}
+    launches_all, routes_all = {}, {}
+    for quantize in (False, True):
+        name = "llm_int8" if quantize else "llm_float"
+        names = ["paged_decode_attention"] + (["int8_matmul"] if quantize else [])
+        counters = {n: kernels_of[n] for n in names}
+        http = serve.proxy_url() + "/" + name
+        http_json(http, {"prompt": [5] * 64, "max_tokens": 2})  # the loop's cuBLAS handle
+        seen = {}
+        burst = {}
+
+        def run_burst():
+            try:
+                burst["out"] = served_burst(prompts, lambda i: http_events(
+                    http, {"prompt": prompts[i], "max_tokens": 32, "stream": True}), counters)
+            except BaseException as exc:  # noqa: BLE001 - raised below
+                burst["error"] = exc
+
+        th = threading.Thread(target=run_burst)
+        th.start()
+        while th.is_alive() and "llm" not in seen:
+            out = cli_ok(["llm", "--address", url])
+            if busy_paged_engine(out):
+                seen["llm"] = out
+                seen["status"] = cli_ok(["status", "--address", url])
+            time.sleep(0.05)
+        th.join(timeout=CLI_TIMEOUT_S)
+        if "error" in burst:
+            raise burst["error"]
+        tokens, launches, by_route, nums = burst["out"]
+        what = f"cli (a) {name}"
+        if "llm" not in seen or not re.search(r"\n\s+[\d.]+/1 GPU used", seen["status"]):
+            raise AssertionError(f"{what}: during the burst `rt llm` / `rt status` showed {seen}")
+        if tokens != want[quantize]:
+            raise AssertionError(f"{what}: tokens differ from the engine phase's")
+        steps, rem = divmod(launches["paged_decode_attention"], cfg.n_layers)
+        if rem or steps < 31:
+            raise AssertionError(f"{what}: K1 {launches}, not {cfg.n_layers} a decode step")
+        per_forward = k6_per_layer(cfg) * cfg.n_layers
+        if quantize and (launches["int8_matmul"] % per_forward
+                         or launches["int8_matmul"] < per_forward * steps
+                         or by_route["int8_matmul"] != {"mma_bf16": launches["int8_matmul"],
+                                                        "simt": 0}):
+            raise AssertionError(f"{what}: K6 {launches} {by_route}")
+        runs[name] = {**nums, "decode_steps": steps, "launches": launches,
+                      "launches_by_route": by_route,
+                      "rt_llm_during_burst": seen["llm"].strip().splitlines()}
+        for n, x in launches.items():
+            launches_all[n] = launches_all.get(n, 0) + x
+        for n, per in by_route.items():
+            routes_all[n] = {r: routes_all.get(n, {}).get(r, 0) + x for r, x in per.items()}
+    t0 = time.perf_counter()
+    after = {" ".join(argv): len(cli_ok(argv + extra)) for argv, extra in (
+        (["requests"], ["--address", url]), (["metrics"], ["--address", url]),
+        (["summary", "tasks"], ["--address", url]), (["serve", "status"], []))}
+    commands_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cli_ok(["serve", "shutdown"])
+    smoke.CLI_APPS.__dict__.clear()
+
+    def freed():
+        _gc.collect()
+        torch.cuda.synchronize()
+        return torch.cuda.memory_allocated() <= base + CLI_FREE_SLACK
+
+    wait_for("cli (a): the replicas' memory freed after `rt serve shutdown`", freed,
+             SERVE_TEARDOWN_WAIT_S)
+    shutdown_s = time.perf_counter() - t0
+    return {"yaml_apps": sorted(deployed), "num_gpus_each": CLI_SHARE, "deploy_s": deploy_s,
+            "requests": 8, "prompt_len": 64, "max_tokens": 32, "runs": runs,
+            "tokens_equal_engine_phase": True, "commands_after_burst_bytes": after,
+            "commands_after_burst_s": commands_s,
+            "freed_gb": (held - torch.cuda.memory_allocated()) / 1e9,
+            "serve_shutdown_s": shutdown_s, "launches": launches_all,
+            "launches_by_route": routes_all}
+
+
+def cli_autoscaler(torch, cfg, params, kernels_of: dict, want_tokens) -> dict:
+    """(b) a runtime whose head holds no GPU: a ``num_gpus=1`` engine actor
+    waits until a ``Monitor`` over an ``InProcessNodeProvider`` launches the
+    ``{"CPU": 2, "GPU": 1}`` node type (max 1); it serves the burst; after
+    the kill the idle timeout terminates the node; ``request_resources``
+    launches one again and clearing it terminates it."""
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.autoscaler import (AutoscalerConfig, InProcessNodeProvider, Monitor,
+                                          NodeTypeConfig, sdk)
+
+    k1 = {"paged_decode_attention": kernels_of["paged_decode_attention"]}
+    rt.init(num_cpus=4, num_gpus=0)
+    monitor = None
+    try:
+        cluster = rt.get_cluster()
+        if rt.cluster_resources().get("GPU", 0) != 0:
+            raise AssertionError(f"cli (b): the head holds a GPU: {rt.cluster_resources()}")
+        provider = InProcessNodeProvider(cluster)
+        monitor = Monitor(cluster, AutoscalerConfig(
+            node_types={"gpu": NodeTypeConfig("gpu", {"CPU": 2, "GPU": 1}, max_workers=1)},
+            idle_timeout_s=CLI_IDLE_TIMEOUT_S, update_interval_s=0.1), provider=provider)
+        scaler = monitor.autoscaler
+        t_demand = time.perf_counter()
+        actor = rt.remote(EngineActor).options(num_gpus=1).remote(cfg, params, False)
+        monitor.start()
+        wait_for("cli (b): the GPU node's launch", lambda: scaler.num_launches >= 1,
+                 CLI_TIMEOUT_S)
+        t_launch = time.perf_counter()
+        rt.get(actor.warm.remote(64), timeout=CLI_TIMEOUT_S)
+        sid = rt.get(actor.open_stream.remote(burst_prompts(cfg, 1, 64)[0], 1))
+        rt.get(actor.next_token.remote(sid))
+        t_first = time.perf_counter()
+        steps0 = rt.get(actor.decode_steps.remote())
+        zero_counters(k1)
+        tokens = rt.get(actor.generate.remote(burst_prompts(cfg, 8, 64), 32),
+                        timeout=CLI_TIMEOUT_S)
+        steps = rt.get(actor.decode_steps.remote()) - steps0
+        launches, _ = read_counters(k1)
+        if tokens != want_tokens:
+            raise AssertionError("cli (b): the autoscaled actor's tokens differ from direct")
+        if launches["paged_decode_attention"] != cfg.n_layers * steps:
+            raise AssertionError(f"cli (b): K1 {launches} over {steps} decode steps")
+        gpu_node = [n for n in cluster.nodes.values()
+                    if not n.dead and n.pool.total.to_dict().get("GPU") == 1]
+        rt.get(actor.close.remote())
+        rt.kill(actor)
+        del actor
+        t_kill = time.perf_counter()
+        wait_for("cli (b): the idle GPU node's termination",
+                 lambda: not provider.non_terminated_nodes(), CLI_TIMEOUT_S)
+        idle_s = time.perf_counter() - t_kill
+        t0 = time.perf_counter()
+        sdk.request_resources(bundles=[{"GPU": 1}])
+        wait_for("cli (b): request_resources' launch",
+                 lambda: len(provider.non_terminated_nodes()) == 1, CLI_TIMEOUT_S)
+        request_s = time.perf_counter() - t0
+        sdk.request_resources()
+        t0 = time.perf_counter()
+        wait_for("cli (b): the cleared request's termination",
+                 lambda: not provider.non_terminated_nodes(), CLI_TIMEOUT_S)
+        clear_s = time.perf_counter() - t0
+    finally:
+        if monitor is not None:
+            monitor.stop()
+        rt.shutdown()
+    return {"head_gpu": 0, "node_type": {"CPU": 2, "GPU": 1}, "gpu_nodes_launched": len(gpu_node),
+            "launches_total": scaler.num_launches, "terminations_total": scaler.num_terminations,
+            "demand_to_launch_s": t_launch - t_demand, "launch_to_first_token_s": t_first - t_launch,
+            "decode_steps": steps, "tokens_equal_direct": True, "idle_to_terminate_s": idle_s,
+            "request_to_launch_s": request_s, "clear_to_terminate_s": clear_s,
+            "launches": launches, "launches_by_route": {}}
+
+
+def cli_llm_bench(torch, cfg, workdir: str) -> dict:
+    """(c) ``python -m ray_tpu_torch.scripts.llm_bench <out.json>``."""
+    out_path = os.path.join(workdir, "llm_bench.json")
+    t0 = time.perf_counter()
+    p = cli_module(["ray_tpu_torch.scripts.llm_bench", out_path])
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"cli (c): llm_bench exited {p.returncode}: {p.stderr[-3000:]}")
+    with open(out_path) as f:
+        rep = json.load(f)
+    x = rep["extra"]
+    if (rep["unit"] != "tokens/s" or not rep["value"] > 0 or x["cache_kind"] != "paged"
+            or x["device"] != torch.cuda.get_device_name(0)
+            or x["k1_launches"] != cfg.n_layers * x["decode_steps"]
+            or x["total_tokens"] != 3 * 8 * 128):
+        raise AssertionError(f"cli (c): llm_bench {rep}")
+    # the subprocess's own K1 counter, over its timed waves
+    return {"llm_bench": rep, "wall_s": wall,
+            "launches": {"paged_decode_attention": x["k1_launches"]}, "launches_by_route": {}}
+
+
+def cli_kernel_bench(torch) -> dict:
+    """(d) ``python -m ray_tpu_torch.scripts.kernel_bench`` with its
+    defaults: K2 and K3 held against their plain versions, then timed."""
+    t0 = time.perf_counter()
+    p = cli_module(["ray_tpu_torch.scripts.kernel_bench"])
+    wall = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"cli (d): kernel_bench exited {p.returncode}: {p.stderr[-3000:]}")
+    rep = json.loads(p.stdout.strip().splitlines()[-1])
+    tile = rep["flash_tile"]
+    routes = rep["flash_launches_by_route"]
+    if (rep["device"] != torch.cuda.get_device_name(0) or f"flash_{tile}_ms" not in rep
+            or not rep["decode_kernel_us"] > 0 or rep["flash_blocks_requested"] == []
+            or rep["decode_launches"] < 1
+            or routes != {"wgmma_bf16": rep["flash_launches"], "simt_f32": 0}
+            or rep["flash_launches"] < 1):
+        raise AssertionError(f"cli (d): kernel_bench {rep}")
+    # the subprocess's own K2 / K3 counters (its checks and timed calls)
+    return {"kernel_bench": rep, "wall_s": wall,
+            "launches": {"decode_attention": rep["decode_launches"],
+                         "flash_attention_forward": rep["flash_launches"]},
+            "launches_by_route": {"flash_attention_forward": routes}}
+
+
+def microbench_rows(out: str, names) -> dict:
+    """{row: {value, unit}} of ``rt microbenchmark``'s printed table."""
+    rows = {}
+    for line in out.splitlines():
+        parts = line.split()
+        if parts and parts[0] in names:
+            rows[parts[0]] = {"value": float(parts[1]), "unit": parts[2]}
+    return rows
+
+
+def cli_microbenchmark(kernels_of: dict) -> dict:
+    """(e) ``rt microbenchmark --quick --only ...`` in this process: every
+    runtime, copy and LLM row back with its unit. Of the LLM rows' in-row
+    guards only the two timing floors that the host-bound engine misses in
+    some runs (``TimingFloorMissed``: the chunked-prefill stall p99 and the
+    prefix-cache TTFT ratio) are reported rather than raised, with the row's
+    value and unit from the exception; every other guard (tokens, leaked
+    blocks, streams, migrations, the other floors) fails the phase."""
+    from ray_tpu_torch.scripts.microbench import BASELINES, TimingFloorMissed
+
+    counters = {n: kernels_of[n] for n in ("paged_decode_attention", "decode_attention")}
+    t0 = time.perf_counter()
+    rows = microbench_rows(cli_ok(["microbenchmark", "--quick", "--only",
+                                   ",".join(CLI_MICROBENCH_ROWS)]), CLI_MICROBENCH_ROWS)
+    if sorted(rows) != sorted(CLI_MICROBENCH_ROWS):
+        raise AssertionError(f"cli (e): rows {sorted(rows)} of {CLI_MICROBENCH_ROWS}")
+    for name, base in BASELINES.items():
+        if name in rows and rows[name]["unit"] != base[1]:
+            raise AssertionError(f"cli (e): {name} in {rows[name]['unit']}, not {base[1]}")
+    zero_counters(counters)
+    guards = {}
+    for row in CLI_LLM_ROWS:
+        try:
+            got = microbench_rows(cli_ok(["microbenchmark", "--quick", "--only", row]), [row])
+            guards[row] = "held"
+        except TimingFloorMissed as exc:
+            if exc.row != row:
+                raise
+            got = {row: {"value": exc.value, "unit": exc.unit}}
+            guards[row] = f"timing floor missed: {exc}"
+        if sorted(got) != [row] or not got[row]["unit"]:
+            raise AssertionError(f"cli (e): {row} came back as {got}")
+        rows.update(got)
+    launches, _ = read_counters(counters)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"cli (e): the LLM rows on the card launched {launches}")
+    return {"rows": rows, "llm_guards": guards, "wall_s": time.perf_counter() - t0,
+            "launches": launches, "launches_by_route": {}}
+
+
+def cli_lint() -> dict:
+    """(f) ``rt lint`` over ``ray_tpu_torch/``: zero violations."""
+    t0 = time.perf_counter()
+    rc, out = cli_run(["lint", "--json"])
+    lint_s = time.perf_counter() - t0
+    violations = json.loads(out)
+    if rc != 0 or violations:
+        raise AssertionError(f"cli (f): rt lint exited {rc}: {violations}")
+    return {"violations": 0, "lint_s": lint_s}
+
+
+def cli_start_stop(torch) -> dict:
+    """(g) ``rt start`` and ``rt stop`` as processes: the head comes up on
+    the port's own address file, ``rt status`` reads it, ``rt stop`` ends it
+    and the card's memory is free again."""
+    from ray_tpu_torch.scripts import cli
+
+    free0, _ = torch.cuda.mem_get_info()
+    if os.path.exists(cli.ADDRESS_FILE):
+        os.unlink(cli.ADDRESS_FILE)
+    t0 = time.perf_counter()
+    head = subprocess.Popen([sys.executable, "-m", "ray_tpu_torch", "start", "--num-cpus", "2",
+                             "--dashboard-port", "0"],
+                            cwd=os.path.dirname(os.path.abspath(__file__)),
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        wait_for("cli (g): the head's address file", lambda: os.path.exists(cli.ADDRESS_FILE),
+                 CLI_TIMEOUT_S, interval_s=0.2)
+        start_s = time.perf_counter() - t0
+        with open(cli.ADDRESS_FILE) as f:
+            info = json.load(f)
+        if info["pid"] != head.pid or not cli._pid_is_head(head.pid):
+            raise AssertionError(f"cli (g): address file {info}, head pid {head.pid}")
+        status = cli_module(["ray_tpu_torch", "status"], timeout_s=CLI_TIMEOUT_S)
+        if status.returncode != 0 or not re.search(r"/1 GPU used", status.stdout):
+            raise AssertionError(f"cli (g): rt status {status.returncode}: {status.stdout}"
+                                 f"{status.stderr[-2000:]}")
+        t1 = time.perf_counter()
+        stop = cli_module(["ray_tpu_torch", "stop"], timeout_s=CLI_TIMEOUT_S)
+        rc = head.wait(timeout=CLI_TIMEOUT_S)
+        stop_s = time.perf_counter() - t1
+    finally:
+        if head.poll() is None:
+            head.kill()
+            head.wait()
+    if stop.returncode != 0 or rc != 0 or os.path.exists(cli.ADDRESS_FILE):
+        raise AssertionError(f"cli (g): rt stop {stop.returncode} {stop.stdout}, head rc {rc}")
+    free1 = wait_for("cli (g): the card's memory free again",
+                     lambda: (lambda f: f if f >= free0 - CLI_FREE_SLACK else None)(
+                         torch.cuda.mem_get_info()[0]), CLI_TIMEOUT_S)
+    return {"start_s": start_s, "stop_s": stop_s, "address_file": cli.ADDRESS_FILE,
+            "status_lines": status.stdout.strip().splitlines(),
+            "free_gb_before": free0 / 1e9, "free_gb_after": free1 / 1e9}
+
+
+def run_cli(torch, cfg, params, kernels_of: dict, engine_tokens: dict, card: str):
+    """The cli phase: (a) and (b) in this process over the serving decoder,
+    (c) and (d) as subprocesses, (e) and (f) in this process, (g) as
+    subprocesses. Yields one report per part."""
+    import shutil
+
+    import ray_tpu_torch as rt
+
+    t_phase = time.perf_counter()
+    want = {}  # quantize -> this process's own burst: the engine phase's, or run now
+    for q in (False, True):
+        want[q] = engine_tokens.get(("paged", q)) or run_engine(
+            torch, cfg, params, "paged", 8, 64, 32, {}, quantize=q)["request_tokens"]
+    torch.cuda.empty_cache()
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    try:
+        rt.init(num_cpus=8, include_dashboard=True)
+        try:
+            rep = cli_serve(torch, rt, cfg, params, kernels_of, want, workdir)
+        finally:
+            rt.shutdown()
+        yield {"part": "a_serve_deploy", "card": card, **rep}
+        torch.cuda.empty_cache()
+        yield {"part": "b_autoscaler", "card": card,
+               **cli_autoscaler(torch, cfg, params, kernels_of, want[False])}
+        torch.cuda.empty_cache()
+        yield {"part": "c_llm_bench", "card": card, **cli_llm_bench(torch, cfg, workdir)}
+        yield {"part": "d_kernel_bench", "card": card, **cli_kernel_bench(torch)}
+        yield {"part": "e_microbenchmark", "card": card, **cli_microbenchmark(kernels_of)}
+        torch.cuda.empty_cache()
+        yield {"part": "f_lint", "card": card, **cli_lint()}
+        yield {"part": "g_start_stop", "card": card, **cli_start_stop(torch)}
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    yield {"part": "done", "card": card, "seconds": time.perf_counter() - t_phase}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -6346,7 +6829,7 @@ def main(argv=None) -> int:
                 by_route.setdefault(name, {}).setdefault(r, 0)
                 by_route[name][r] += x
     if phases & {"forward_parity", "engine", "server", "disagg", "runtime", "serve", "chaos",
-                  "data", "dag", "jobs"}:
+                  "data", "dag", "jobs", "cli"}:
         cfg = serving_config(torch)
         from ray_tpu_torch.models.transformer import init_params
 
@@ -6426,6 +6909,12 @@ def main(argv=None) -> int:
                 emit({"phase": "jobs", "ok": True, **rep})
                 if "launches" in rep:
                     count("jobs", rep["launches"], rep["launches_by_route"])
+        if "cli" in phases:
+            torch.cuda.empty_cache()
+            for rep in run_cli(torch, cfg, params, kernels_of, engine_tokens, card):
+                emit({"phase": "cli", "ok": True, **rep})
+                if "launches" in rep:
+                    count("cli", rep["launches"], rep["launches_by_route"])
         del params
         torch.cuda.empty_cache()
     if "data" in phases:
@@ -6462,11 +6951,20 @@ def main(argv=None) -> int:
             rep = run_train(torch, cfg, params, attention_kernels)
             train_losses = rep["losses"]
             train_step_ms = rep["step_ms_median"]
-            emit({"phase": "train", "ok": True, "card": card, **rep})
-            for n, routes in zip(rep["launches_per_step"], rep["launches_by_route_per_step"]):
-                count("train", n, routes)
         del params
         torch.cuda.empty_cache()
+        if "train" in phases:
+            # the resume check at CUT_LAYERS: 2.4 GB of state, not 7.2
+            cut = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+            resume = run_train(torch, cut, init_params(cut, torch.Generator(device="cuda")
+                                                       .manual_seed(0)),
+                               attention_kernels, steps=3, resume_after=2)
+            emit({"phase": "train", "ok": True, "card": card, **rep,
+                  "resume": {"layers": CUT_LAYERS, **resume}})
+            for r in (rep, resume):
+                for n, routes in zip(r["launches_per_step"], r["launches_by_route_per_step"]):
+                    count("train", n, routes)
+            torch.cuda.empty_cache()
     if phases & {"moe_parity", "moe_engine"}:
         cfg = moe_config(torch)
         from ray_tpu_torch.models.transformer import init_params

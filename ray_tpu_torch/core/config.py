@@ -82,16 +82,14 @@ class Config:
     # Max bytes of lineage kept per worker (reference max_lineage_bytes).
     max_lineage_bytes: int = 1024**3
     # Health-check period / failure threshold.  Tolerance matches the
-    # reference's GCS defaults (~25 s before a silent raylet is declared
-    # dead: period 3 s x threshold 5 + 10 s ping timeout,
-    # ray_config_def.h health_check_*_ms): period * threshold of report
-    # silence, then one ping with a health_check_ping_timeout_s budget.
-    # The old 1 s x 5 + 2 s ping (~7 s) false-positived on saturated
-    # 1-core hosts: a node mid-1 GiB-transfer can starve its report
-    # thread past 7 s and get killed while perfectly healthy.
+    # reference's GCS defaults (ray_config_def.h health_check_*_ms):
+    # period * threshold of report silence.  (The JAX package's remote-node
+    # ping budget, health_check_ping_timeout_s, comes with the multi-node
+    # runtime, ROADMAP item 10, as do control_port, resource_sync_period_s,
+    # data_plane_inline_bytes, location_commit_flush_* and rpc_retry_*:
+    # nothing in the one-node port reads them.)
     health_check_period_s: float = 3.0
     health_check_failure_threshold: int = 5
-    health_check_ping_timeout_s: float = 10.0
     # How long an unschedulable task waits for capacity (e.g. autoscaler
     # scale-up) before failing as infeasible.
     infeasible_task_timeout_s: float = 30.0
@@ -129,16 +127,6 @@ class Config:
     tracing_enabled: bool = True
 
     # ---- distributed -----------------------------------------------------
-    # Port for the TCP control service when serving multi-host
-    # (start_head_service).  0 = OS-assigned ephemeral port; set it for a
-    # stable `rt start --address` target across head restarts.
-    control_port: int = 0
-    # ray_syncer-equivalent resource broadcast period.
-    resource_sync_period_s: float = 0.1
-    # Values at or below this size ride the (ordered, low-latency) control
-    # connection; larger ones move peer-to-peer on the chunked data plane so
-    # bulk bytes never head-of-line-block heartbeats or dispatch.
-    data_plane_inline_bytes: int = 64 * 1024
     # Admission control: concurrent bulk transfers served/issued per process
     # (reference: PullManager admission, pull_manager.h:52).
     max_concurrent_object_transfers: int = 4
@@ -229,11 +217,6 @@ class Config:
     # decisions/s, not one per task). 0 disables spillback — leases only
     # rotate on expiry.
     lease_spillback_queue_depth: int = 1
-    # Agent-side ObjectDirectory location commits coalesce into one
-    # ``object_locations`` control RPC per batch: flush at this many
-    # entries, or after the delay below — whichever comes first.
-    location_commit_flush_count: int = 64
-    location_commit_flush_delay_s: float = 0.003
 
     # ---- gray failures: deadlines, hedging, control-plane retries --------
     # End-to-end task deadlines (.options(deadline_s=...)): after the
@@ -251,11 +234,6 @@ class Config:
     hedge_auto_multiplier: float = 3.0
     hedge_auto_min_samples: int = 10
     hedge_auto_min_s: float = 0.05
-    # Control-plane retry helper (rpc.retry_with_backoff): base delay,
-    # multiplier cap, and default attempt count for retriable control RPCs.
-    rpc_retry_base_backoff_s: float = 0.05
-    rpc_retry_max_backoff_s: float = 2.0
-    rpc_retry_max_attempts: int = 3
 
     # ---- overload survival: admission control + load shedding (ISSUE 9) --
     # Every waiting list between the ingress and the object store is

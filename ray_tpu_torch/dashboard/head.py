@@ -4,8 +4,8 @@ The port's copy of ``ray_tpu/dashboard/head.py``: the same routes and
 payloads over the port's one-node runtime.  There is no multi-host head
 service and no remote node here (ROADMAP item 10), so ``/api/transfers``
 lists no node and the peer byte counters read 0, as the JAX package's do
-without a head service; ``/api/autoscaler`` reports no autoscaler, as the
-JAX package does without a monitor.
+without a head service; ``/api/autoscaler`` reports the summary of an
+attached ``autoscaler.Monitor``, and none without one.
 
 Routes (reference parity: ``dashboard/modules/{node,actor,job,metrics,
 event,healthz}`` REST surfaces + ``python/ray/util/state`` aggregation):

@@ -2443,8 +2443,10 @@ class Cluster:
         # the demand drainer may have been inside a blocking submit when it
         # was told to stop: wait for it (bounded), so no thread bound to
         # this cluster outlives its shutdown
-        if self._demand_thread is not None:
-            join_threads([self._demand_thread])
+        with self._demand_cv:
+            drainer = self._demand_thread
+        if drainer is not None:
+            join_threads([drainer])
         if self.shm_store is not None:
             self.shm_store.close()
             self.shm_store.unlink()

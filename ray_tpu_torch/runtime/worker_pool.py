@@ -139,7 +139,9 @@ class ProcessWorkerPool:
         self._listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
         self._listener.bind(self._listen_path)
         self._listener.listen(128)
-        self._shutdown = False
+        # a one-way latch, set under _spawn_cv; readers elsewhere only need
+        # to see it eventually, so they read the event without a lock
+        self._stopped = threading.Event()
         self._spawning = 0           # spawns in flight (async growth)
         # every spawn in flight (prestart, growth, actors): shutdown waits
         # for them, so no worker process outlives it
@@ -172,13 +174,13 @@ class ProcessWorkerPool:
                 # growth recovers; a thread-crash traceback here reads as a
                 # real failure
             except (RuntimeError, OSError):
-                if self._shutdown:
+                if self._stopped.is_set():
                     return  # pool torn down mid-prestart: stand down quietly
                 raise
 
     def _spawn(self, to_idle: bool = True, sees_card: bool = False) -> WorkerHandle:
         with self._spawn_cv:
-            if self._shutdown:
+            if self._stopped.is_set():
                 raise RuntimeError("pool shut down")
             self._spawns_in_flight += 1
         try:
@@ -256,7 +258,7 @@ class ProcessWorkerPool:
             except (socket.timeout, OSError):
                 proc.kill()
                 proc.wait()  # reaped: a killed child leaves no zombie
-                if self._shutdown:
+                if self._stopped.is_set():
                     raise RuntimeError("pool shut down during worker spawn")
                 raise RuntimeError("worker process failed to register within 30s")
             finally:
@@ -271,7 +273,7 @@ class ProcessWorkerPool:
             # a spawn that registers after shutdown took its snapshot of
             # _all would never be killed: it stands down here instead
             # (shutdown sets the flag before it takes this lock)
-            stale = self._shutdown
+            stale = self._stopped.is_set()
             if not stale:
                 self._all[handle.pid] = handle
                 if to_idle:
@@ -335,7 +337,7 @@ class ProcessWorkerPool:
         and the pool is under its cap. Submitting threads never block on the
         ~200ms child-interpreter startup."""
         with self._lock:
-            if self._shutdown or not self._backlog:
+            if self._stopped.is_set() or not self._backlog:
                 return
             shared = sum(1 for w in self._all.values() if w.alive and not w.dedicated)
             if shared + self._spawning >= self._max_workers or self._spawning >= len(self._backlog):
@@ -353,7 +355,7 @@ class ProcessWorkerPool:
                 # If no worker can ever pick the backlog up, fail it now —
                 # swallowing the spawn error would leave getters hanging.
                 alive = any(w.alive and not w.dedicated for w in self._all.values())
-                if not alive and self._spawning == 0 and not self._shutdown:
+                if not alive and self._spawning == 0 and not self._stopped.is_set():
                     while self._backlog:
                         failed.append(self._backlog.popleft())
             for item in failed:
@@ -953,7 +955,7 @@ class ProcessWorkerPool:
         # from a callback must see the post-death actor state and buffer for
         # the restart — the reverse order burns max_task_retries against the
         # corpse.
-        if self._on_worker_death is not None and not self._shutdown:
+        if self._on_worker_death is not None and not self._stopped.is_set():
             self._on_worker_death(worker)
         # unblock orphaned-callback paths (check-register races) that
         # sequence behind the notification above
@@ -1098,7 +1100,7 @@ class ProcessWorkerPool:
 
     def shutdown(self) -> None:
         with self._spawn_cv:
-            self._shutdown = True
+            self._stopped.set()
         with self._lock:
             workers = list(self._all.values())
         for w in workers:

@@ -704,6 +704,8 @@ class LLMEngine:
                 raise self._tp.broken
             if not self._tp.driver:
                 raise RuntimeError("rank 0 of the tp axis takes requests; this rank follows")
+        # rt-lint: disable=lock-discipline -- _stop is a one-way latch set
+        # under _lock by shutdown; a submit racing it is failed by the loop
         if self._stop:
             raise RuntimeError("LLMEngine is shut down")
         if not prompt:
@@ -1110,6 +1112,8 @@ class LLMEngine:
         """A prefill forward just stalled every running decode slot: count it
         on each stalled request's trace. Engine-thread-owned: every _slots
         mutation runs on the engine loop."""
+        # rt-lint: disable=lock-discipline -- engine-thread-owned: _slots
+        # mutations all run on this same engine loop thread (see _step)
         for r in self._slots:
             if r is not None and r.trace is not None:
                 r.trace.note_stall()
@@ -1681,7 +1685,11 @@ class LLMEngine:
             sampled = self._decode_k(self._last_tok, self._pos, self._temps)
         for k in range(sampled.shape[1]):
             for i in range(self.B):
-                req = self._slots[i]  # engine-thread-owned; _lock is for readers
+                # rt-lint: disable=lock-discipline -- engine-thread-owned:
+                # every _slots mutation (admit/finish/evict/fail_inflight)
+                # runs on this same engine loop thread; _lock exists for
+                # cross-thread READERS (stats, abandon flags), not for us
+                req = self._slots[i]
                 if req is None:
                     continue  # free, or finished earlier in this chunk
                 tok = int(sampled[i, k])
@@ -1776,6 +1784,8 @@ class LLMEngine:
                     self._tp.fail(exc)
 
     def _serve_loop(self) -> None:
+        # rt-lint: disable=lock-discipline -- _stop is a one-way latch; the
+        # loop sees its flip on the next turn (shutdown wakes it)
         while not self._stop:
             try:
                 self._evict_cancelled()

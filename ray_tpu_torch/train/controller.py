@@ -261,6 +261,7 @@ class TrainController:
             self._feature_dim = int(self._rows.shape[1])
         self._nparams = self._feature_dim + 1
 
+        self._lock = threading.RLock()
         # deterministic initial state — replayable from (seed) alone
         self._reset_state()
 
@@ -269,7 +270,6 @@ class TrainController:
         # none (tests assert _cache_size() stays flat)
         self.step_fn = _MemberStep(self._member_step)
 
-        self._lock = threading.RLock()
         self._members: List[Any] = []
         self._plan = None
         self._last_checkpoint: Optional[str] = None
@@ -297,12 +297,14 @@ class TrainController:
             self._nparams = int(init.numel())
         else:
             init = torch.from_numpy(_initial_params(self._seed, self._nparams))
-        # a copy: the steps update it in place
-        self._params = init.to(device=self.device, dtype=torch.float32, copy=True).reshape(-1)
-        self._mom = torch.zeros_like(self._params)
-        self._rng_key = prng_key(self._seed)
-        self._step = 0
-        self._loss_history: List[float] = []
+        with self._lock:  # RLock: safe from locked and unlocked callers
+            # a copy: the steps update it in place
+            self._params = init.to(device=self.device, dtype=torch.float32,
+                                   copy=True).reshape(-1)
+            self._mom = torch.zeros_like(self._params)
+            self._rng_key = prng_key(self._seed)
+            self._step = 0
+            self._loss_history: List[float] = []
 
     # ------------------------------------------------------------------
     # the math — everything that must be bit-exact lives here

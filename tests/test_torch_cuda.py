@@ -1837,3 +1837,94 @@ def test_jobs_state_shows_the_gpu_and_an_actor_share(runtime):
     [row] = [a for a in state.list_actors() if a["class_name"] == "Counter"]
     assert row["resources"]["GPU"] == 0.5 and row["state"] == "ALIVE"
     runtime.kill(actor)
+
+
+# ---------------------------------------------------------------------------
+# the operator surface (-k cli): scripts, microbench rows, the autoscaler
+# ---------------------------------------------------------------------------
+def test_cli_llm_bench_tiny_on_the_card(cuda, monkeypatch, tmp_path):
+    """``llm_bench``'s tiny run on the card: its decoder widened to head_dim
+    64 (the decode kernel's), K1 once a layer in each decode step."""
+    from ray_tpu_torch.scripts import llm_bench
+
+    monkeypatch.setenv("RAY_TPU_LLM_BENCH_TINY", "1")
+    out = llm_bench.main(str(tmp_path / "llm.json"))
+    x = out["extra"]
+    assert out["value"] > 0 and x["total_tokens"] == 2 * 4 * 3
+    assert x["device"] == torch.cuda.get_device_name(0) and x["cache_kind"] == "paged"
+    assert x["decode_steps"] >= 3 * 3 and x["k1_launches"] == 2 * x["decode_steps"]
+
+
+def test_cli_kernel_bench_holds_k2_and_k3_against_plain(cuda):
+    from ray_tpu_torch.scripts import kernel_bench as kb
+
+    k2 = tdec.decode_attention.launches
+    dec = kb.bench_decode(S=512, reps=3, warmup=1)
+    assert tdec.decode_attention.launches > k2
+    assert dec["decode_max_abs_err"] <= 1e-4 and dec["decode_kernel_us"] > 0
+    k3 = tattn.flash_attention_with_lse.launches_by_route["wgmma_bf16"]
+    fl = kb.bench_flash_blocks(T=1024, reps=2, warmup=1)
+    assert tattn.flash_attention_with_lse.launches_by_route["wgmma_bf16"] > k3
+    # bench_flash_blocks raised if the output's relative error left its limit
+    # or a planted fault's did not
+    assert fl["flash_rel_err"] <= kb.FLASH_REL_LIMIT < min(fl["flash_fault_rel_err"].values())
+    assert fl["flash_tile"] == "192x64" and fl["flash_192x64_ms"] > 0
+
+
+def test_cli_microbench_llm_rows_run_the_decode_kernels_on_the_card(runtime):
+    """The capacity row on the card's head_dim-64 decoder: paged streams
+    through K1, the dense side through K2, its 2x guard held."""
+    from ray_tpu_torch.scripts.microbench import LLM_CONFIG, run_suite
+
+    assert LLM_CONFIG["cuda"]["d_model"] // LLM_CONFIG["cuda"]["n_heads"] == 64
+    runtime.init(num_cpus=2)
+    k1, k2 = tdec.paged_decode_attention.launches, tdec.decode_attention.launches
+    got = run_suite(runtime, select=["llm_paged_capacity_x", "hbm_put_gigabytes"], quick=True)
+    assert got["llm_paged_capacity_x"][0] >= 2.0 and got["hbm_put_gigabytes"][1] == "GB/s"
+    assert tdec.paged_decode_attention.launches > k1 and tdec.decode_attention.launches > k2
+
+
+def test_cli_autoscaled_gpu_node_serves_through_the_kernels(runtime):
+    """A head with no GPU; the monitor launches a GPU node for a
+    ``num_gpus=1`` engine actor, which decodes through K1; the idle node is
+    terminated after the actor goes."""
+    from torch_runtime_tasks import TINY
+
+    from ray_tpu_torch.autoscaler import (AutoscalerConfig, InProcessNodeProvider, Monitor,
+                                          NodeTypeConfig)
+    from ray_tpu_torch.models.transformer import TransformerConfig, init_params
+    from ray_tpu_torch.serve.llm import LLMEngine
+
+    class Engine:
+        def __init__(self, cfg, params):
+            self.eng = LLMEngine(cfg, params, device="cuda", max_batch_size=2,
+                                 max_seq_len=64, cache_kind="paged")
+
+        def generate(self, prompt, n):
+            return self.eng.generate(prompt, max_tokens=n)
+
+        def close(self):
+            self.eng.shutdown()
+
+    cfg = TransformerConfig(**TINY, dtype=torch.float32)  # head_dim 64
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+    runtime.init(num_cpus=2, num_gpus=0)
+    cluster = runtime.get_cluster()
+    provider = InProcessNodeProvider(cluster)
+    monitor = Monitor(cluster, AutoscalerConfig(
+        node_types={"gpu": NodeTypeConfig("gpu", {"CPU": 2, "GPU": 1}, max_workers=1)},
+        idle_timeout_s=0.5, update_interval_s=0.05), provider=provider).start()
+    try:
+        actor = runtime.remote(Engine).options(num_gpus=1).remote(cfg, params)
+        k1 = tdec.paged_decode_attention.launches
+        toks = runtime.get(actor.generate.remote([3, 5, 7], 4), timeout=120)
+        assert len(toks) == 4 and tdec.paged_decode_attention.launches > k1
+        assert monitor.autoscaler.num_launches == 1
+        runtime.get(actor.close.remote())
+        runtime.kill(actor)
+        deadline = time.monotonic() + 60
+        while provider.non_terminated_nodes() and time.monotonic() < deadline:
+            time.sleep(0.05)
+        assert not provider.non_terminated_nodes()
+    finally:
+        monitor.stop()

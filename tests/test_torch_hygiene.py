@@ -6,6 +6,7 @@ import ast
 import os
 import subprocess
 import sys
+import threading
 
 import pytest
 
@@ -464,3 +465,42 @@ def test_gpu_share_task_with_runtime_env_never_runs_on_the_cpu(tmp_path):
     finally:
         rt.shutdown()
     assert not os.path.exists(marker)
+
+
+def test_scan_covers_the_operator_surface():
+    """The import scan above reaches the CLI, the scripts, the autoscaler
+    and the linter."""
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    for d in ("scripts", "autoscaler", "analysis"):
+        assert any(r.startswith(os.path.join("ray_tpu_torch", d) + os.sep) for r in rel), d
+    assert os.path.join("ray_tpu_torch", "__main__.py") in rel
+
+
+def test_script_entry_points_refuse_to_run_without_cuda(monkeypatch):
+    """``llm_bench`` and ``kernel_bench`` run on CUDA unless given the CPU:
+    with no device named and no CUDA device they raise before any work."""
+    from ray_tpu_torch.scripts import kernel_bench, llm_bench
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: llm_bench.main(None), kernel_bench.bench_decode,
+                 kernel_bench.bench_flash_blocks, lambda: kernel_bench.main([])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+
+
+@pytest.mark.parametrize("row", ["hbm_put_gigabytes", "hbm_get_gigabytes",
+                                 "device_channel_edge_bw", "spmd_pipeline_iter",
+                                 "train_step_scaling", "llm_paged_capacity_x"])
+def test_microbench_device_rows_refuse_to_run_without_cuda(monkeypatch, row):
+    import ray_tpu_torch as rt
+    from ray_tpu_torch.scripts.microbench import run_suite
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    rt.init(num_cpus=2)
+    try:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            run_suite(rt, select=[row], quick=True)
+        # refused before it started anything: no Serve thread outlives it
+        assert not [t.name for t in threading.enumerate() if t.name.startswith("serve")]
+    finally:
+        rt.shutdown()

@@ -178,10 +178,18 @@ SCENARIOS = [fn for n, fn in sorted(globals().items()) if n.startswith("sc_")]
 
 @pytest.fixture(scope="module")
 def runs():
+    """Each package's scenarios over one runtime, with a runtime-env cache
+    of their own: the cache is the process's, and a file run before this
+    one in the same process (``test_torch_runtime_env.py``) leaves entries
+    staged under each package's own root, which ``list_runtime_envs``
+    would report."""
     out = {name: {} for name in PACKAGES}
     for name in PACKAGES:
         rt = importlib.import_module(name)
         state = importlib.import_module(name + ".state")
+        plugin = importlib.import_module(name + ".runtime_env.plugin")
+        uri_cache = importlib.import_module(name + ".runtime_env.uri_cache")
+        kept, plugin._cache = plugin._cache, uri_cache.URICache()
         rt.init(num_cpus=2)
         try:
             for fn in SCENARIOS:
@@ -191,6 +199,7 @@ def runs():
                     out[name][fn.__name__[3:]] = ("raised", repr(exc))
         finally:
             rt.shutdown()
+            plugin._cache = kept
     return out
 
 
