@@ -185,7 +185,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 4h. ``dag`` — the compiled-graph layer (``ray_tpu_torch.dag``) on the card,
    one ``init(num_cpus=8)``: (a) a plan of three in-process actors, a prompt
    stage (text to a token tensor on the card), a GPU actor holding the
-   paged ``LLMEngine`` on the serving decoder (``num_gpus=0.5``,
+   paged ``LLMEngine`` on the serving decoder's widths at ``CUT_LAYERS`` (2)
+   layers (the phase's depth cut since ``multinode`` (g) serves the same
+   graph at full depth across processes; ``num_gpus=0.5``,
    ``max_restarts=1``) and a detokenising stage, compiled with
    ``compile_plan``; 64 prompts of the engine phase's form (64 tokens, 32
    new, greedy) through ``execute_async``, 8 an iteration (the engine
@@ -195,8 +197,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    TaskSpecs over the 8 iterations (the counters
    ``tests/test_plans.py`` reads); every channel ``device`` in
    ``snapshot()``; K1 16 a decode step, K6 96 a forward on the tensor
-   cores; requests/s and tokens/s of the plan, ``.remote()`` and direct.
-   (c) under an empty chaos schedule: the float plan's engine actor killed
+   cores; requests/s and tokens/s of the plan, ``.remote()`` and direct
+   (direct at the same depth). (c) under an empty chaos schedule: the float plan's engine actor killed
    with the next prompt in flight: ``ActorDiedError`` within 120 s, the plan
    BROKEN, ``repair()`` onto the restarted actor, tokens equal direct; then
    a fresh engine under ``auto_repair=True``, killed the same way, heals
@@ -391,7 +393,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ray_tpu_torch.scripts.kernel_bench``: K2 and K3 at long shapes against
    their plain versions, then timed beside them and their bounds. (e) ``rt
    microbenchmark --quick --only`` ``CLI_MICROBENCH_ROWS`` (the LLM rows on
-   the head_dim-64 decoder), every row with its unit; the LLM rows' in-row
+   the head_dim-64 decoder; the multi-node rows spawn a node agent and
+   relay through four data servers), every row with its unit; the LLM rows' in-row
    guards hold, except that a missed chunked-prefill or prefix-cache timing
    floor (``TimingFloorMissed``) is reported with the row's value. (f) ``rt lint``: zero violations over ``ray_tpu_torch/``. (g)
    ``python -m ray_tpu_torch start`` and ``stop`` as processes: the port's
@@ -403,7 +406,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    to a file printed if the phase fails) joins it over TCP. (a) a
    ``num_gpus=1`` actor on the agent builds the serving decoder from the
    serving phases' seed on the card and serves the engine phase's burst,
-   float and int8, opened in one call and read token by token from here:
+   float (int8 runs in (i), through the thin client), opened in one call
+   and read token by token from here:
    tokens equal the engine phase's, K1 16 a decode step and K6 96 a forward
    on ``mma_bf16``, counted in the agent's process, whose pid is not this
    one's; tokens/s beside the engine phase's, TTFT seen from here. (b) a
@@ -424,7 +428,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
    actor on it serves the float burst with the same tokens. (f) ``python -m
    ray_tpu_torch start --head`` (with ``--num-gpus 0``) and ``start
    --address <it> --num-gpus 1`` as processes: ``status`` shows two nodes
-   and one GPU, ``stop`` ends the head and the agent leaves with it.
+   and one GPU, ``stop`` ends the head and the agent leaves with it. (g)
+   a compiled plan ``encode → generate_batch → decode`` (the ``dag``
+   phase's graph) whose engine stage is a ``num_gpus=1`` actor in the
+   second agent's process, at full depth, built there from the seed;
+   encode and decode in this process, so both edges cross processes:
+   tokens equal the engine phase's for its 8 prompts, every iteration; K1
+   counted in the agent 16 a decode step; ms an ``execute`` and tokens/s
+   beside the ``dag`` phase's in-process plan (2 layers) and the engine
+   phase's; the rung each edge took (CUDA IPC pulls counted on each
+   consumer's side), which must be CUDA IPC on both. Then ``kill -9`` of that agent during an
+   ``execute``: a typed error (``ActorDiedError`` / ``WorkerCrashedError``)
+   and the plan ``BROKEN`` within the health check's bound, the card's
+   free memory back. (h) ``rt up`` on the ``local`` provider: a
+   ``ClusterLauncher`` from a dict config with one node type ``{"CPU": 1,
+   "GPU": 1}`` and ``min_workers`` 1 spawns a port agent with
+   ``--num-gpus 1``, which joins with the card: seconds from ``up`` to the
+   join. (i) a separate Python process connects with
+   ``ray_tpu_torch.util.connect`` to a ``ClientServer`` of this head,
+   creates a GPU actor on (h)'s node and runs the int8 burst: tokens equal
+   the engine phase's int8 tokens, K6 96 a forward on ``mma_bf16`` and K1
+   16 a decode step in the agent; tokens/s and client TTFT beside the
+   engine phase's. Then the port's native C++ client (built by
+   ``native/_build.py`` from ``tests/torch_cpp_client_main.cpp``) pings,
+   puts, gets and calls Python functions by name (``chip_smoke:format_sum``,
+   ``chip_smoke:reverse_bytes`` with a ref argument) against the same server.
+   Then (h)'s ``down`` terminates the agent and the card's memory returns:
+   the seconds.
 14. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
    replaces, launches in the main-path runs (engine, server, disagg,
    runtime, serve, chaos, data, dag, jobs, cli, multinode, tp_serve, train,
@@ -3801,7 +3831,8 @@ def dag_serving_plan(torch, rt, cfg, params, kernels_of: dict, quantize: bool, c
                              "a forward on the tensor cores")
     n_tok = DAG_PROMPTS * DAG_MAX_TOKENS
     rep = {
-        "part": "a_serving_plan", "card": card, "quantize": quantize, "prompts": DAG_PROMPTS,
+        "part": "a_serving_plan", "card": card, "quantize": quantize, "layers": cfg.n_layers,
+        "prompts": DAG_PROMPTS,
         "prompts_per_iteration": DAG_BATCH, "iterations": len(texts),
         "prompt_len": DAG_PROMPT_LEN, "max_tokens": DAG_MAX_TOKENS,
         "tokens_equal_direct": True, "remote_tokens_equal_direct": True,
@@ -3983,17 +4014,22 @@ def dag_compiled(torch, rt) -> dict:
             "plan_pipelined_ms": plan_pipelined_ms}
 
 
-def run_dag_serving(torch, cfg, params, kernels_of: dict, card: str):
-    """(a) float and int8, (c) on (a)'s float plan, (d), on one runtime;
-    after ``shutdown`` nothing is left and ``memory_allocated`` is back
-    within ``DAG_MEMORY_SLACK``. Yields one report a part."""
+def run_dag_serving(torch, cfg, kernels_of: dict, card: str):
+    """(a) float and int8, (c) on (a)'s float plan, (d), on one runtime,
+    (a) and (c) on ``cfg``'s widths at ``CUT_LAYERS`` layers (weights from
+    the serving phases' seed); after ``shutdown`` nothing is left and
+    ``memory_allocated`` is back within ``DAG_MEMORY_SLACK``. Yields one
+    report a part."""
     import gc
 
     import ray_tpu_torch as rt
     from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.models.transformer import init_params
 
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
+    cfg = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     rt.init(num_cpus=8)
     try:
         if rt.cluster_resources().get("GPU") != 1:
@@ -4029,7 +4065,7 @@ def run_dag_serving(torch, cfg, params, kernels_of: dict, card: str):
         rt.shutdown()
     # a plan holds its cluster and its stages' actor instances (engines, the
     # object store) until it is dropped, torn down or not
-    del plan, stages, plan_q, stages_q
+    del plan, stages, plan_q, stages_q, params
     t0 = time.perf_counter()
     while True:
         gc.collect()
@@ -6371,7 +6407,8 @@ CLI_BENCH_TIMEOUT_S = 600.0  # (c), (d), (g): the bound on each subprocess
 #: one call, and the LLM rows, each in a call of its own
 CLI_MICROBENCH_ROWS = ("single_client_tasks_sync", "1_1_actor_calls_sync",
                        "single_client_put_calls", "single_client_get_calls",
-                       "hbm_put_gigabytes", "hbm_get_gigabytes")
+                       "xproc_object_gigabytes", "hbm_put_gigabytes", "hbm_get_gigabytes",
+                       "broadcast_64mb_to_n", "broadcast_root_egress_x")
 CLI_LLM_ROWS = ("llm_paged_capacity_x", "llm_chunked_prefill_stall_p99",
                 "llm_concurrent_streams_x", "llm_prefix_cache_ttft_x",
                 "llm_disagg_intertoken_p99")
@@ -6804,6 +6841,8 @@ MULTINODE_JOIN_S = 120.0  # the bound on an agent's join
 MULTINODE_FREE_SLACK = 1 << 30  # (e): the card's free memory back within 1 GiB
 MULTINODE_FREE_WAIT_S = 60.0
 MULTINODE_DIGEST_CHUNK = 1 << 26  # elements a step of card_digest
+MULTINODE_PLAN_ITERS = 4  # (g): executes of the engine phase's 8 prompts, one after another
+MULTINODE_KILL_INFLIGHT = 3  # (g): executes in flight when the agent is killed after the first
 
 
 def card_digest(x) -> str:
@@ -6927,6 +6966,42 @@ class AgentEngine:
     def close(self) -> bool:
         self.inner.close()
         return True
+
+
+class AgentDagEngine(DagEngine):
+    """(g)'s engine stage in the agent's process: the ``dag`` phase's
+    engine actor on the serving decoder at full depth, built there from the
+    serving phases' seed on the card (the weights never cross the wire).
+    K1 and the CUDA IPC pulls of the plan's inbound edge are counted here."""
+
+    def __init__(self):
+        import torch
+
+        from ray_tpu_torch.models.transformer import init_params
+        from ray_tpu_torch.ops.decode_attention import paged_decode_attention
+
+        cfg = serving_config(torch)
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
+        super().__init__(cfg, params, False)
+        del params
+        self.counters = {"paged_decode_attention": paged_decode_attention}
+        self.steps0 = self.pulls0 = 0
+
+    def zero(self) -> int:
+        from ray_tpu_torch.runtime import device_plane
+
+        zero_counters(self.counters)
+        self.steps0 = self.decode_steps()
+        self.pulls0 = device_plane.stats.snapshot()["ici_pulls"]
+        return os.getpid()
+
+    def counts(self) -> dict:
+        from ray_tpu_torch.runtime import device_plane
+
+        launches, _ = read_counters(self.counters)
+        return {"launches": launches, "decode_steps": self.decode_steps() - self.steps0,
+                "ici_pulls": device_plane.stats.snapshot()["ici_pulls"] - self.pulls0,
+                "pid": os.getpid()}
 
 
 class MultinodeRank:
@@ -7252,6 +7327,316 @@ def mn_kill(torch, rt, cluster, agent, free0: int, card: str):
             "free_gb_before_agent": free0 / 1e9, "free_gb_after_kill": free / 1e9}
 
 
+def mn_free_after(torch, t0: float, free0: int):
+    """Seconds after ``t0`` until the card's free memory is back within
+    ``MULTINODE_FREE_SLACK`` of ``free0`` (None if it is not within
+    ``MULTINODE_FREE_WAIT_S``), and the free bytes last seen."""
+    free = torch.cuda.mem_get_info()[0]
+    while time.perf_counter() - t0 < MULTINODE_FREE_WAIT_S:
+        free = torch.cuda.mem_get_info()[0]
+        if free >= free0 - MULTINODE_FREE_SLACK:
+            return time.perf_counter() - t0, free
+        time.sleep(0.05)
+    return None, free
+
+
+def mn_plan(torch, rt, cluster, agent, free0: int, want, engine_nums: dict, dag_nums: dict,
+            card: str) -> dict:
+    """(g): the ``dag`` phase's graph as a compiled plan whose engine stage
+    is a ``num_gpus=1`` actor in ``agent``'s process (full depth), encode
+    and decode in this process; ``MULTINODE_PLAN_ITERS`` executes of the
+    engine phase's 8 prompts, tokens equal ``want`` each time, K1 16 a
+    decode step in the agent, both edges on the CUDA IPC rung (a CUDA IPC
+    pull an execute on each side); then ``kill -9`` of the
+    agent during an execute: a typed error and ``BROKEN`` within the health
+    check's bound, the card freed."""
+    import chip_smoke as smoke
+    from ray_tpu_torch.core.config import get_config
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.exceptions import ActorDiedError, WorkerCrashedError
+    from ray_tpu_torch.runtime import device_plane
+    from ray_tpu_torch.runtime.scheduler import NodeAffinitySchedulingStrategy
+
+    cfg = serving_config(torch)
+    texts = [" ".join(map(str, p)) for p in burst_prompts(cfg, 8, 64)]
+    here = dict(execution="inproc", num_cpus=0,
+                scheduling_strategy=NodeAffinitySchedulingStrategy(cluster.head_node.node_id))
+    prompt = rt.remote(smoke.DagPrompt).options(**here).remote()
+    detok = rt.remote(smoke.DagDetok).options(**here).remote()
+    t0 = time.perf_counter()
+    engine = rt.remote(smoke.AgentDagEngine).options(num_gpus=1).remote()
+    rt.get(engine.warm.remote(DAG_PROMPT_LEN), timeout=600)
+    build_s = time.perf_counter() - t0
+    with InputNode() as inp:
+        graph = detok.decode.bind(engine.generate_batch.bind(prompt.encode.bind(inp)))
+    t0 = time.perf_counter()
+    plan = graph.compile_plan(name="agent-serve")
+    install_s = time.perf_counter() - t0
+    try:
+        snap = plan.snapshot()
+        kinds = sorted(set(snap["channel_kinds"].values()))
+        stage_procs = sorted({d.proc for d in plan._stages})
+        if kinds != ["device"] or len(snap["channels"]) != 4 or len(stage_procs) != 2:
+            raise AssertionError(f"multinode (g): channels {snap['channel_kinds']}, stage "
+                                 f"processes {stage_procs}")
+        pid = rt.get(engine.zero.remote(), timeout=60)
+        pulls0 = device_plane.stats.snapshot()["ici_pulls"]
+        ms, got = [], []
+        for _ in range(MULTINODE_PLAN_ITERS):
+            t1 = time.perf_counter()
+            got.append(plan.execute(texts))
+            ms.append((time.perf_counter() - t1) * 1e3)
+        counts = rt.get(engine.counts.remote(), timeout=60)
+        back_pulls = device_plane.stats.snapshot()["ici_pulls"] - pulls0
+    except BaseException:
+        plan.teardown()
+        raise
+    if pid == os.getpid() or counts["pid"] != pid or pid != agent.pid:
+        raise AssertionError(f"multinode (g): the engine stage ran in pid {pid}/{counts['pid']}, "
+                             f"the agent is {agent.pid}, the driver {os.getpid()}")
+    if any([ids for ids, _ in batch] != want for batch in got):
+        raise AssertionError("multinode (g): tokens differ from the engine phase's")
+    steps, launches = counts["decode_steps"], counts["launches"]
+    if steps < (DAG_MAX_TOKENS - 1) * MULTINODE_PLAN_ITERS \
+            or launches["paged_decode_attention"] != cfg.n_layers * steps:
+        raise AssertionError(f"multinode (g): K1 {launches} over {steps} decode steps, want "
+                             f"{cfg.n_layers} a step")
+
+    def rung(pulls):
+        return "cuda_ipc" if pulls >= MULTINODE_PLAN_ITERS else "host_staged" if not pulls \
+            else f"mixed ({pulls} CUDA IPC pulls)"
+
+    edges = {"encode->generate_batch (driver to agent)": rung(counts["ici_pulls"]),
+             "generate_batch->decode (agent to driver)": rung(back_pulls)}
+    if set(edges.values()) != {"cuda_ipc"}:
+        raise AssertionError(f"multinode (g): a plan edge left the CUDA IPC rung: {edges}")
+    n_tok = 8 * DAG_MAX_TOKENS
+    # kill -9 of the agent during an execute
+    cfg_rt = get_config()
+    bound = (cfg_rt.health_check_period_s * cfg_rt.health_check_failure_threshold
+             + cfg_rt.health_check_ping_timeout_s)
+    futs = [plan.execute_async(texts) for _ in range(MULTINODE_KILL_INFLIGHT)]
+    futs[0].result(timeout=600)  # the engine stage now holds the next execute
+    t_kill = time.perf_counter()
+    agent.kill()
+    err, untyped = None, []
+    for f in futs[1:]:
+        try:
+            f.result(timeout=bound + 30)
+        except (ActorDiedError, WorkerCrashedError) as exc:
+            err = err or exc
+        except BaseException as exc:  # noqa: BLE001 — anything untyped fails below
+            untyped.append(repr(exc))
+    error_s = time.perf_counter() - t_kill
+    broken_s = None
+    while time.perf_counter() - t_kill < bound + 30:
+        if plan.state == "BROKEN":
+            broken_s = time.perf_counter() - t_kill
+            break
+        time.sleep(0.01)
+    again = None
+    try:
+        plan.execute(texts)
+    except (ActorDiedError, WorkerCrashedError) as exc:
+        again = type(exc).__name__
+    plan.teardown()
+    rt.kill(prompt)
+    rt.kill(detok)
+    agent.wait(timeout=30)
+    free_s, free = mn_free_after(torch, t_kill, free0)
+    if err is None or untyped or error_s > bound \
+            or broken_s is None or again is None or free_s is None:
+        raise AssertionError(f"multinode (g): after the kill {err!r} {untyped} in "
+                             f"{error_s:.2f} s (bound "
+                             f"{bound} s), BROKEN after {broken_s}, the next execute "
+                             f"{again}, free memory {free} vs {free0}")
+    execute_s = statistics.median(ms) / 1e3
+    return {"part": "g_plan_on_agent", "card": card, "layers": cfg.n_layers,
+            "prompts_per_execute": 8, "executes": MULTINODE_PLAN_ITERS,
+            "tokens_equal_engine_phase": True, "stage_pid": pid, "agent_pid": agent.pid,
+            "driver_pid": os.getpid(), "stage_processes": stage_procs,
+            "channel_kinds": snap["channel_kinds"], "edge_rungs": edges,
+            "cuda_ipc_pulls": {"agent": counts["ici_pulls"], "driver": back_pulls},
+            "engine_build_s": build_s, "install_s": install_s,
+            "decode_steps": steps, "launches": launches, "launches_by_route": {},
+            "k1_per_decode_step": launches["paged_decode_attention"] / steps,
+            "ms_per_execute": ms, "ms_per_execute_median": statistics.median(ms),
+            "tokens_per_s_plan_on_agent": n_tok / execute_s,
+            "tokens_per_s_dag_phase_plan": dag_nums.get("tokens_per_s", {}).get("plan"),
+            "dag_phase_plan_layers": dag_nums.get("layers"),
+            "tokens_per_s_engine_phase": engine_nums.get(False, {}).get("tokens_per_s"),
+            "kill_error": type(err).__name__, "kill_to_typed_error_s": error_s,
+            "kill_to_broken_s": broken_s, "execute_after_broken": again,
+            "health_check_bound_s": bound, "kill_to_card_free_s": free_s,
+            "free_gb_after_kill": free / 1e9}
+
+
+def mn_launcher_up(torch, rt, cluster, card: str):
+    """(h) first half: ``rt up`` on the ``local`` provider from a dict
+    config (one ``{"CPU": 1, "GPU": 1}`` node type, ``min_workers`` 1): a
+    port agent with ``--num-gpus 1`` joins with the card. Returns the
+    launcher and the report."""
+    from ray_tpu_torch.autoscaler.launcher import ClusterLauncher
+
+    config = {"cluster_name": "chip-smoke", "provider": {"type": "local"},
+              "available_node_types": {"gpu_worker": {"resources": {"CPU": 1, "GPU": 1},
+                                                      "min_workers": 1, "max_workers": 1}},
+              "max_workers": 1, "idle_timeout_s": 600}
+    launcher = ClusterLauncher(config)
+    t0 = time.perf_counter()
+    try:
+        launcher.up(timeout_s=MULTINODE_JOIN_S)
+    except BaseException:
+        launcher.down()
+        raise
+    up_s = time.perf_counter() - t0
+    (provider_id, proc), = launcher.provider._procs.items()
+    argv = proc.args
+    labeled = [n for n in cluster.nodes.values() if not n.dead
+               and (getattr(n, "labels", None) or {}).get("rt_provider_id") == provider_id]
+    resources = rt.cluster_resources()
+    if len(labeled) != 1 or resources.get("GPU") != 1 \
+            or argv[argv.index("--num-gpus") + 1] != "1":
+        launcher.down()
+        raise AssertionError(f"multinode (h): nodes {labeled}, resources {resources}, "
+                             f"agent {argv}")
+    return launcher, {"part": "h_rt_up", "card": card, "provider": "local",
+                      "agent_argv": argv[1:], "agent_pid": proc.pid,
+                      "up_to_join_s": up_s, "resources": resources}
+
+
+def mn_launcher_down(torch, rt, cluster, launcher, free0: int, card: str) -> dict:
+    """(h) second half: ``down`` terminates the agent; its node dies in the
+    table and the card's memory returns."""
+    (_, proc), = launcher.provider._procs.items()
+    nid = next(nid for nid, n in cluster.nodes.items() if not n.dead
+               and nid != cluster.head_node.node_id)
+    t0 = time.perf_counter()
+    launcher.down()
+    down_s = time.perf_counter() - t0
+    node_dead_s = None
+    while time.perf_counter() - t0 < MULTINODE_JOIN_S:
+        if cluster.nodes[nid].dead:
+            node_dead_s = time.perf_counter() - t0
+            break
+        time.sleep(0.05)
+    free_s, free = mn_free_after(torch, t0, free0)
+    if proc.poll() is None or node_dead_s is None or free_s is None:
+        raise AssertionError(f"multinode (h): after down the agent {proc.poll()}, node dead "
+                             f"{node_dead_s}, free memory {free} vs {free0}")
+    return {"part": "h_rt_down", "card": card, "agent_exit": proc.returncode,
+            "down_s": down_s, "down_to_node_dead_s": node_dead_s, "down_to_card_free_s": free_s,
+            "free_gb_after_down": free / 1e9}
+
+
+def format_sum(a: int, b: int, label: str) -> str:
+    """(i)'s native client calls this by name (``chip_smoke:format_sum``):
+    the script's module is importable wherever the runtime runs a task,
+    where a ``tests`` package of the machine's site-packages may shadow the
+    checkout's ``tests/``."""
+    return f"{label}={a + b}"
+
+
+def reverse_bytes(data: bytes) -> bytes:
+    """(i)'s native client's ref-argument call (``chip_smoke:reverse_bytes``)."""
+    return bytes(reversed(data))
+
+
+def mn_client_main(address: str, spec_path: str) -> int:
+    """(i)'s client process: ``util.connect`` to the head's
+    ``ClientServer``, a ``num_gpus=1`` actor (``AgentEngine``, int8) made
+    through the session, the burst read token by token; prints one JSON
+    line. Imports no torch: the client needs no card."""
+    from ray_tpu_torch import util
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    t0 = time.perf_counter()
+    ctx = util.connect(address)
+    connect_s = time.perf_counter() - t0
+    try:
+        actor = ctx.remote(AgentEngine).options(num_gpus=1, max_concurrency=16).remote(True)
+        t0 = time.perf_counter()
+        pid = ctx.get(actor.warm.remote(), timeout=600)
+        build_s = time.perf_counter() - t0
+        toks, ttft, wall, counts = mn_burst(ctx, actor, spec["prompts"], spec["max_tokens"])
+        ctx.get(actor.close.remote(), timeout=120)
+        ctx.kill(actor)
+    finally:
+        ctx.disconnect()
+    print(json.dumps({"client_pid": os.getpid(), "connect_s": connect_s, "actor_pid": pid,
+                      "actor_build_s": build_s, "tokens": toks, "ttft": ttft, "wall_s": wall,
+                      "counts": counts, "torch_imported": "torch" in sys.modules}), flush=True)
+    return 0
+
+
+def mn_client(torch, cfg, server, agent_pid: int, want, engine_nums: dict, card: str) -> dict:
+    """(i): the thin client from a separate Python process, then the port's
+    native C++ client against the same server."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mn_client_")
+    spec = os.path.join(tmp, "spec.json")
+    with open(spec, "w") as f:
+        json.dump({"prompts": burst_prompts(cfg, 8, 64), "max_tokens": 32}, f)
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    p = subprocess.run([sys.executable, "-c", "import sys, chip_smoke; "
+                        f"sys.exit(chip_smoke.mn_client_main({server.address!r}, {spec!r}))"],
+                       cwd=root, env=env, capture_output=True, text=True, timeout=900)
+    client_s = time.perf_counter() - t0
+    if p.returncode != 0:
+        raise AssertionError(f"multinode (i): the client process exited {p.returncode}: "
+                             f"{p.stderr[-4000:]}")
+    out = json.loads(p.stdout.strip().splitlines()[-1])
+    counts = out["counts"]
+    launches, by_route, steps = counts["launches"], counts["launches_by_route"], \
+        counts["decode_steps"]
+    if out["actor_pid"] != agent_pid or counts["pid"] != agent_pid:
+        raise AssertionError(f"multinode (i): the actor ran in pid {out['actor_pid']}, (h)'s "
+                             f"agent is {agent_pid}")
+    if out["tokens"] != want:
+        raise AssertionError("multinode (i): int8 tokens differ from the engine phase's")
+    per_forward = k6_per_layer(cfg) * cfg.n_layers
+    if steps < 31 or launches["paged_decode_attention"] != cfg.n_layers * steps \
+            or launches["int8_matmul"] % per_forward \
+            or launches["int8_matmul"] < per_forward * steps \
+            or by_route["int8_matmul"] != {"mma_bf16": launches["int8_matmul"], "simt": 0}:
+        raise AssertionError(f"multinode (i): {launches} {by_route} over {steps} decode steps, "
+                             f"want K1 {cfg.n_layers} a step, K6 {per_forward} a forward on "
+                             "the tensor cores")
+    n_tok = sum(len(r) for r in out["tokens"])
+    rep = {"part": "i_thin_client", "card": card, "client_pid": out["client_pid"],
+           "client_imported_torch": out["torch_imported"], "server": server.address,
+           "actor_pid": out["actor_pid"], "connect_s": out["connect_s"],
+           "actor_build_s": out["actor_build_s"], "client_process_s": client_s,
+           "requests": 8, "prompt_len": 64, "max_tokens": 32, "quantize": True,
+           "tokens_equal_engine_phase": True, "decode_steps": steps, "launches": launches,
+           "launches_by_route": by_route,
+           "k1_per_decode_step": launches["paged_decode_attention"] / steps,
+           "k6_forwards": launches["int8_matmul"] // per_forward,
+           "tokens_per_s_client": n_tok / out["wall_s"],
+           "tokens_per_s_engine_phase": engine_nums.get(True, {}).get("tokens_per_s"),
+           "ttft_s_median": statistics.median(out["ttft"]), "ttft_s_max": max(out["ttft"]),
+           "ttft_s_engine_phase": {k: v for k, v in engine_nums.get(True, {}).items()
+                                   if k.startswith("ttft")}}
+    from ray_tpu_torch.native import _build as native_build
+
+    t0 = time.perf_counter()
+    exe = native_build.program(os.path.join(root, "tests", "torch_cpp_client_main.cpp"),
+                               "torch_cpp_client_main")
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p = subprocess.run([exe, server.host, str(server.port), "chip_smoke"], cwd=root, env=env,
+                       capture_output=True, text=True, timeout=300)
+    if p.returncode != 0 or "CPP CLIENT OK" not in p.stdout:
+        raise AssertionError(f"multinode (i): the native client exited {p.returncode}: "
+                             f"{p.stdout!r} {p.stderr[-2000:]!r}")
+    rep["native_client"] = {"build_s": build_s, "run_s": time.perf_counter() - t0,
+                            "calls": [ln for ln in p.stdout.splitlines() if ln.endswith("ok")]}
+    return rep
+
+
+
 def mn_cli(card: str) -> dict:
     """(f): ``python -m ray_tpu_torch start --head`` and ``start --address
     <it> --num-gpus 1`` as processes; ``status`` shows two nodes and one
@@ -7312,11 +7697,12 @@ def mn_cli(card: str) -> dict:
             "stopped_s": time.perf_counter() - t0}
 
 
-def run_multinode(torch, cfg, params, engine_tokens: dict, engine_nums: dict, card: str):
+def run_multinode(torch, cfg, params, engine_tokens: dict, engine_nums: dict, dag_nums: dict,
+                  card: str):
     """The multinode phase: a head in this process (``init(head_port=0)``)
-    and a node agent process with the card; (a)-(e) under that head, (f)
-    with the CLI's own processes. Yields one report per part; prints an
-    agent's log if the phase fails."""
+    and a node agent process with the card; (a)-(e), (g) on (e)'s second
+    agent, (h) and (i) under that head, (f) with the CLI's own processes.
+    Yields one report per part; prints an agent's log if the phase fails."""
     import chip_smoke as smoke  # noqa: F401 — the actor and task classes by module name
     import ray_tpu_torch as rt
 
@@ -7343,8 +7729,8 @@ def run_multinode(torch, cfg, params, engine_tokens: dict, engine_nums: dict, ca
             raise AssertionError(f"multinode: resources {resources}, want the agent's one GPU")
         yield {"part": "join", "card": card, "join_s": join_s, "agent_pid": agent.pid,
                "resources": resources}
-        for q in (False, True):
-            yield mn_serve(torch, rt, cfg, q, want[q], engine_nums, card)
+        # int8 through an agent's GPU actor runs in (i), from the thin client
+        yield mn_serve(torch, rt, cfg, False, want[False], engine_nums, card)
         yield mn_objects(torch, rt, cluster, card)
         yield mn_leased(rt, cluster, card)
         yield mn_collective(torch, rt, cluster, card)
@@ -7358,6 +7744,23 @@ def run_multinode(torch, cfg, params, engine_tokens: dict, engine_nums: dict, ca
         rep["part"] = "e_rejoin"
         rep["rejoin_s"] = rejoin_s
         yield rep
+        torch.cuda.empty_cache()
+        yield mn_plan(torch, rt, cluster, agent, free0, want[False], engine_nums, dag_nums, card)
+        launcher, rep = mn_launcher_up(torch, rt, cluster, card)
+        try:
+            yield rep
+            from ray_tpu_torch.util.client import ClientServer
+
+            server = ClientServer(port=0).start()
+            try:
+                yield mn_client(torch, cfg, server, rep["agent_pid"], want[True], engine_nums,
+                                card)
+            finally:
+                server.stop()
+        except BaseException:
+            launcher.down()
+            raise
+        yield mn_launcher_down(torch, rt, cluster, launcher, free0, card)
     except BaseException:
         for path in logs:
             with open(path) as f:
@@ -7466,6 +7869,7 @@ def main(argv=None) -> int:
                   "init_s": init_s, **rep})
         engine_tokens = {}  # (cache kind, quantize) -> the burst's tokens
         engine_nums = {}  # quantize -> the paged engine's tokens/s and TTFT
+        dag_nums = {}  # the dag phase's in-process float plan: its depth, tokens/s
         if "engine" in phases:
             for run in run_engines(torch, cfg, params, kernels_of):
                 engine_tokens[(run["cache_kind"], run["quantize"])] = run.pop("request_tokens")
@@ -7520,10 +7924,13 @@ def main(argv=None) -> int:
         if "dag" in phases:
             torch.cuda.empty_cache()
             t_dag = time.perf_counter()
-            for rep in run_dag_serving(torch, cfg, params, kernels_of, card):
+            for rep in run_dag_serving(torch, cfg, kernels_of, card):
                 emit({"phase": "dag", "ok": True, **rep})
                 if "launches" in rep:
                     count("dag", rep["launches"], rep["launches_by_route"])
+                if rep.get("part") == "a_serving_plan" and not rep["quantize"]:
+                    dag_nums = {"layers": rep["layers"], "tokens_per_s": rep["tokens_per_s"],
+                                "ms_per_request": rep["ms_per_request"]}
         if "jobs" in phases:
             torch.cuda.empty_cache()
             for rep in run_jobs(torch, cfg, params, kernels_of, engine_tokens, card):
@@ -7538,7 +7945,8 @@ def main(argv=None) -> int:
                     count("cli", rep["launches"], rep["launches_by_route"])
         if "multinode" in phases:
             torch.cuda.empty_cache()
-            for rep in run_multinode(torch, cfg, params, engine_tokens, engine_nums, card):
+            for rep in run_multinode(torch, cfg, params, engine_tokens, engine_nums, dag_nums,
+                                     card):
                 emit({"phase": "multinode", "ok": True, **rep})
                 if "launches" in rep:
                     count("multinode", rep["launches"], rep["launches_by_route"])

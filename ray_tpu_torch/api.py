@@ -9,8 +9,8 @@ the card, as a TPU actor does in the JAX package.  ``include_dashboard``
 starts the dashboard head (``dashboard/head.py``: REST, jobs, workflow
 events); a task's ``runtime_env`` is validated at submit; ``head_port=``
 opens the multi-host head service for node agents
-(``runtime/remote_node.py``).  What the port does not have yet raises
-:class:`~ray_tpu_torch.exceptions.NotPortedError` (``util.connect``).
+(``runtime/remote_node.py``).  A thin client drives this API from another
+process through ``util.connect`` (``util/client/``).
 
 Parity with the reference's Python frontend
 (``python/ray/_private/worker.py:1214,2509,2641,2706``,

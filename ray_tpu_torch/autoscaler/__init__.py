@@ -18,10 +18,12 @@ TPU slice catalog and semantics (the JAX package's custom resources).
 ``InProcessNodeProvider`` adds nodes through the port's ``Cluster.add_node``;
 a node type with ``"GPU"`` resources is a node whose ``num_gpus`` work runs
 on the card, in this process.  The providers whose nodes are node agents
-(``SubprocessNodeProvider``, ``SSHNodeProvider``, the real ``kubectl`` and
-``gcloud`` backends, ``FakeGcloudTpuAPI(spawn=True)``) and the launcher's
-``up`` raise ``NotPortedError`` (ROADMAP item 10); the fakes that only
-record calls work as in the JAX package.
+(``SubprocessNodeProvider``, ``SSHNodeProvider``, the ``kubectl`` and
+``gcloud`` backends, ``FakeGcloudTpuAPI(spawn=True)``) start the port's
+agent (``python -m ray_tpu_torch.runtime.agent``), with a node type's
+``"GPU"`` as its ``--num-gpus`` (``node_provider.split_gpus``; the JAX
+package passes it in ``--resources``); the launcher's ``up`` provisions
+them.
 """
 
 from ray_tpu_torch.autoscaler.autoscaler import AutoscalerConfig, StandardAutoscaler

@@ -27,9 +27,9 @@ from typing import Callable, Dict, List, Optional
 
 from ray_tpu_torch.autoscaler.demand import NodeTypeConfig
 from ray_tpu_torch.autoscaler.node_provider import (
+    AGENT_MODULE,
     TPU_SLICE_TOPOLOGIES,
     NodeProvider,
-    refuse_agents,
 )
 
 
@@ -77,9 +77,17 @@ class GcloudCLI(GcloudTpuAPI):
         return res.stdout
 
     def create_tpu_vm(self, name, zone, accelerator_type, runtime_version, labels):
-        # a slice's hosts run the node agent, which the port has not yet:
-        # refuse before a VM is created
-        refuse_agents("GcloudCLI.create_tpu_vm", "ray_tpu/autoscaler/gcp.py:78")
+        label_arg = ",".join(f"{k.replace('/', '_').replace('.', '-')}={v}" for k, v in labels.items())
+        self._run(
+            [
+                "compute", "tpus", "tpu-vm", "create", name,
+                "--zone", zone,
+                "--accelerator-type", accelerator_type,
+                "--version", runtime_version,
+                *(["--labels", label_arg] if label_arg else []),
+                "--quiet",
+            ]
+        )
 
     def delete_tpu_vm(self, name, zone):
         self._run(["compute", "tpus", "tpu-vm", "delete", name, "--zone", zone, "--quiet"])
@@ -174,7 +182,7 @@ class GcpTpuNodeProvider(NodeProvider):
         }
         resources = {"TPU": float(chips_per_host), f"TPU-{pod_type}-host": 1.0}
         return (
-            f"nohup {self.remote_python} -m ray_tpu_torch.runtime.agent "
+            f"nohup {self.remote_python} -m {AGENT_MODULE} "
             f"--address {shlex.quote(self.head_address)} "
             f"--resources {shlex.quote(json.dumps(resources))} "
             f"--labels {shlex.quote(json.dumps(labels))} "
@@ -281,17 +289,18 @@ def live_slice_hosts_fn(cluster) -> Callable[[str], int]:
 
 
 class FakeGcloudTpuAPI(GcloudTpuAPI):
-    """Unit-test double: records every call.  In the JAX package
-    ``run_on_all_workers`` with ``spawn=True`` executes the provider's REAL
-    agent command locally once per simulated host; the port has no node
-    agent yet, so there it raises :class:`NotPortedError` (``spawn=False``
-    records the command only)."""
+    """Unit-test double: records every call; ``run_on_all_workers`` executes
+    the provider's REAL agent command (the port's agent) locally once per
+    simulated host (with TPU_WORKER_ID set), so created slices genuinely
+    join the head and the full create→join→drain→delete cycle is exercised
+    without GCP."""
 
     def __init__(self, hosts_by_type: Optional[Dict[str, int]] = None, spawn: bool = True):
         self.calls: List[tuple] = []
         self.vms: Dict[str, dict] = {}
         self.spawn = spawn
-        del hosts_by_type  # the JAX package sizes the agents it spawns by it
+        self._procs: Dict[str, list] = {}
+        self._hosts_by_type = hosts_by_type or {}
 
     def create_tpu_vm(self, name, zone, accelerator_type, runtime_version, labels):
         self.calls.append(("create", name, zone, accelerator_type, runtime_version))
@@ -303,6 +312,13 @@ class FakeGcloudTpuAPI(GcloudTpuAPI):
     def delete_tpu_vm(self, name, zone):
         self.calls.append(("delete", name, zone))
         self.vms.pop(name, None)
+        for proc in self._procs.pop(name, []):
+            if proc.poll() is None:
+                proc.terminate()
+                try:
+                    proc.wait(timeout=10)
+                except Exception:  # noqa: BLE001
+                    proc.kill()
 
     def list_tpu_vms(self, zone):
         self.calls.append(("list", zone))
@@ -310,7 +326,35 @@ class FakeGcloudTpuAPI(GcloudTpuAPI):
 
     def run_on_all_workers(self, name, zone, command):
         self.calls.append(("ssh_all", name, zone, command))
-        if self.spawn:
-            # the JAX package starts the command's node agent locally once
-            # a simulated host
-            refuse_agents("FakeGcloudTpuAPI(spawn=True)", "ray_tpu/autoscaler/gcp.py:325")
+        if not self.spawn:
+            return
+        import os
+        import subprocess
+        import sys
+
+        vm = self.vms[name]
+        pod_type = vm["accelerator_type"]
+        hosts = self._hosts_by_type.get(
+            pod_type, TPU_SLICE_TOPOLOGIES.get(pod_type, {"hosts": 1})["hosts"]
+        )
+        repo_root = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+        for worker_index in range(hosts):
+            env = dict(os.environ)
+            env["PYTHONPATH"] = repo_root + os.pathsep + env.get("PYTHONPATH", "")
+            env["TPU_WORKER_ID"] = str(worker_index)
+            # run the EXACT command the real path would ship over ssh,
+            # substituting THIS interpreter for whatever remote python the
+            # command names (token between "nohup " and " -m" — a plain
+            # str.replace would mangle configured paths containing
+            # "python3"), dropping the trailing "&" and exec-ing so the
+            # Popen handle IS the agent (a forked sh would orphan it)
+            head, sep, tail = command.partition(" -m ")
+            if sep and head.startswith("nohup "):
+                local_cmd = f"nohup {shlex.quote(sys.executable)}{sep}{tail}"
+            else:
+                local_cmd = command
+            proc = subprocess.Popen(
+                ["/bin/sh", "-c", "exec " + local_cmd.rstrip("& \t")],
+                env=env, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+            )
+            self._procs.setdefault(name, []).append(proc)

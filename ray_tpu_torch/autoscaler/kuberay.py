@@ -25,7 +25,13 @@ import threading
 from typing import Dict, List, Optional
 
 from ray_tpu_torch.autoscaler.demand import NodeTypeConfig
-from ray_tpu_torch.autoscaler.node_provider import TPU_SLICE_TOPOLOGIES, NodeProvider, refuse_agents
+from ray_tpu_torch.autoscaler.node_provider import (
+    AGENT_MODULE,
+    TPU_SLICE_TOPOLOGIES,
+    NodeProvider,
+    gpu_args,
+    split_gpus,
+)
 
 #: pod labels (the reconcile key — a restarted head must re-adopt its pods)
 CLUSTER_LABEL = "ray-tpu.io/cluster"
@@ -68,9 +74,10 @@ class KubectlAPI(KubernetesAPI):
         return res.stdout
 
     def create_pod(self, manifest: dict) -> None:
-        # the pod's container runs the node agent, which the port has not
-        # yet: refuse before a pod is created
-        refuse_agents("KubectlAPI.create_pod", "ray_tpu/autoscaler/kuberay.py:70")
+        # `create`, not `apply`: creation must HARD-FAIL on a name
+        # collision (apply is a silent no-op on an identical pod, which
+        # would let a desynced name sequence under-provision forever)
+        self._run(["create", "-f", "-"], stdin=json.dumps(manifest))
 
     def delete_pod(self, name: str) -> None:
         self._run(["delete", "pod", name, "--wait=false", "--ignore-not-found=true"])
@@ -158,10 +165,12 @@ class KubernetesNodeProvider(NodeProvider):
             # TPU_WORKER_ID env GKE injects (read by the agent, same as the
             # TPU-VM provider's labels)
             labels.setdefault("ray_tpu.io/pod-type", node_type.name)
+        resources, gpus = split_gpus(node_type.resources)
+        gpu = "".join(f"{a} " for a in gpu_args(gpus))
         return (
-            f"{self.remote_python} -m ray_tpu_torch.runtime.agent "
-            f"--address {shlex.quote(self.head_address)} "
-            f"--resources {shlex.quote(json.dumps(dict(node_type.resources)))} "
+            f"{self.remote_python} -m {AGENT_MODULE} "
+            f"--address {shlex.quote(self.head_address)} {gpu}"
+            f"--resources {shlex.quote(json.dumps(resources))} "
             f"--labels {shlex.quote(json.dumps(labels))}"
         )
 
@@ -176,6 +185,10 @@ class KubernetesNodeProvider(NodeProvider):
         if resources.get("TPU"):
             # GKE's TPU device plugin resource name
             limits["google.com/tpu"] = str(int(resources["TPU"]))
+        if resources.get("GPU"):
+            # the NVIDIA device plugin's resource name: the agent's
+            # --num-gpus refuses to start without the cards in the pod
+            limits["nvidia.com/gpu"] = str(int(resources["GPU"]))
         spec: dict = {
             "restartPolicy": "Never",  # the autoscaler owns replacement
             "containers": [

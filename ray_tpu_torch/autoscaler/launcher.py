@@ -31,6 +31,8 @@ YAML schema (subset of the reference's, same concepts)::
 
 from __future__ import annotations
 
+import json
+import time
 from typing import Any, Dict, Optional
 
 from ray_tpu_torch.autoscaler.autoscaler import AutoscalerConfig
@@ -40,18 +42,20 @@ from ray_tpu_torch.autoscaler.node_provider import (
     NodeProvider,
     SSHNodeProvider,
     SubprocessNodeProvider,
-    refuse_agents,
 )
-
-#: the provider types of the cluster YAML schema
-PROVIDER_TYPES = ("local", "ssh", "gcp-tpu")
 
 
 def load_cluster_config(path: str) -> Dict[str, Any]:
-    import yaml
-
+    """Read a cluster config: YAML, or JSON (a YAML document too) where
+    PyYAML is not installed."""
     with open(path) as f:
-        cfg = yaml.safe_load(f) or {}
+        text = f.read()
+    try:
+        import yaml
+    except ImportError:
+        cfg = json.loads(text) if text.strip() else {}
+    else:
+        cfg = yaml.safe_load(text) or {}
     if "available_node_types" not in cfg:
         raise ValueError(f"{path}: missing 'available_node_types'")
     return cfg
@@ -123,16 +127,49 @@ class ClusterLauncher:
         self.address: Optional[str] = None
 
     def up(self, *, wait_for_min_workers: bool = True, timeout_s: float = 120.0):
-        """The JAX package starts the head service here, provisions
-        ``min_workers`` of each type through the provider and starts the
-        monitor.  Every provider of the schema (``local``, ``ssh``,
-        ``gcp-tpu``) provisions node agents, which join the head over its
-        transport: the port has neither yet, so ``up`` raises before it
-        starts anything."""
-        kind = (self.config.get("provider") or {}).get("type", "local")
-        if kind not in PROVIDER_TYPES:
-            raise ValueError(f"unknown provider type {kind!r} (supported: local, ssh, gcp-tpu)")
-        refuse_agents(f"`rt up` on the {kind!r} provider", "ray_tpu/autoscaler/launcher.py:120-160")
+        """Start the head service in this process (initializing the runtime
+        from ``head``'s ``num_cpus`` and ``num_tpus`` if it is not up; the
+        head's GPUs are the CUDA devices ``init`` detects), provision
+        ``min_workers`` of each node type through the provider, start the
+        monitor, and by default wait until the provisioned agents have
+        joined."""
+        import ray_tpu_torch as rt
+
+        head = self.config.get("head") or {}
+        if not rt.is_initialized():
+            rt.init(num_cpus=head.get("num_cpus"), num_tpus=head.get("num_tpus"))
+        cluster = rt.get_cluster()
+        self.address = cluster.start_head_service(
+            host="0.0.0.0", port=int(head.get("port", 0))
+        )
+        self.provider = make_provider(self.config, self.address, cluster=cluster)
+        node_types = _node_types(self.config)
+        as_config = AutoscalerConfig(
+            node_types=node_types,
+            max_workers=int(self.config.get("max_workers", 64)),
+            idle_timeout_s=float(self.config.get("idle_timeout_s", 60.0)),
+        )
+        # provision min_workers up front (ray up initial bring-up), then the
+        # monitor owns elasticity
+        min_total = 0
+        for nt in node_types.values():
+            if nt.min_workers > 0:
+                self.provider.create_nodes(nt, nt.min_workers)
+                min_total += nt.min_workers
+        self.monitor = Monitor(cluster, as_config, provider=self.provider).start()
+        if wait_for_min_workers and min_total:
+            deadline = time.monotonic() + timeout_s
+            while time.monotonic() < deadline:
+                live = sum(1 for n in cluster.nodes.values() if not n.dead) - 1
+                if live >= min_total:
+                    break
+                time.sleep(0.25)
+            else:
+                raise TimeoutError(
+                    f"cluster bring-up: {min_total} workers requested, "
+                    f"{live} joined within {timeout_s}s"
+                )
+        return self
 
     def down(self) -> None:
         if self.monitor is not None:

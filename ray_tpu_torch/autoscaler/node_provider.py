@@ -15,20 +15,28 @@ resources are the reference's version of this).
 from __future__ import annotations
 
 import threading
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 from ray_tpu_torch.autoscaler.demand import NodeTypeConfig
-from ray_tpu_torch.exceptions import NotPortedError
 
-#: what the port cannot start yet: a node agent joining a head service
-MULTI_HOST = "ROADMAP item 10, the next slice of the multi-node runtime"
+#: the node agent every provider starts: the port's, never the JAX package's
+AGENT_MODULE = "ray_tpu_torch.runtime.agent"
 
 
-def refuse_agents(what: str, reference: str) -> None:
-    """Raise for a path whose nodes are node agents (OS processes or remote
-    machines joining the head over its transport): the providers that spawn
-    agents are the next slice of the multi-node runtime."""
-    raise NotPortedError(f"{what} (its nodes are node agents; {MULTI_HOST})", reference)
+def split_gpus(resources: Dict[str, float]) -> Tuple[Dict[str, float], float]:
+    """A node type's resources as the port's agent takes them: ``"GPU"``
+    becomes ``--num-gpus`` (the agent registers the card itself and refuses
+    to start where it sees fewer CUDA devices), the rest stays for
+    ``--resources``.  The JAX package passes ``"GPU"`` in ``--resources``
+    like any custom resource; ``"TPU"`` keeps its meaning in both."""
+    rest = dict(resources)
+    return rest, float(rest.pop("GPU", 0) or 0)
+
+
+def gpu_args(gpus: float) -> List[str]:
+    """The agent's ``--num-gpus`` arguments for ``gpus`` (none for 0)."""
+    return ["--num-gpus", f"{gpus:g}"] if gpus else []
+
 
 # TPU slice catalog: pod type -> (hosts, chips per host).  Mirrors the
 # topologies the reference's TPU accelerator module detects from
@@ -194,12 +202,14 @@ class SubprocessNodeProvider(NodeProvider):
     """Materializes nodes as REAL node-agent OS processes joining the head
     over the transport (``python -m ray_tpu_torch.runtime.agent``).
 
-    This is the provisioning path `rt up` uses for provider type "local"
-    in the JAX package. Role parity with the reference's local node
-    provider + command runner
+    This is the provisioning path `rt up` uses for provider type "local":
+    elastic scale-up spawns a process, scale-down/terminate kills it and the
+    head's disconnect handling runs the node-failure path. Role parity with
+    the reference's local node provider + command runner
     (``python/ray/autoscaler/_private/local/node_provider.py``,
-    ``command_runner.py``). The port has no node agent yet:
-    ``create_nodes`` raises ``NotPortedError`` (ROADMAP item 10)."""
+    ``command_runner.py``) with exec replacing SSH on one machine.  A node
+    type's ``"GPU"`` is the agent's ``--num-gpus`` (:func:`split_gpus`), and
+    the agent's ``PYTHONPATH`` starts with this package's root."""
 
     def __init__(self, head_address: str, python: Optional[str] = None):
         import sys as _sys
@@ -210,8 +220,47 @@ class SubprocessNodeProvider(NodeProvider):
         self._procs: Dict[str, object] = {}       # provider id -> Popen
         self._types: Dict[str, str] = {}
 
+    def command(self, node_type: NodeTypeConfig, provider_id: str) -> List[str]:
+        """The agent's command line for one node of ``node_type``."""
+        import json as _json
+
+        resources = dict(node_type.resources)
+        cpus = resources.pop("CPU", 1)
+        resources, gpus = split_gpus(resources)
+        # the provider id rides as a node label so the autoscaler can
+        # match its managed ids to live cluster nodes (busy/idle view)
+        labels = {**node_type.labels, "rt_provider_id": provider_id}
+        return [
+            self._python, "-m", AGENT_MODULE,
+            "--address", self.head_address,
+            "--num-cpus", str(cpus),
+            *gpu_args(gpus),
+            "--resources", _json.dumps(resources),
+            "--labels", _json.dumps(labels),
+        ]
+
     def create_nodes(self, node_type: NodeTypeConfig, count: int) -> List[str]:
-        refuse_agents("SubprocessNodeProvider.create_nodes", "ray_tpu/autoscaler/node_provider.py:198")
+        import os as _os
+        import subprocess as _sp
+        import uuid as _uuid
+
+        root = _os.path.dirname(_os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
+        created = []
+        for _ in range(count):
+            env = dict(_os.environ)
+            env["PYTHONPATH"] = root + _os.pathsep + env.get("PYTHONPATH", "")
+            pid = f"proc-{_uuid.uuid4().hex[:12]}"
+            proc = _sp.Popen(
+                self.command(node_type, pid),
+                env=env,
+                stdout=_sp.DEVNULL,
+                stderr=_sp.DEVNULL,
+            )
+            with self._lock:
+                self._procs[pid] = proc
+                self._types[pid] = node_type.name
+            created.append(pid)
+        return created
 
     def terminate_node(self, provider_node_id: str) -> None:
         with self._lock:
@@ -237,9 +286,9 @@ class SSHNodeProvider(NodeProvider):
     ``python/ray/autoscaler/_private/command_runner.py`` SSHCommandRunner).
 
     Config: a list of hosts, an ssh user/key, and the remote python +
-    working dir. In the JAX package each created node runs the node agent
-    detached (nohup) on the next free host; the port has no agent yet, so
-    ``create_nodes`` raises ``NotPortedError`` (ROADMAP item 10)."""
+    working dir. Each created node runs ``python -m
+    ray_tpu_torch.runtime.agent`` detached (nohup) on the next free host
+    (a node type's ``"GPU"`` as ``--num-gpus``); terminate kills it there."""
 
     def __init__(
         self,
@@ -268,8 +317,46 @@ class SSHNodeProvider(NodeProvider):
         target = f"{self.ssh_user}@{host}" if self.ssh_user else host
         return cmd + [target]
 
+    def agent_command(self, node_type: NodeTypeConfig, host: str) -> str:
+        """The remote shell command that starts one agent on ``host`` and
+        prints its PID."""
+        import json as _json
+        import shlex as _shlex
+
+        resources = dict(node_type.resources)
+        cpus = resources.pop("CPU", 1)
+        resources, gpus = split_gpus(resources)
+        labels = _json.dumps({**node_type.labels, "rt_provider_id": host})
+        gpu = " ".join(gpu_args(gpus))
+        return (
+            f"cd {self.remote_dir} && nohup {self.remote_python} -m "
+            f"{AGENT_MODULE} --address {_shlex.quote(self.head_address)} "
+            f"--num-cpus {cpus} {gpu + ' ' if gpu else ''}"
+            f"--resources {_shlex.quote(_json.dumps(resources))} "
+            f"--labels {_shlex.quote(labels)} "
+            f">> ray_tpu_torch_agent.log 2>&1 & echo $!"
+        )
+
     def create_nodes(self, node_type: NodeTypeConfig, count: int) -> List[str]:
-        refuse_agents("SSHNodeProvider.create_nodes", "ray_tpu/autoscaler/node_provider.py:287")
+        import subprocess as _sp
+
+        created = []
+        with self._lock:
+            free = [h for h in self.hosts if h not in self._in_use]
+        for host in free[:count]:
+            agent = self.agent_command(node_type, host)
+            res = _sp.run(self._ssh_base(host) + [agent], capture_output=True, text=True, timeout=60)
+            if res.returncode == 0:
+                with self._lock:
+                    self._in_use[host] = node_type.name
+                    # remember the remote PID: termination must kill OUR
+                    # agent, not every ray_tpu_torch agent on a shared host
+                    try:
+                        self._remote_pids[host] = int(res.stdout.strip().splitlines()[-1])
+                    except (ValueError, IndexError):
+                        self._remote_pids[host] = 0
+                created.append(host)
+        return created
 
     def terminate_node(self, provider_node_id: str) -> None:
         import subprocess as _sp
@@ -279,7 +366,7 @@ class SSHNodeProvider(NodeProvider):
             pid = self._remote_pids.pop(provider_node_id, 0)
         kill_cmd = (
             f"kill {pid} || true" if pid
-            else "pkill -f ray_tpu_torch.runtime.agent || true"  # PID capture failed
+            else f"pkill -f {AGENT_MODULE} || true"  # PID capture failed
         )
         _sp.run(
             self._ssh_base(provider_node_id) + [kill_cmd],

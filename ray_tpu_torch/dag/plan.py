@@ -1,9 +1,9 @@
 """Compiled execution plans: install-once DAG schedules.
 
-The port's copy of ``ray_tpu/dag/plan.py``, for stages whose actors live in
-the driver's process: the nodes of the in-process cluster, in-process
-(GPU) actors included.  A stage on a node agent's process waits for the
-multi-node runtime and raises ``NotPortedError`` at compile time.
+The port's copy of ``ray_tpu/dag/plan.py``: stages whose actors live in the
+driver's process (the nodes of the in-process cluster, in-process GPU actors
+included) and stages on node agents, installed there over the
+``install_plan`` control RPC.
 
 Reference parity: the accelerated-DAG runtime
 (``python/ray/dag/compiled_dag_node.py:278`` + the mutable plasma/NCCL
@@ -11,18 +11,24 @@ channels under ``python/ray/experimental/channel/``), and the insight
 behind it: amortize single-controller dispatch by building the graph ONCE
 and executing many times over pre-established channels.
 
-Compiling builds a **stage program** per stage, installed once: a thread
-per stage loops read-inputs -> call the actor -> write-outputs, and every
-DAG edge becomes a named single-slot channel (``runtime/channel_manager.py``).
-``plan.execute(args)`` then pushes the input to the entry channels and
-awaits the output channel: zero TaskSpecs, zero scheduler hops, zero
-ObjectRefs per iteration; ``execute_async`` pipelines successive iterations
-through the stages (each single-slot edge buffers one iteration, so a
-k-stage pipeline runs ~k iterations concurrently).  Edges are of the
+Compiling builds per-process **stage programs**, installed once (on each
+participating node agent by one ``install_plan`` control RPC): a thread per
+stage loops read-inputs -> call the actor -> write-outputs, and every DAG
+edge becomes a named single-slot channel (``runtime/channel_manager.py``),
+an in-process channel when producer and consumer are co-located, a
+persistent seq-numbered data-plane stream (``chan_push``) when they cross
+processes.  ``plan.execute(args)`` then pushes the input to the entry
+channels and awaits the output channel: zero TaskSpecs, zero scheduler
+hops, zero ObjectRefs per iteration; ``execute_async`` pipelines successive
+iterations through the stages (each single-slot edge buffers one iteration,
+so a k-stage pipeline runs ~k iterations concurrently).  Edges are of the
 ``device`` kind unless ``plan_channel_kind`` is ``"pickle"``: a tensor is
 handed over as a reference, with the writer's stream fence when it is on
-the card.  A :class:`StageGroup` stage is a gang of actors running the same
-step on the splits of each tensor input.
+the card; across processes a tensor rides a control-only header and the
+consumer pulls it card to card through the transfer server (CUDA IPC), or
+its host bytes cross the stream when no transfer server runs.  A
+:class:`StageGroup` stage is a gang of actors running the same step on the
+splits of each tensor input.
 
 Failure story: a stage actor raising a USER exception fails that iteration
 (the typed error travels the channels like any value) and the plan stays
@@ -30,7 +36,9 @@ READY; actor or node DEATH surfaces a typed error (ActorDiedError /
 WorkerCrashedError) on the output channel and flips the plan to BROKEN:
 subsequent executes raise immediately, ``repair()`` (or ``auto_repair``)
 reinstalls onto the restarted actors, and ``teardown()`` releases the
-channels.
+channels on every agent.  Channel traffic rides the
+``data_plane.send_frame`` failpoint, so seeded chaos schedules perturb plans
+through the same decision stream as every other transfer.
 """
 
 from __future__ import annotations
@@ -142,9 +150,10 @@ class StageGroupNode(ClassMethodNode):
         )
 
 
-def _group_payload(group: Optional[StageGroup]) -> Optional[dict]:
-    """The StageSpec encoding of a StageGroup (``runtime/channel_manager.py``
-    reads it)."""
+def _group_payload(group: Optional[StageGroup], wire: bool) -> Optional[dict]:
+    """StageSpec / install-RPC encoding of a StageGroup: ``wire=True`` uses
+    actor-id bytes (what ``install_remote_plan`` decodes); ``wire=False``
+    keeps ActorID objects for the driver-local StageSpec."""
     if group is None:
         return None
     warm = None
@@ -156,7 +165,9 @@ def _group_payload(group: Optional[StageGroup]) -> Optional[dict]:
             pairs = [pairs]
         warm = [[list(shape), str(dtype)] for shape, dtype in pairs]
     return {
-        "members": [a._actor_id for a in group.actors],
+        "members": [
+            (a._actor_id.binary() if wire else a._actor_id) for a in group.actors
+        ],
         "split_axis": group.split_axis,
         "mesh": group.mesh,
         "warmup": warm,
@@ -206,8 +217,10 @@ class ExecutionPlan:
         self._failed = 0
         self._manager = global_manager()
         self._executor: Optional[StageExecutor] = None
+        self._remote_handles: Dict[str, Any] = {}   # proc key -> RemoteNodeHandle
         self._entry_writes: List[Any] = []          # callables write(seq, payload)
         self._out_channels: List[Any] = []
+        self._streams: List[Any] = []               # driver-owned ChannelStreams
         self._trace_id = f"plan-{self.plan_id[:12]}"
         self._pending: "queue.Queue" = queue.Queue()
 
@@ -215,9 +228,16 @@ class ExecutionPlan:
         try:
             self._install()
         except BaseException:
-            # partial install: release everything so nothing leaks from a
-            # failed compile
+            # partial install (an agent may already hold stages): release
+            # everything so nothing leaks from a failed compile
             self._state = "TORN_DOWN"
+            for handle in self._remote_handles.values():
+                try:
+                    handle.conn.request(
+                        "uninstall_plan", {"plan": self.plan_id}, timeout=5.0
+                    )
+                except Exception:  # noqa: BLE001
+                    pass
             if self._executor is not None:
                 self._executor.stop()
             self._manager.release_plan(self.plan_id)
@@ -402,51 +422,161 @@ class ExecutionPlan:
         node = self._cluster.nodes.get(node_id)
         if node is None:
             raise ValueError(f"stage actor's node {node_id.hex()[:8]} is unknown")
-        if hasattr(node, "conn"):
-            from ray_tpu_torch.exceptions import NotPortedError
-
-            raise NotPortedError("plan stages on a node agent", "ray_tpu/dag/plan.py")
-        return "driver"
+        return node_id.hex() if hasattr(node, "conn") else "driver"
 
     # ------------------------------------------------------------------
-    # install: stage programs + channels (ONCE)
+    # install: per-process stage programs + channels (ONCE)
     # ------------------------------------------------------------------
+    def _driver_addr_for(self, handle) -> str:
+        """The driver's data endpoint as dialable from ``handle``'s host."""
+        head_service = self._cluster.head_service
+        if head_service is None:
+            raise RuntimeError("remote plan stages require the head service")
+        return f"{handle.conn.local_ip}:{head_service.data_server.port}"
+
     # rt-lint: guarded-by(_repair_lock) -- callers: repair() holds it;
     # __init__ runs pre-publication with exclusive access (stronger)
     def _install(self) -> None:
+        from ray_tpu_torch.core.config import get_config
+        from ray_tpu_torch.runtime import data_plane, rpc
+
+        cfg = get_config()
+        procs = sorted({d.proc for d in self._stages})
+        by_proc: Dict[str, List[_StageDraft]] = {p: [] for p in procs}
+        for draft in self._stages:
+            by_proc[draft.proc].append(draft)
+        proc_of_chan: Dict[str, str] = {}    # channel -> hosting proc
+        writer_addr: Dict[str, tuple] = {}   # channel -> (producer proc, consumer proc)
+        stage_proc = {d.stage_id: d.proc for d in self._stages}
+        for draft in self._stages:
+            for chan in draft.outs:
+                if chan in self._output_names:
+                    consumer = "driver"
+                else:
+                    consumer = stage_proc[int(chan.rsplit("_s", 1)[1])]
+                proc_of_chan[chan] = consumer
+                if draft.proc != consumer:
+                    writer_addr[chan] = (draft.proc, consumer)
+            if draft.inchan is not None:
+                proc_of_chan[draft.inchan] = draft.proc
+                if draft.proc != "driver":
+                    writer_addr[draft.inchan] = ("driver", draft.proc)
+
+        for proc in procs:
+            if proc == "driver":
+                continue
+            from ray_tpu_torch.core.ids import NodeID
+
+            handle = self._cluster.nodes.get(NodeID(bytes.fromhex(proc)))
+            if handle is None or handle.dead:
+                raise WorkerCrashedError(f"plan node {proc[:8]} died during install")
+            self._remote_handles[proc] = handle
+
+        def addr_of(proc: str, from_proc: str) -> str:
+            if proc == "driver":
+                return self._driver_addr_for(self._remote_handles[from_proc])
+            return self._remote_handles[proc].data_address
+
+        # driver-hosted channels (locals + inbound from agents)
+        driver_chans = [c for c, p in proc_of_chan.items() if p == "driver"]
         chans = self._manager.register(
-            self.plan_id,
-            [c for d in self._stages for c in d.outs] + [d.inchan for d in self._stages if d.inchan],
-            kinds=self._chan_kinds,
+            self.plan_id, driver_chans, kinds=self._chan_kinds
         )
         self._out_channels = [chans[c] for c in self._output_names]
+
+        # driver-side outbound writers (driver -> agent edges)
+        driver_writers: Dict[str, Any] = {}
+        for chan, (pproc, cproc) in writer_addr.items():
+            if pproc != "driver":
+                continue
+            stream = data_plane.ChannelStream(
+                addr_of(cproc, pproc), self.plan_id, chan,
+                chunk_bytes=cfg.object_transfer_chunk_bytes,
+                timeout=cfg.compiled_plan_channel_timeout_s,
+                kind=self._chan_kinds.get(chan, "pickle"),
+            )
+            driver_writers[chan] = stream
+            self._streams.append(stream)
+
         # entry writes, one per stage consuming the DAG input, in stage order
         for draft in sorted(self._stages, key=lambda d: d.stage_id):
-            if draft.inchan is not None:
+            if draft.inchan is None:
+                continue
+            if draft.proc == "driver":
                 ch = chans[draft.inchan]
-                self._entry_writes.append(lambda seq, payload, ch=ch: ch.write(seq, payload))
-        stages = [
+                self._entry_writes.append(
+                    lambda seq, payload, ch=ch: ch.write(seq, payload)
+                )
+            else:
+                stream = driver_writers[draft.inchan]
+                self._entry_writes.append(
+                    lambda seq, payload, stream=stream: stream.push(seq, payload)
+                )
+
+        # remote installs: ONE control RPC per participating agent
+        for proc in procs:
+            if proc == "driver":
+                continue
+            handle = self._remote_handles[proc]
+            proc_chans = [c for c, p in proc_of_chan.items() if p == proc]
+            proc_writers = {
+                chan: addr_of(cproc, proc)
+                for chan, (pproc, cproc) in writer_addr.items()
+                if pproc == proc
+            }
+            payload = {
+                "plan": self.plan_id,
+                "channels": proc_chans,
+                "kinds": {c: self._chan_kinds.get(c, "pickle") for c in proc_chans},
+                "writers": proc_writers,
+                "writer_kinds": {
+                    c: self._chan_kinds.get(c, "pickle") for c in proc_writers
+                },
+                "consts": rpc.dumps_value(self._consts),
+                "stages": [
+                    {
+                        "stage": d.stage_id,
+                        "actor_id": d.actor_id.binary(),
+                        "method": d.node.method_name,
+                        "name": d.name,
+                        "args": [list(s) for s in d.arg_slots],
+                        "kwargs": {k: list(s) for k, s in d.kw_slots.items()},
+                        "inchan": d.inchan,
+                        "outs": d.outs,
+                        "group": _group_payload(d.group, wire=True),
+                    }
+                    for d in by_proc[proc]
+                ],
+            }
+            handle.conn.request("install_plan", payload, timeout=60.0)
+
+        # driver-hosted stage executor
+        driver_stages = [
             StageSpec(d.stage_id, d.actor_id, d.node.method_name, d.name,
                       d.arg_slots, d.kw_slots, d.inchan, d.outs,
-                      group=_group_payload(d.group))
-            for d in self._stages
+                      group=_group_payload(d.group, wire=False))
+            for d in by_proc.get("driver", ())
         ]
-        invoker_map: Dict[Any, Any] = {}
-        for d in self._stages:
-            if d.group is not None:
-                # gang members may sit on different in-process nodes of the
-                # driver cluster: resolve each against control
-                for a in d.group.actors:
-                    info = self._cluster.control.actors.get(a._actor_id)
-                    invoker_map[a._actor_id] = info.node_id if info is not None else d.node_id
-            else:
-                invoker_map[d.actor_id] = d.node_id
-        invoker = _DriverInvoker(self._cluster, invoker_map)
-        self._executor = StageExecutor(
-            self.plan_id, stages, self._consts, self._manager, invoker, {},
-            on_broken=self._mark_broken, trace_id=self._trace_id,
-        )
-        self._executor.start()
+        if driver_stages:
+            invoker_map: Dict[Any, Any] = {}
+            for d in by_proc["driver"]:
+                if d.group is not None:
+                    # gang members may sit on different in-process nodes of
+                    # the driver cluster — resolve each against control
+                    for a in d.group.actors:
+                        info = self._cluster.control.actors.get(a._actor_id)
+                        invoker_map[a._actor_id] = (
+                            info.node_id if info is not None else d.node_id
+                        )
+                else:
+                    invoker_map[d.actor_id] = d.node_id
+            invoker = _DriverInvoker(self._cluster, invoker_map)
+            self._executor = StageExecutor(
+                self.plan_id, driver_stages, self._consts, self._manager,
+                invoker, driver_writers, on_broken=self._break_on_transport,
+                trace_id=self._trace_id,
+            )
+            self._executor.start()
 
     # ------------------------------------------------------------------
     # execution
@@ -498,10 +628,15 @@ class ExecutionPlan:
                     write(seq, payload)
             except BaseException as exc:  # noqa: BLE001 — broke/tore down under us
                 err = self._error
-                if err is None and isinstance(exc, (ChannelClosed, TimeoutError)):
-                    # the entry channel itself died before the death sweep
-                    # ran: the plan cannot execute again: break it NOW with
-                    # the typed error instead of leaking a transport exception
+                from ray_tpu_torch.runtime.data_plane import DataPlaneError
+
+                if err is None and isinstance(
+                    exc, (ChannelClosed, DataPlaneError, TimeoutError)
+                ):
+                    # the entry channel or the persistent stream itself died
+                    # (agent gone before the death sweep ran): the plan
+                    # cannot execute again: break it NOW with the typed
+                    # error instead of leaking a transport exception
                     self._mark_broken(
                         WorkerCrashedError(f"plan entry channel failed: {exc}")
                     )
@@ -572,6 +707,17 @@ class ExecutionPlan:
         except Exception:  # noqa: BLE001 — bookkeeping must not block failure paths
             pass
 
+    def _break_on_transport(self, error: BaseException) -> None:
+        """A stage could not push to a peer process (or an agent's stage
+        said so): break the plan with the typed cause callers are promised,
+        the transport error chained.  Stored raw, it would reach the
+        drainer before the node's death sweep could upgrade it."""
+        if not isinstance(error, _SYSTEM_ERRORS):
+            typed = WorkerCrashedError(f"plan channel failed: {error}")
+            typed.__cause__ = error
+            error = typed
+        self._mark_broken(error)
+
     def _mark_broken(self, error: BaseException, upgrade: bool = False) -> None:
         with self._state_lock:
             if self._state != "READY":
@@ -604,8 +750,9 @@ class ExecutionPlan:
             )
         except Exception:  # noqa: BLE001 — recording must not block the break
             pass
-        # closing the channels wakes the drainer (pending futures fail with
-        # the typed error) and every stage thread
+        # closing the driver-side channels wakes the drainer (pending
+        # futures fail with the typed error), every stage thread, and nacks
+        # agent pushes
         self._manager.break_plan(self.plan_id, error)
         if self._auto_repair:
             threading.Thread(
@@ -622,10 +769,27 @@ class ExecutionPlan:
             pass               # the original typed error for introspection
 
     def _release_fabric_locked(self) -> None:
-        """Drop the channel fabric.  Caller holds ``_repair_lock``; the
-        release tolerates already-released."""
+        """Close driver streams, drop the channel fabric, and release the
+        plan program on every reachable agent.  Caller holds
+        ``_repair_lock``; every release op tolerates already-released."""
+        for stream in self._streams:
+            try:
+                stream.close()
+            except Exception:  # noqa: BLE001
+                pass
+        self._streams = []
         self._entry_writes = []
         self._out_channels = []
+        for handle in self._remote_handles.values():
+            if handle.dead:
+                continue
+            try:
+                handle.conn.request(
+                    "uninstall_plan", {"plan": self.plan_id}, timeout=10.0
+                )
+            except Exception:  # noqa: BLE001 — agent gone with its node
+                pass
+        self._remote_handles = {}
         self._manager.release_plan(self.plan_id)
 
     def repair(self, timeout: float = 30.0) -> None:
@@ -770,7 +934,8 @@ class ExecutionPlan:
     # repair observes TORN_DOWN and releases its own fresh fabric, so the
     # objects read here are the last epoch's; every release is idempotent
     def teardown(self) -> None:
-        """Release the plan's channels and stage threads. Idempotent."""
+        """Release the plan's channels and stage threads on every
+        participating agent. Idempotent."""
         with self._state_lock:
             if self._state == "TORN_DOWN":
                 return
@@ -778,8 +943,20 @@ class ExecutionPlan:
             self._state = "TORN_DOWN"
             self._record_transition(prev, "TORN_DOWN")
         self._cluster.compiled_plans.pop(self.plan_id, None)
+        for handle in self._remote_handles.values():
+            if handle.dead:
+                continue
+            try:
+                handle.conn.request("uninstall_plan", {"plan": self.plan_id}, timeout=10.0)
+            except Exception:  # noqa: BLE001 — agent gone: nothing to release
+                pass
         if self._executor is not None:
             self._executor.stop()
+        for stream in self._streams:
+            try:
+                stream.close()
+            except Exception:  # noqa: BLE001
+                pass
         self._manager.release_plan(self.plan_id)
         self._pending.put(None)
 

@@ -22,8 +22,10 @@ or task runs in this process, next to the card, as on the head; the process
 workers stay hidden from the card unless they hold a GPU share.  The shm
 arena (``/dev/shm/rttorch_a<pid>_<hex>``), its stale-segment reaper and the
 session directory (``<tmp>/ray_tpu_torch_agent_<pid>``) are the port's own,
-so neither package's agent can reap or reuse the other's.  Plan stages on an
-agent are not ported (``install_plan`` raises ``NotPortedError``).
+so neither package's agent can reap or reuse the other's.  A compiled
+plan's stages on this agent are installed by the ``install_plan`` control
+RPC (``runtime/channel_manager.install_remote_plan``) and released by
+``uninstall_plan``, by shutdown and by self-fencing.
 """
 
 from __future__ import annotations

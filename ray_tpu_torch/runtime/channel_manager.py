@@ -1,8 +1,8 @@
 """Per-process channel registry + stage executors for compiled execution plans.
 
-The port's copy of ``ray_tpu/runtime/channel_manager.py``.  Hosting stages
-for a plan installed from another process (``install_remote_plan``, on a
-node agent) is not ported yet and raises ``NotPortedError``.
+The port's copy of ``ray_tpu/runtime/channel_manager.py``, the agent half
+included: ``install_remote_plan`` hosts the stages a driver installs on a
+node agent over the ``install_plan`` control RPC.
 Reference parity: ``python/ray/experimental/channel/`` — the aDAG runtime's
 mutable plasma/NCCL channels and the per-actor compiled-DAG loops
 (``compiled_dag_node.py:278``).  A compiled :class:`~ray_tpu.dag.plan.
@@ -690,23 +690,95 @@ class StageExecutor:
 
 
 # --------------------------------------------------------------------------
-# remote (agent-side) plan hosting: the multi-node runtime
+# remote (agent-side) plan hosting
 # --------------------------------------------------------------------------
+_installed_lock = threading.Lock()
+_installed: Dict[str, StageExecutor] = {}
+
+
 def install_remote_plan(payload: dict, node, conn) -> None:
-    """``install_plan`` control-RPC body on a node agent: not ported."""
-    from ray_tpu_torch.exceptions import NotPortedError
+    """``install_plan`` control-RPC body on a node agent: register this
+    process's channels, open the persistent outbound streams, resolve the
+    hosted actor instances, and start the stage loops.  Installed ONCE;
+    every subsequent ``plan.execute`` is pure data-plane traffic."""
+    import pickle
 
-    raise NotPortedError("plan stages on a node agent", "ray_tpu/runtime/channel_manager.py")
+    from ray_tpu_torch.core.config import get_config
+    from ray_tpu_torch.core.ids import ActorID
+    from ray_tpu_torch.runtime import data_plane, rpc
 
+    cfg = get_config()
+    plan_id = payload["plan"]
+    kinds = payload.get("kinds") or {}
+    mgr = global_manager()
+    mgr.register(plan_id, payload.get("channels", ()), kinds=kinds)
+    writer_kinds = payload.get("writer_kinds") or {}
+    writers = {
+        name: data_plane.ChannelStream(
+            addr, plan_id, name,
+            chunk_bytes=cfg.object_transfer_chunk_bytes,
+            timeout=cfg.compiled_plan_channel_timeout_s,
+            kind=writer_kinds.get(name, "pickle"),
+        )
+        for name, addr in (payload.get("writers") or {}).items()
+    }
+    consts = pickle.loads(payload["consts"]) if payload.get("consts") else []
 
-def uninstall_all_remote_plans() -> None:
-    """Agent shutdown and self-fence: ``install_remote_plan`` raises, so no
-    plan stage is ever installed on an agent here and there is nothing to
-    release."""
+    def _decode_group(d: Optional[dict]) -> Optional[dict]:
+        if not d:
+            return None
+        return {
+            "members": [ActorID(m) for m in d["members"]],
+            "split_axis": d.get("split_axis", 0),
+            "mesh": d.get("mesh"),
+            "warmup": d.get("warmup"),
+        }
+
+    stages = [
+        StageSpec(
+            d["stage"], ActorID(d["actor_id"]), d["method"], d["name"],
+            [tuple(s) for s in d["args"]],
+            {k: tuple(s) for k, s in d.get("kwargs", {}).items()},
+            d.get("inchan"), list(d.get("outs", ())),
+            group=_decode_group(d.get("group")),
+        )
+        for d in payload.get("stages", ())
+    ]
+
+    def on_broken(error: BaseException) -> None:
+        mgr.break_plan(plan_id, error)
+        try:
+            conn.send(
+                "plan_broken",
+                {"plan": plan_id, "error": rpc.encode_value(error)},
+            )
+        except Exception:  # noqa: BLE001 — head gone: its death sweep owns it
+            pass
+
+    executor = StageExecutor(
+        plan_id, stages, consts, mgr, NodeActorInvoker(node), writers,
+        on_broken=on_broken,
+    )
+    with _installed_lock:
+        old = _installed.pop(plan_id, None)
+        _installed[plan_id] = executor
+    if old is not None:
+        old.stop()
+    executor.start()
 
 
 def uninstall_remote_plan(plan_id: str) -> None:
-    """``uninstall_plan`` on a node agent: not ported."""
-    from ray_tpu_torch.exceptions import NotPortedError
+    with _installed_lock:
+        executor = _installed.pop(plan_id, None)
+    if executor is not None:
+        executor.stop()
+    global_manager().release_plan(plan_id)
 
-    raise NotPortedError("plan stages on a node agent", "ray_tpu/runtime/channel_manager.py")
+
+def uninstall_all_remote_plans() -> None:
+    with _installed_lock:
+        doomed = list(_installed.items())
+        _installed.clear()
+    for plan_id, executor in doomed:
+        executor.stop()
+        global_manager().release_plan(plan_id)

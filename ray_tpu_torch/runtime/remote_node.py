@@ -1112,7 +1112,7 @@ class HeadService:
 
             error = WorkerCrashedError(f"plan broke on an agent: {error!r}")
         try:
-            plan._mark_broken(error)
+            plan._break_on_transport(error)
         except Exception:  # noqa: BLE001 — notice is best-effort
             pass
 

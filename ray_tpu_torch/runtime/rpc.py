@@ -57,7 +57,9 @@ from ray_tpu_torch.runtime.protocol import FrameReader, send_msg as _send_msg
 #: shapes match, but the values inside the frames do not (tensors, not
 #: ``jax.Array``s), so the two packages must never join one cluster.
 #: v1001: the JAX package's v6 message set, spoken by the port.
-PROTOCOL_VERSION = 1001
+#: v1002: the plan-install frames (``install_plan``, ``uninstall_plan``,
+#: ``plan_broken``) and the thin client's ops, its ``hello`` included.
+PROTOCOL_VERSION = 1002
 
 #: The protocol family a port head names in its ``register_node_config``
 #: reply; an agent of the port refuses a head that names another (a JAX

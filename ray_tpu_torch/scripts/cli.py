@@ -11,10 +11,10 @@ Run as ``python -m ray_tpu_torch <cmd>`` or ``python -m ray_tpu_torch.scripts.cl
 The port's own copy of the JAX package's CLI: the same subcommands and
 options (``start --address`` also takes ``--num-gpus``).  The head keeps its
 own address file, so the two packages' heads on one machine never see (or
-stop) each other.  ``start --head`` opens the multi-host head service and
-``start --address`` runs a node agent in this process; ``up`` on a provider
-that spawns agents raises :class:`NotPortedError` naming the next slice of
-ROADMAP item 10.
+stop) each other.  ``start --head`` opens the multi-host head service,
+``start --address`` runs a node agent in this process, and ``up`` starts a
+head in this process and provisions the config's node agents through its
+provider (``autoscaler/launcher.py``).
 """
 
 from __future__ import annotations
@@ -31,8 +31,6 @@ import urllib.request
 ADDRESS_FILE = os.path.join(tempfile.gettempdir(), "ray_tpu_torch", "ray_current_head.json")
 #: the port's own address variable (the JAX package reads ``RAY_TPU_ADDRESS``)
 ADDRESS_ENV = "RAY_TPU_TORCH_ADDRESS"
-#: what ``NotPortedError`` names for the multi-host pieces not ported yet
-MULTI_HOST = "ROADMAP item 10, the next slice of the multi-node runtime"
 
 
 def _write_address_file(info: dict) -> None:
@@ -135,7 +133,7 @@ def cmd_up(args) -> int:
     cluster = rt.get_cluster()
     live = sum(1 for n in cluster.nodes.values() if not n.dead)
     print(f"cluster up: control plane at {launcher.address}, {live} nodes")
-    print(f"Join more nodes with: ray_tpu_torch start --address {launcher.address}")
+    print(f"Join more nodes with: python -m ray_tpu_torch start --address {launcher.address}")
 
     stop_requested = {"flag": False}
 

@@ -1,8 +1,8 @@
 """ray_tpu_torch.util: utility APIs layered on the core.
 
 The port's copy of ``ray_tpu/util/__init__.py``: the same behaviour, imports renamed
-to ``ray_tpu_torch``. One name waits for a later slice and raises
-``NotPortedError``: ``connect`` (the thin client, ``ray_tpu/util/client/``).
+to ``ray_tpu_torch``; ``connect`` is the port's thin client
+(``util/client/``).
 
 Parity: ``python/ray/util/`` (SURVEY §2.4 util misc) — ActorPool, Queue,
 collective ops, scheduling strategies, serializability checking.
@@ -35,13 +35,8 @@ from ray_tpu_torch.runtime.scheduler import (
     NodeLabelSchedulingStrategy,
     PlacementGroupSchedulingStrategy,
 )
+from ray_tpu_torch.util.client.worker import connect
 from ray_tpu_torch import accelerators
-from ray_tpu_torch.exceptions import NotPortedError
-
-
-def connect(*args, **kwargs):
-    """The thin client's ``util.connect``: not ported yet."""
-    raise NotPortedError("util.connect (the thin client)", "ray_tpu/util/client/worker.py")
 
 
 def __getattr__(name: str):

@@ -8,14 +8,18 @@ through both packages: the JAX test's own body, once as written and once
 with its module globals and imports bound to the port's (``ray_tpu`` ->
 ``ray_tpu_torch``; the agent module a provider ships names the port's).
 ``demand.get_nodes_to_launch`` gives equal outputs in both on the same
-inputs, drawn from one numpy seed.  Left out: the cases marked ``full``,
-whose nodes are real node agents (ROADMAP item 10):
-``test_cluster_launcher.py:42`` and ``test_gcp_tpu_provider.py:111``; the
-port's ``up`` on each agent-spawning provider raises ``NotPortedError``.
+inputs, drawn from one numpy seed.  The two cases marked ``full``, whose
+nodes are real node agents (``test_cluster_launcher.py:43``,
+``test_gcp_tpu_provider.py:111``), run the same way and keep their marker
+(``--full``); an unmarked case runs ``up`` on the ``local`` provider with
+one worker and then ``down`` through both packages, and the port's ``up``
+drives each provider kind (``local``, ``ssh`` with its commands recorded,
+``gcp-tpu`` on the fake with a real agent).
 """
 
 import importlib
 import inspect
+import time
 
 import numpy as np
 import pytest
@@ -27,6 +31,7 @@ import test_autoscaler as jax_autoscaler  # noqa: E402
 import test_cluster_launcher as jax_launcher  # noqa: E402
 import test_gcp_tpu_provider as jax_gcp  # noqa: E402
 import test_kuberay_provider as jax_kuberay  # noqa: E402
+from test_cluster_launcher import cluster_yaml  # noqa: E402,F401 — a full case's fixture
 
 PACKAGES = ("ray_tpu", "ray_tpu_torch")
 #: string constants of the JAX tests that name the JAX package's modules
@@ -41,20 +46,26 @@ def _cases(module):
 CASES = (_cases(jax_autoscaler) + _cases(jax_kuberay) + _cases(jax_gcp)
          + [(jax_launcher, "test_config_validation"),
             (jax_launcher, "test_ssh_provider_command_shape")])
-NEEDS_ITEM_10 = {("test_cluster_launcher", "test_up_provisions_min_workers_and_down_terminates"),
-                 ("test_gcp_tpu_provider", "test_rt_up_gcp_tpu_fake_full_lifecycle")}
+#: the ``full`` cases: their nodes are real node agents
+AGENT_CASES = [(jax_launcher, "test_up_provisions_min_workers_and_down_terminates"),
+               (jax_gcp, "test_rt_up_gcp_tpu_fake_full_lifecycle")]
 
 
 def test_left_out_cases_are_the_agent_ones():
+    """The ``full`` cases are the agent ones, held below with their marker
+    (the name is historical: they were left out until the agent-spawning
+    providers were ported)."""
     full = {(m.__name__, n) for m in (jax_autoscaler, jax_kuberay, jax_gcp, jax_launcher)
             for n in vars(m) if n.startswith("test_")
             and any(x.name == "full" for x in getattr(getattr(m, n), "pytestmark", []))}
-    assert full == NEEDS_ITEM_10
+    assert full == {(m.__name__, n) for m, n in AGENT_CASES}
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)
-@pytest.mark.parametrize("case", [f"{m.__name__}::{n}" for m, n in CASES])
-def test_reference_case_through_both_packages(case, pkg, tmp_path):
+@pytest.mark.parametrize("case", [f"{m.__name__}::{n}" for m, n in CASES]
+                         + [pytest.param(f"{m.__name__}::{n}", marks=pytest.mark.full)
+                            for m, n in AGENT_CASES])
+def test_reference_case_through_both_packages(case, pkg, tmp_path, request):
     mod_name, fn_name = case.split("::")
     fn = getattr(importlib.import_module(mod_name), fn_name)
     if pkg == "ray_tpu_torch":
@@ -63,6 +74,8 @@ def test_reference_case_through_both_packages(case, pkg, tmp_path):
     kw = {}
     if "tmp_path" in params:
         kw["tmp_path"] = tmp_path
+    if "cluster_yaml" in params:
+        kw["cluster_yaml"] = request.getfixturevalue("cluster_yaml")
     if "ray_start_cluster" in params:
         rt = importlib.import_module(pkg)
         cluster = rt.init(num_cpus=2)
@@ -115,43 +128,136 @@ def test_get_nodes_to_launch_equal_on_the_same_inputs():
     assert any(outs["ray_tpu"])  # the draws do launch nodes
 
 
-@pytest.mark.parametrize("kind", ["local", "ssh", "gcp-tpu"])
-def test_up_on_an_agent_provider_raises_not_ported(kind, tmp_path):
+def _live(cluster) -> list:
+    return [n for n in cluster.nodes.values() if not n.dead]
+
+
+def _wait_live(cluster, n: int, timeout_s: float = 60.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while len(_live(cluster)) != n:
+        assert time.monotonic() < deadline, f"{len(_live(cluster))} live nodes, want {n}"
+        time.sleep(0.1)
+
+
+@pytest.mark.parametrize("pkg", PACKAGES)
+def test_up_local_one_worker_then_down(pkg, tmp_path):
+    """``up`` on the ``local`` provider with ``min_workers`` 1 (a config
+    file in JSON, which is YAML too) provisions one agent process of the
+    package, which joins with its provider label and runs a task of its
+    custom resource; ``down`` terminates it and the head sees it die."""
     import json
+
+    rt = importlib.import_module(pkg)
+    launcher_mod = importlib.import_module(pkg + ".autoscaler.launcher")
+    cfg = {"cluster_name": "t", "provider": {"type": "local"}, "head": {"num_cpus": 1},
+           "available_node_types": {"w": {"resources": {"CPU": 1, "pool": 1},
+                                          "min_workers": 1, "max_workers": 1}},
+           "max_workers": 1, "idle_timeout_s": 300}
+    path = tmp_path / "cluster.yaml"
+    path.write_text(json.dumps(cfg))
+    t0 = time.monotonic()
+    launcher = launcher_mod.up(str(path), timeout_s=60)
+    try:
+        cluster = rt.get_cluster()
+        live = _live(cluster)
+        assert len(live) == 2
+        assert sum(1 for n in live if (getattr(n, "labels", None) or {}).get("rt_provider_id")) == 1
+
+        @rt.remote(resources={"pool": 1})
+        def where():
+            import os
+
+            return os.getpid()
+
+        import os
+
+        assert rt.get(where.remote(), timeout=60) != os.getpid()
+        launcher.down()
+        _wait_live(cluster, 1, timeout_s=30)
+    finally:
+        launcher.down()
+        rt.shutdown()
+    assert time.monotonic() - t0 < 30
+
+
+@pytest.mark.parametrize("kind", ["local", "ssh", "gcp-tpu"])
+def test_up_on_an_agent_provider_raises_not_ported(kind, monkeypatch):
+    """The port's ``up`` on each provider kind starts the head and reaches
+    its backend with the port's agent: ``local`` and ``gcp-tpu`` (the fake:
+    a real agent process a host, with the slice labels) join an agent and
+    ``down`` ends it; ``ssh`` runs the agent command on the host (recorded
+    here, no ssh) and ``down`` kills its PID there.  An unknown kind is
+    refused.  The name is historical: ``up`` raised ``NotPortedError`` on
+    these providers until they were ported."""
+    import subprocess
 
     import ray_tpu_torch as rt
     from ray_tpu_torch.autoscaler.launcher import ClusterLauncher
-    from ray_tpu_torch.exceptions import NotPortedError
 
-    cfg = {"cluster_name": "t", "provider": {"type": kind, "zone": "z", "fake": True},
-           "head": {"num_cpus": 2},
-           "available_node_types": {"w": {"resources": {"CPU": 1}, "min_workers": 1}}}
-    with pytest.raises(NotPortedError, match="item 10"):
-        ClusterLauncher(cfg).up()
-    assert not rt.is_initialized()  # refused before anything started
+    types_ = {"local": ("w", {"CPU": 1}), "ssh": ("w", {"CPU": 1}),
+              "gcp-tpu": ("v5e-8", {"TPU": 8})}
+    name, res = types_[kind]
+    cfg = {"cluster_name": "t", "head": {"num_cpus": 1},
+           "provider": {"type": kind, "zone": "z", "fake": True, "hosts": ["h1"],
+                        "gang_join_timeout_s": 60},
+           "available_node_types": {name: {"resources": res, "min_workers": 1,
+                                           "max_workers": 1}}}
+    ran = []
+    if kind == "ssh":
+        def fake_run(argv, **kw):
+            ran.append(argv)
+            return subprocess.CompletedProcess(argv, 0, stdout="4242\n", stderr="")
+
+        monkeypatch.setattr(subprocess, "run", fake_run)
     with pytest.raises(ValueError, match="unknown provider type"):
         ClusterLauncher(dict(cfg, provider={"type": "nimbus"})).up()
-    path = tmp_path / "cluster.yaml"  # YAML in its JSON form
-    path.write_text(json.dumps(cfg))
-    from ray_tpu_torch.scripts import cli
+    launcher = ClusterLauncher(cfg)
+    try:
+        launcher.up(wait_for_min_workers=kind != "ssh", timeout_s=60)
+        cluster = rt.get_cluster()
+        assert cluster.head_service is not None
+        if kind == "ssh":
+            assert "ray_tpu_torch.runtime.agent" in ran[0][-1] and "h1" in ran[0][-2]
+            launcher.down()
+            assert ran[-1][-1] == "kill 4242 || true"
+        else:
+            labels = [n.labels for n in _live(cluster) if (n.labels or {}).get("rt_provider_id")]
+            assert len(labels) == 1
+            if kind == "gcp-tpu":
+                assert labels[0].get("ray_tpu.io/pod-type") == "v5e-8"
+            launcher.down()
+            _wait_live(cluster, 1, timeout_s=30)
+    finally:
+        launcher.down()
+        if rt.is_initialized():
+            rt.shutdown()
 
-    with pytest.raises(NotPortedError, match="item 10"):
-        cli.main(["up", str(path)])
 
+def test_agent_spawning_providers_raise_not_ported(monkeypatch):
+    """Every backend that starts agents reaches its command runner with the
+    port's agent: ``kubectl create`` with the pod manifest, ``gcloud ...
+    tpu-vm create``, the ssh provider's remote command, the subprocess
+    provider's argv.  The name is historical: each raised
+    ``NotPortedError`` until the agent-spawning providers were ported."""
+    import json
 
-def test_agent_spawning_providers_raise_not_ported():
     from ray_tpu_torch.autoscaler.demand import NodeTypeConfig
-    from ray_tpu_torch.autoscaler.gcp import FakeGcloudTpuAPI, GcloudCLI, GcpTpuNodeProvider
-    from ray_tpu_torch.autoscaler.kuberay import KubectlAPI
+    from ray_tpu_torch.autoscaler.gcp import GcloudCLI
+    from ray_tpu_torch.autoscaler.kuberay import KubectlAPI, KubernetesNodeProvider
     from ray_tpu_torch.autoscaler.node_provider import SSHNodeProvider, SubprocessNodeProvider
-    from ray_tpu_torch.exceptions import NotPortedError
 
+    calls = []
+    monkeypatch.setattr(KubectlAPI, "_run", lambda self, args, stdin=None: calls.append(
+        ("kubectl", args, stdin)) or "")
+    monkeypatch.setattr(GcloudCLI, "_run", lambda self, args: calls.append(("gcloud", args)) or "")
     nt = NodeTypeConfig("w", {"CPU": 1})
-    for call in (lambda: SubprocessNodeProvider("h:1").create_nodes(nt, 1),
-                 lambda: SSHNodeProvider("h:1", ["w1"]).create_nodes(nt, 1),
-                 lambda: KubectlAPI().create_pod({}),
-                 lambda: GcloudCLI("p").create_tpu_vm("n", "z", "v5e-8", "v", {}),
-                 lambda: GcpTpuNodeProvider("h:1", zone="z", api=FakeGcloudTpuAPI()).create_nodes(
-                     NodeTypeConfig("v5e-8", {"TPU": 8.0}), 1)):
-        with pytest.raises(NotPortedError, match="item 10"):
-            call()
+    kp = KubernetesNodeProvider("h:1", api=KubectlAPI())
+    KubectlAPI().create_pod(kp.pod_manifest("p-1", nt))
+    GcloudCLI("p").create_tpu_vm("n", "z", "v5e-8", "v", {"a/b": "c"})
+    ((_, args, stdin), (_, gargs)) = calls
+    assert args == ["create", "-f", "-"]
+    assert "ray_tpu_torch.runtime.agent" in json.loads(stdin)["spec"]["containers"][0]["command"][-1]
+    assert gargs[:5] == ["compute", "tpus", "tpu-vm", "create", "n"] and "a_b=c" in gargs
+    assert "-m ray_tpu_torch.runtime.agent" in SSHNodeProvider("h:1", ["w1"]).agent_command(nt, "w1")
+    assert SubprocessNodeProvider("h:1").command(nt, "proc-1")[1:3] == [
+        "-m", "ray_tpu_torch.runtime.agent"]

@@ -9,9 +9,10 @@ the JAX suite that runs on one node (``test_dashboard_jobs.py:192``,
 its observations compared with the package name masked.  None of them
 needs the multi-node runtime.  ``test_plans.py:740`` pushes a JAX array
 through the plan; the port's scenario pushes a CPU tensor of the same
-shape and values.  The port's address file and head check are its own,
-and what needs the multi-node runtime (``start --head``,
-``start --address``, ``up``) raises ``NotPortedError``.
+shape and values.  The port's address file and head check are its own;
+``start --head`` and ``start --address`` start a head and a node agent as
+processes here, and so does ``up`` with one ``local`` worker (the
+launcher behind it is held in ``tests/test_torch_autoscaler.py``).
 """
 
 import contextlib
@@ -457,9 +458,8 @@ def test_multi_host_start_raises_not_ported(argv):
     multi-node core: a head process opens its control plane and prints its
     routable join address; an agent joins it, ``status`` counts two nodes,
     ``stop`` ends the head and the agent exits with it.  Each case starts
-    both (``argv`` names the side whose output it checks); ``up`` on an
-    agent-spawning provider still raises (tests/test_torch_autoscaler.py).
-    The test's name is historical: it asserted the raise these commands
+    both (``argv`` names the side whose output it checks); ``up`` is held in
+    tests/test_torch_autoscaler.py.  The test's name is historical: it asserted the raise these commands
     gave before the multi-node core was ported."""
     import shutil
     import tempfile
@@ -514,6 +514,77 @@ def test_multi_host_start_raises_not_ported(argv):
             if proc is not None and proc.poll() is None:
                 proc.kill()
                 proc.wait(timeout=10)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _children(pid: int, module: str) -> list:
+    """Pids of the live children of ``pid`` running ``python -m module``."""
+    found = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read().rsplit(")", 1)[1].split()
+            with open(f"/proc/{entry}/cmdline", "rb") as f:
+                argv = f.read().decode(errors="replace").split("\x00")
+        except OSError:
+            continue
+        if int(stat[1]) == pid and stat[0] != "Z" and module in argv:
+            found.append(int(entry))
+    return found
+
+
+def _gone(pid: int) -> bool:
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except OSError:
+        return True
+
+
+@pytest.mark.skipif(not os.path.isdir("/proc"), reason="reads children from /proc")
+def test_up_cli_process_joins_then_downs_on_sigterm(tmp_path):
+    """``python -m ray_tpu_torch up <config>`` as a process, with one
+    ``local`` worker: it starts the head, its provider spawns one port
+    agent as its child, the agent joins (the ``cluster up`` line counts two
+    nodes), and SIGTERM brings the cluster down: the command exits 0 and the
+    agent exits with it."""
+    import shutil
+    import signal
+    import tempfile
+
+    tmp = tempfile.mkdtemp(prefix="rtup")
+    env = dict(os.environ, TMPDIR=tmp, PYTHONPATH=ROOT)
+    cfg = {"cluster_name": "t", "provider": {"type": "local"}, "head": {"num_cpus": 1},
+           "available_node_types": {"w": {"resources": {"CPU": 1},
+                                          "min_workers": 1, "max_workers": 1}},
+           "max_workers": 1, "idle_timeout_s": 300}
+    path = tmp_path / "cluster.json"
+    path.write_text(json.dumps(cfg))
+    up = subprocess.Popen([sys.executable, "-m", "ray_tpu_torch", "up", str(path)],
+                          cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                          stderr=subprocess.STDOUT, text=True)
+    try:
+        lines = []
+        for line in up.stdout:
+            lines.append(line)
+            if line.startswith("Join more nodes with:"):
+                break
+        assert any(ln.startswith("cluster up:") and ln.rstrip().endswith(", 2 nodes")
+                   for ln in lines), (lines, up.poll())
+        agents = _children(up.pid, "ray_tpu_torch.runtime.agent")
+        assert len(agents) == 1, agents
+        up.send_signal(signal.SIGTERM)
+        assert up.wait(timeout=60) == 0, up.stdout.read()
+        deadline = time.monotonic() + 30
+        while not _gone(agents[0]) and time.monotonic() < deadline:
+            time.sleep(0.1)
+        assert _gone(agents[0])
+    finally:
+        if up.poll() is None:
+            up.kill()
+            up.wait(timeout=10)
         shutil.rmtree(tmp, ignore_errors=True)
 
 

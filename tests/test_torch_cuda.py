@@ -1994,3 +1994,199 @@ def test_multinode_gpu_actor_on_an_agent_runs_k1_there(runtime, tmp_path):
     finally:
         agent.kill()
         agent.wait(timeout=30)
+
+
+def _spawn_gpu_agent(cluster, tmp_path):
+    import os
+    import subprocess
+    import sys
+
+    port = cluster.head_service.address.rsplit(":", 1)[1]
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    with open(tmp_path / "agent.log", "w") as log:
+        agent = subprocess.Popen(
+            [sys.executable, "-m", "ray_tpu_torch.runtime.agent", "--address",
+             f"127.0.0.1:{port}", "--num-cpus", "2", "--num-gpus", "1"],
+            env=env, stdout=subprocess.DEVNULL, stderr=log)
+    deadline = time.monotonic() + 120
+    while sum(1 for n in cluster.nodes.values() if not n.dead) < 2:
+        assert agent.poll() is None, (tmp_path / "agent.log").read_text()
+        assert time.monotonic() < deadline, "the agent never joined"
+        time.sleep(0.05)
+    return agent
+
+
+def test_multinode_plan_stage_on_an_agent_runs_k1_there(runtime, tmp_path):
+    """A compiled plan whose middle stage is a ``num_gpus=1`` engine actor
+    in an agent's process (encode and decode here): the CUDA token tensors
+    cross both edges card to card (CUDA IPC pulls on each consumer's side),
+    the tokens equal the same engine class driven here, K1 launches in the
+    agent, and ``kill -9`` of the agent gives a typed error and BROKEN."""
+    import os
+
+    from torch_runtime_tasks import TINY
+
+    from ray_tpu_torch.dag import InputNode
+    from ray_tpu_torch.exceptions import ActorDiedError, WorkerCrashedError
+    from ray_tpu_torch.runtime import device_plane
+    from ray_tpu_torch.runtime.scheduler import NodeAffinitySchedulingStrategy
+
+    class Encode:
+        def encode(self, prompts):
+            import torch as _torch
+
+            return _torch.tensor(prompts, dtype=_torch.int32, device="cuda")
+
+    class Decode:
+        def decode(self, tokens):
+            return tokens.tolist()
+
+    class Engine:
+        def __init__(self, tiny):
+            import torch as _torch
+
+            from ray_tpu_torch.models.transformer import TransformerConfig, init_params
+            from ray_tpu_torch.serve.llm import LLMEngine
+
+            cfg = TransformerConfig(**tiny, dtype=_torch.bfloat16)
+            params = init_params(cfg, _torch.Generator(device="cuda").manual_seed(0))
+            self.eng = LLMEngine(cfg, params, device="cuda", max_batch_size=4,
+                                 max_seq_len=64, cache_kind="paged")
+
+        def generate(self, tokens):
+            import torch as _torch
+
+            futs = [self.eng.submit(p, max_tokens=6) for p in tokens.tolist()]
+            return _torch.tensor([f.result(timeout=300) for f in futs], dtype=_torch.int32,
+                                 device=tokens.device)
+
+        def k1(self):
+            import os as _os
+
+            from ray_tpu_torch.ops import decode_attention
+            from ray_tpu_torch.runtime import device_plane as _dp
+
+            return (decode_attention.paged_decode_attention.launches,
+                    _dp.stats.snapshot()["ici_pulls"], _os.getpid())
+
+    prompts = [[(5 * i + j) % 120 + 1 for j in range(8)] for i in range(4)]
+    direct = Engine(TINY)
+    want = direct.generate(torch.tensor(prompts, dtype=torch.int32, device="cuda")).tolist()
+    direct.eng.shutdown()
+    runtime.init(num_cpus=2, num_gpus=0, head_port=0)
+    cluster = runtime.get_cluster()
+    agent = _spawn_gpu_agent(cluster, tmp_path)
+    try:
+        here = dict(execution="inproc", num_cpus=0,
+                    scheduling_strategy=NodeAffinitySchedulingStrategy(cluster.head_node.node_id))
+        enc = runtime.remote(Encode).options(**here).remote()
+        dec = runtime.remote(Decode).options(**here).remote()
+        eng = runtime.remote(Engine).options(num_gpus=1).remote(TINY)
+        with InputNode() as inp:
+            plan = dec.decode.bind(eng.generate.bind(enc.encode.bind(inp))).compile_plan()
+        k1_0, pulls_0, pid = runtime.get(eng.k1.remote(), timeout=300)
+        here_0 = device_plane.stats.snapshot()["ici_pulls"]
+        for _ in range(3):
+            assert plan.execute(prompts) == want
+        k1_1, pulls_1, _ = runtime.get(eng.k1.remote(), timeout=60)
+        assert pid == agent.pid != os.getpid()
+        assert k1_1 - k1_0 >= TINY["n_layers"] * 5 * 3 and (k1_1 - k1_0) % TINY["n_layers"] == 0
+        assert pulls_1 - pulls_0 >= 3  # driver -> agent by CUDA IPC
+        assert device_plane.stats.snapshot()["ici_pulls"] - here_0 >= 3  # and back
+        agent.kill()
+        with pytest.raises((ActorDiedError, WorkerCrashedError)):
+            deadline = time.monotonic() + 60
+            while time.monotonic() < deadline:
+                plan.execute(prompts)
+        assert plan.state == "BROKEN"
+        plan.teardown()
+    finally:
+        agent.kill()
+        agent.wait(timeout=30)
+
+
+def test_multinode_rt_up_spawns_a_gpu_agent(runtime):
+    """``rt up`` on the ``local`` provider with a ``{"CPU": 1, "GPU": 1}``
+    node type: the spawned port agent gets ``--num-gpus 1``, joins with the
+    card, a ``num_gpus=1`` actor runs in it; ``down`` ends it."""
+    import os
+
+    from ray_tpu_torch.autoscaler.launcher import ClusterLauncher
+
+    runtime.init(num_cpus=1, num_gpus=0, head_port=0)
+    launcher = ClusterLauncher({
+        "cluster_name": "t", "provider": {"type": "local"},
+        "available_node_types": {"g": {"resources": {"CPU": 1, "GPU": 1}, "min_workers": 1,
+                                       "max_workers": 1}}})
+    try:
+        launcher.up(timeout_s=120)
+        (_, proc), = launcher.provider._procs.items()
+        assert proc.args[proc.args.index("--num-gpus") + 1] == "1"
+        assert runtime.cluster_resources()["GPU"] == 1
+
+        class Where:
+            def pid(self):
+                import os as _os
+
+                import torch as _torch
+
+                return _os.getpid(), _torch.ones(2, device="cuda").sum().item()
+
+        actor = runtime.remote(Where).options(num_gpus=1).remote()
+        assert runtime.get(actor.pid.remote(), timeout=120) == (proc.pid, 2.0)
+        assert proc.pid != os.getpid()
+    finally:
+        launcher.down()
+
+
+def test_multinode_thin_client_runs_k6_and_gets_cuda_tensors_as_cpu(runtime):
+    """Through ``util.connect``: a ``num_gpus=1`` actor serves an int8
+    engine (K6 on ``mma_bf16``), and a ref that holds a CUDA tensor reaches
+    the client as a CPU tensor of the same dtype and values."""
+    from torch_runtime_tasks import TINY
+
+    from ray_tpu_torch.util import connect
+    from ray_tpu_torch.util.client import ClientServer
+
+    class Int8Engine:
+        def __init__(self, tiny):
+            import torch as _torch
+
+            from ray_tpu_torch.models.transformer import TransformerConfig, init_params
+            from ray_tpu_torch.serve.llm import LLMEngine
+
+            cfg = TransformerConfig(**tiny, dtype=_torch.bfloat16)
+            params = init_params(cfg, _torch.Generator(device="cuda").manual_seed(0))
+            self.eng = LLMEngine(cfg, params, device="cuda", max_batch_size=2, max_seq_len=64,
+                                 cache_kind="paged", quantize=True, quantize_min_size=4096)
+
+        def generate(self, prompt, n):
+            from ray_tpu_torch.ops import quantization
+
+            before = dict(quantization.int8_matmul.launches_by_route)
+            toks = self.eng.generate(prompt, max_tokens=n)
+            after = quantization.int8_matmul.launches_by_route
+            return toks, {r: after[r] - before[r] for r in after}
+
+        def tensor(self):
+            import torch as _torch
+
+            return _torch.arange(12, dtype=_torch.bfloat16, device="cuda").reshape(3, 4)
+
+        def close(self):
+            self.eng.shutdown()
+
+    runtime.init(num_cpus=2)
+    server = ClientServer(port=0).start()
+    try:
+        with connect(server.address) as ctx:
+            actor = ctx.remote(Int8Engine).options(num_gpus=1).remote(TINY)
+            toks, routes = ctx.get(actor.generate.remote([3, 5, 7], 4), timeout=300)
+            assert len(toks) == 4 and routes["mma_bf16"] > 0 and routes["simt"] == 0
+            got = ctx.get(actor.tensor.remote(), timeout=60)
+            assert got.device.type == "cpu" and got.dtype == torch.bfloat16
+            assert torch.equal(got, torch.arange(12, dtype=torch.bfloat16).reshape(3, 4))
+            ctx.get(actor.close.remote(), timeout=60)
+    finally:
+        server.stop()

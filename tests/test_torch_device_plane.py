@@ -8,8 +8,8 @@ CPU tensors as the JAX package's frames CPU ``jax.Array`` s, so the same
 scenarios exercise it here; the transfer server is the host-memory fake of
 each package (``runtime/fake_transfer.py``).  Each scenario runs once in
 each package on the same inputs and returns what a caller sees; the port's
-output must equal the JAX package's.  The two-process scenario waits for
-the multi-node runtime.
+output must equal the JAX package's.  The two-process scenario is held in
+``tests/test_torch_multinode_plans.py``.
 """
 
 import importlib

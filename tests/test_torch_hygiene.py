@@ -372,20 +372,30 @@ def test_importing_jobs_workflows_state_and_the_head_loads_no_jax_or_torch():
 
 def test_lifted_entry_points_no_longer_raise_and_head_port_still_does(monkeypatch):
     """``include_dashboard``, usage stats on, ``.options(runtime_env=)`` and
-    per-task profiling are ported, and so is ``head_port=`` now (the
-    multi-host head service opens beside the dashboard); the thin client's
-    ``util.connect`` still raises."""
+    per-task profiling are ported, and so is ``head_port=`` (the multi-host
+    head service opens beside the dashboard) and now the thin client's
+    ``util.connect``: a closed port refuses it with the socket's own error,
+    a ``ClientServer`` beside the head serves it.  The name is historical:
+    ``util.connect`` raised ``NotPortedError`` until the client was
+    ported."""
     import ray_tpu_torch as rt
     from ray_tpu_torch import util
+    from ray_tpu_torch.util.client import ClientServer
     from torch_runtime_tasks import _crunch
 
     monkeypatch.setenv("RAY_TPU_USAGE_STATS_ENABLED", "1")
-    with pytest.raises(rt.NotPortedError, match="thin client"):
+    with pytest.raises(ConnectionRefusedError):
         util.connect("127.0.0.1:1")
     rt.init(num_cpus=1, include_dashboard=True, head_port=0)
     try:
         assert rt.get_cluster().dashboard.url.startswith("http://127.0.0.1:")
         assert rt.get_cluster().head_service is not None
+        server = ClientServer(port=0).start()
+        try:
+            with util.connect(server.address) as ctx:
+                assert ctx.get(ctx.remote(_crunch).remote(10)) == 285
+        finally:
+            server.stop()
         f = rt.remote(_crunch).options(execution="process", runtime_env={"profiling": True,
                                                                          "env_vars": {"A": "1"}})
         assert rt.get(f.remote(10), timeout=120) == 285
@@ -636,3 +646,154 @@ def test_protocol_check_raises_on_the_other_packages_reply():
     with pytest.raises(jax_rpc.ProtocolMismatchError):
         jax_side._check_protocol({"protocol_version": port_rpc.PROTOCOL_VERSION,
                                   "protocol": port_rpc.PROTOCOL_NAME})
+
+
+# --------------------------------------------------------------------------
+# the agent-spawning providers and the thin client
+# --------------------------------------------------------------------------
+def _provider_commands(pkg, node_type, monkeypatch):
+    """The agent command line each of ``pkg``'s agent-spawning providers
+    would run for one node of ``node_type`` (nothing is started: the
+    runners are recorded)."""
+    import importlib
+    import json
+    import shlex
+    import subprocess as sp
+
+    np_mod = importlib.import_module(pkg + ".autoscaler.node_provider")
+    kube = importlib.import_module(pkg + ".autoscaler.kuberay")
+    gcp = importlib.import_module(pkg + ".autoscaler.gcp")
+    demand = importlib.import_module(pkg + ".autoscaler.demand")
+    nt = demand.NodeTypeConfig(*node_type)
+    out = {}
+
+    class _Popen:
+        def __init__(self, argv, **kw):
+            out["local"] = shlex.join(argv)
+
+        def poll(self):
+            return None
+
+    monkeypatch.setattr(sp, "Popen", _Popen)
+    np_mod.SubprocessNodeProvider("h:1").create_nodes(nt, 1)
+    monkeypatch.setattr(sp, "run", lambda argv, **kw: out.setdefault("ssh", argv[-1]) and
+                        sp.CompletedProcess(argv, 0, stdout="1\n", stderr=""))
+    np_mod.SSHNodeProvider("h:1", ["w1"]).create_nodes(nt, 1)
+    pods = []
+    monkeypatch.setattr(kube.KubectlAPI, "_run",
+                        lambda self, args, stdin=None: pods.append(stdin) if stdin else "")
+    kube.KubernetesNodeProvider("h:1", api=kube.KubectlAPI()).create_nodes(nt, 1)
+    out["kubectl"] = json.loads(pods[0])["spec"]["containers"][0]["command"][-1]
+    out["gcloud"] = gcp.GcpTpuNodeProvider("h:1", zone="z", api=gcp.FakeGcloudTpuAPI(
+        spawn=False)).agent_command("s-1", "v5e-8", 8)
+    return out
+
+
+def test_every_provider_command_names_the_ports_agent(monkeypatch):
+    port = _provider_commands("ray_tpu_torch", ("w", {"CPU": 1}), monkeypatch)
+    assert sorted(port) == ["gcloud", "kubectl", "local", "ssh"]
+    for kind, cmd in port.items():
+        assert "-m ray_tpu_torch.runtime.agent " in cmd, (kind, cmd)
+    jax = _provider_commands("ray_tpu", ("w", {"CPU": 1}), monkeypatch)
+    for kind, cmd in jax.items():
+        assert "-m ray_tpu.runtime.agent " in cmd, (kind, cmd)
+
+
+def test_gpu_node_type_becomes_num_gpus(monkeypatch):
+    """A node type's ``"GPU"`` is the port agent's ``--num-gpus`` (the
+    agent registers the card and refuses without it) on every provider;
+    the JAX package passes it in ``--resources`` like any custom resource.
+    ``"TPU"`` stays a resource in both."""
+    import json
+    import shlex
+
+    def resources(cmd):
+        argv = shlex.split(cmd.split(">>")[0])
+        return json.loads(argv[argv.index("--resources") + 1]), argv
+
+    node = ("g", {"CPU": 2, "GPU": 1, "TPU": 4})
+    for kind, cmd in _provider_commands("ray_tpu_torch", node, monkeypatch).items():
+        if kind == "gcloud":
+            continue  # a slice's resources are its TPU chips
+        res, argv = resources(cmd)
+        assert "GPU" not in res and res.get("TPU") == 4, (kind, cmd)
+        assert argv[argv.index("--num-gpus") + 1] == "1", (kind, cmd)
+    for kind, cmd in _provider_commands("ray_tpu", node, monkeypatch).items():
+        if kind == "gcloud":
+            continue
+        res, argv = resources(cmd)
+        assert res.get("GPU") == 1 and "--num-gpus" not in argv, (kind, cmd)
+    from ray_tpu_torch.autoscaler.node_provider import gpu_args, split_gpus
+
+    assert split_gpus({"CPU": 1, "GPU": 0.5}) == ({"CPU": 1}, 0.5)
+    assert gpu_args(0.5) == ["--num-gpus", "0.5"] and gpu_args(0) == []
+
+
+@pytest.mark.parametrize("server_pkg,client_pkg", [("ray_tpu", "ray_tpu_torch"),
+                                                   ("ray_tpu_torch", "ray_tpu")])
+def test_client_and_server_of_different_packages_refuse_each_other(server_pkg, client_pkg):
+    """A Python client of one package on the other's ``ClientServer``
+    fails at ``connect`` with a typed error (the port's
+    ``ClientProtocolError``, the JAX package's ``ConnectionRefusedError``),
+    and a native client's magic of one package is refused by the other's
+    server: the port answers the JAX magic with one error reply, the JAX
+    server closes on the port's."""
+    import importlib
+    import socket
+    import struct
+
+    rt = importlib.import_module(server_pkg)
+    rt.init(num_cpus=1)
+    server = importlib.import_module(server_pkg + ".util.client.server").ClientServer(port=0)
+    server.start()
+    try:
+        client = importlib.import_module(client_pkg + ".util.client")
+        with pytest.raises(ConnectionRefusedError) as info:
+            client.connect(server.address)
+        if client_pkg == "ray_tpu_torch":
+            assert isinstance(info.value, client.ClientProtocolError)
+            assert "not a ray_tpu_torch client server" in str(info.value)
+        else:
+            assert "ray_tpu_torch client protocol" in str(info.value)
+        magic = importlib.import_module(client_pkg + ".util.client.binary").BINARY_MAGIC
+        with socket.create_connection((server.host, server.port), timeout=30) as s:
+            s.sendall(magic + struct.pack("<IBQ", 0, 1, 7))  # then a PING
+            got = b""
+            while True:
+                try:
+                    chunk = s.recv(1 << 16)
+                except ConnectionResetError:  # closed with our request unread
+                    break
+                if not chunk:
+                    break
+                got += chunk
+        if server_pkg == "ray_tpu_torch":
+            ln, status, _rid = struct.unpack("<IBQ", got[:13])
+            assert status == 1 and b"RTTCBIN1" in got[13:13 + ln]
+        else:
+            assert got == b""  # closed without a reply
+    finally:
+        server.stop()
+        rt.shutdown()
+
+
+def test_new_modules_import_no_jax_nor_cloudpickle_at_top():
+    """The client and the launcher modules import nothing of JAX or of the
+    JAX package, and no ``cloudpickle`` at module level (the card's machine
+    may not have it: frames go through ``core/serialization``)."""
+    files = [os.path.join(REPO, "ray_tpu_torch", *p) for p in (
+        ("util", "client", "__init__.py"), ("util", "client", "common.py"),
+        ("util", "client", "binary.py"), ("util", "client", "server.py"),
+        ("util", "client", "worker.py"), ("util", "client", "proxier.py"),
+        ("autoscaler", "launcher.py"), ("autoscaler", "node_provider.py"),
+        ("runtime", "channel_manager.py"), ("dag", "plan.py"))]
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in tree.body:
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module] if isinstance(node, ast.ImportFrom) and node.module
+                     else [])
+            assert not any(n.split(".")[0] == "cloudpickle" for n in names), path
+        assert not [m for m in _imported_modules(path)
+                    if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu")], path

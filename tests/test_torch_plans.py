@@ -1,9 +1,9 @@
 """The port's compiled execution plans (``ray_tpu_torch.dag.plan``,
 ``runtime/channel_manager.py``) against the JAX package's.
 
-The scenarios of ``tests/test_plans.py`` (all but the two-process and the
-dashboard ones, which wait for the multi-node runtime and the dashboard
-head), the plan repairs of ``tests/test_drain.py``, and the plan schedules
+The scenarios of ``tests/test_plans.py`` (all but the two-process ones,
+held in ``tests/test_torch_multinode_plans.py``, and the dashboard ones,
+held in ``tests/test_torch_cli.py``), the plan repairs of ``tests/test_drain.py``, and the plan schedules
 of ``tests/test_chaos.py`` (a stage actor killed mid-plan, a stage node
 killed under ``auto_repair``, a gang member killed and the gang repaired).
 Each runs once in each package, on a fresh runtime shaped as the JAX test's

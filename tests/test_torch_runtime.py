@@ -295,6 +295,22 @@ def scenario_failpoints(rt):
     return {"results": results, "log": fp.fault_log(), "spec": fp.armed_spec()}
 
 
+def _timeline_quiet(rt, quiet_s: float = 0.5, timeout_s: float = 10.0) -> None:
+    """Wait until the timeline has not grown for ``quiet_s``: the scenario
+    reads it twice (records, then the chrome trace), and a record that
+    lands between the two reads in one package only makes the packages'
+    outputs differ."""
+    last, since = -1, time.monotonic()
+    deadline = since + timeout_s
+    while time.monotonic() < deadline:
+        n = len(rt.timeline())
+        if n != last:
+            last, since = n, time.monotonic()
+        elif time.monotonic() - since >= quiet_s:
+            return
+        time.sleep(0.02)
+
+
 def scenario_timeline(rt, tmp):
     rt.init(num_cpus=2)
     rt.get([rt.remote(_inc).options(execution=m).remote(1) for m in ("thread", "process")])
@@ -304,6 +320,7 @@ def scenario_timeline(rt, tmp):
         rt.get(rt.remote(_boom).options(max_retries=0).remote(1))
     except Exception:  # noqa: BLE001 — its FAILED event is the point
         pass
+    _timeline_quiet(rt)
     events = rt.timeline()
     path = os.path.join(tmp, rt.__name__ + "_trace.json")
     chrome = rt.timeline(filename=path)
@@ -492,12 +509,11 @@ def test_public_signatures_match_jax():
 
 
 def test_not_ported_features_raise_typed_errors():
-    """The multi-node core is ported: ``init(head_port=)``, the head service
-    and the relay tree work; the thin client (``util.connect``) still
-    raises ``NotPortedError``."""
+    """The multi-node runtime is ported: ``init(head_port=)``, the head
+    service and the relay tree work, and so does the thin client
+    (``util.connect`` to a ``ClientServer``).  The name is historical: these
+    raised ``NotPortedError`` before they were ported."""
     rt = _pkg("ray_tpu_torch")
-    from ray_tpu_torch.exceptions import NotPortedError
-
     rt.init(num_cpus=1, head_port=0)
     try:
         host, _, port = rt.get_cluster().head_service.address.rpartition(":")
@@ -520,9 +536,14 @@ def test_not_ported_features_raise_typed_errors():
         address = rt.get_cluster().start_head_service()
         assert address == rt.get_cluster().start_head_service()  # idempotent
         from ray_tpu_torch import util
+        from ray_tpu_torch.util.client import ClientServer
 
-        with pytest.raises(NotPortedError, match="thin client"):
-            util.connect("127.0.0.1:1")
+        server = ClientServer(port=0).start()
+        try:
+            with util.connect(f"ray://{server.address}") as ctx:
+                assert ctx.get(ctx.remote(_inc).remote(1)) == 2
+        finally:
+            server.stop()
         # a GPU request on a node without one is infeasible, as a TPU one is
         assert "GPU" not in rt.cluster_resources() and "TPU" not in rt.cluster_resources()
     finally:

@@ -1,6 +1,6 @@
 """The port's runtime environments (``ray_tpu_torch.runtime_env``) against
 the JAX package's, case by case of ``tests/test_runtime_env_plugins.py``
-(less the thin-client proxy, which waits for ``util/client/``) and the
+(less the thin-client proxy, held in ``tests/test_torch_client.py``) and the
 runtime-env cases of ``tests/test_dashboard_jobs.py`` and
 ``tests/test_state_api_tail.py``.
 

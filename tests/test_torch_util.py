@@ -790,16 +790,19 @@ def test_actor_pool_and_queue_outputs_are_what_a_user_expects():
 def test_util_exports_the_jax_names_and_raises_for_what_is_not_ported():
     jutil = importlib.import_module("ray_tpu.util")
     tutil = importlib.import_module("ray_tpu_torch.util")
-    exc = importlib.import_module("ray_tpu_torch.exceptions")
     # the JAX package's names, ``collective`` included
     assert "collective" in tutil.__all__
     assert sorted(jutil.__all__) == sorted(tutil.__all__)
     for name in tutil.__all__:
         assert hasattr(tutil, name)
     assert sorted(tutil.collective.__all__) == sorted(jutil.collective.__all__)
-    # the thin client still waits for a later slice
-    with pytest.raises(exc.NotPortedError, match="ray_tpu/util/client/worker.py"):
-        tutil.connect("ray://localhost:1")
+    # the thin client: the port's own, refused by a closed port as the JAX
+    # package's is (the name of this test is historical: it raised
+    # NotPortedError until the client was ported)
+    assert tutil.connect is importlib.import_module("ray_tpu_torch.util.client.worker").connect
+    for util_mod in (jutil, tutil):
+        with pytest.raises(ConnectionRefusedError):
+            util_mod.connect("ray://localhost:1")
     tutil.disconnect()  # nothing connected: a no-op, as in the JAX package
     for name in ("internal_kv", "tqdm_ray"):
         assert hasattr(importlib.import_module("ray_tpu_torch.experimental"), name)

@@ -17,6 +17,7 @@ import importlib
 import inspect
 import os
 import tempfile
+import types
 
 from torch_ported import ported
 
@@ -121,18 +122,51 @@ def ray_start_regular(pkg: str):
         rt.shutdown()
 
 
+@contextlib.contextmanager
+def ray_start_cluster(pkg: str):
+    """``conftest.ray_start_cluster`` for ``pkg``: (rt, cluster)."""
+    rt = importlib.import_module(pkg)
+    _start_clean(rt)
+    cluster = rt.init(num_cpus=2)
+    try:
+        yield rt, cluster
+    finally:
+        rt.shutdown()
+
+
 _BUILT = {"two_process_cluster": two_process_cluster,
           "two_agent_cluster": two_agent_cluster,
-          "ray_start_regular": ray_start_regular}
+          "ray_start_regular": ray_start_regular,
+          "ray_start_cluster": ray_start_cluster}
 
 
-def run_case(module_name: str, fn_name: str, pkg: str, request, **overrides):
+def with_modules(fn, modules: dict):
+    """``fn`` (a ported copy) importing ``modules`` (name -> object) in
+    place of the modules of those names: a body's own ``from test_multihost
+    import ...`` then binds the port's helpers."""
+    g = fn.__globals__
+    base = g["__builtins__"]["__import__"]
+
+    def _import(name, globals=None, locals=None, fromlist=(), level=0):
+        if name in modules:
+            return modules[name]
+        return base(name, globals, locals, fromlist, level)
+
+    g["__builtins__"] = {**g["__builtins__"], "__import__": _import}
+    # a function keeps the builtins of its creation: make it anew over them
+    return types.FunctionType(fn.__code__, g, fn.__name__, fn.__defaults__, fn.__closure__)
+
+
+def run_case(module_name: str, fn_name: str, pkg: str, request, modules=None, **overrides):
     """Run one JAX test body for ``pkg`` with its fixtures rebuilt:
     runtime fixtures from :data:`_BUILT`, the rest (``tmp_path``,
     ``capsys``, ...) from pytest's ``request``.  ``overrides`` replace
     globals of the ported copy (helpers a module imports from another
-    test module)."""
+    test module); ``modules`` replace the modules its body imports, for
+    the port (:func:`with_modules`)."""
     fn = for_package(getattr(importlib.import_module(module_name), fn_name), pkg, **overrides)
+    if modules and pkg != "ray_tpu":
+        fn = with_modules(fn, modules)
     _start_clean(importlib.import_module(pkg))
     with contextlib.ExitStack() as stack:
         kw = {}
@@ -142,6 +176,12 @@ def run_case(module_name: str, fn_name: str, pkg: str, request, **overrides):
             else:
                 kw[name] = request.getfixturevalue(name)
         fn(**kw)
+
+
+def helper_module(pkg: str):
+    """test_multihost as a body of ``pkg`` imports it inside a function."""
+    spawn, wait = _mh(pkg)
+    return types.SimpleNamespace(_spawn_agent=spawn, _wait_for_nodes=wait)
 
 
 def agent_helpers(pkg: str) -> dict:
