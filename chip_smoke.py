@@ -19,6 +19,7 @@
     python3 chip_smoke.py --phases build,jobs      # submitted GPU jobs, a durable workflow, state
     python3 chip_smoke.py --phases build,cli       # the rt CLI, scripts/, the autoscaler, rt lint
     python3 chip_smoke.py --phases build,multinode # the head service and a node agent with the card
+    python3 chip_smoke.py --phases build,rllib     # rllib: PPO at 4096 envs, runners, DQN, SAC
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -132,14 +133,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``shutdown()``: no CUDA tensor of 1 MiB or more beyond the weights, no
    ``serve-*`` thread, no worker process.
 4f. ``chaos`` — the utilities and the chaos fabric (``ray_tpu_torch.util``,
-   ``ray_tpu_torch.chaos``) with GPU actors, on the serving decoder in bf16:
+   ``ray_tpu_torch.chaos``) with GPU actors, on the serving decoder in bf16
+   at full width and ``CUT_LAYERS`` (2) of its 16 layers (the script's time;
+   every check is against a direct run at the same depth):
    (a) + (c) a ``STRICT_PACK`` placement group of two ``{"GPU": 0.5, "CPU":
    1}`` bundles holds the whole card; an engine actor in each bundle
    (``PlacementGroupSchedulingStrategy``) and an ``ActorPool`` of the two map
    the burst's 8 prompts (64 tokens, 32 new, one request an item) with
    ``map`` and ``map_unordered``: tokens equal one engine's serving them one
-   at a time (the same set for ``map_unordered``), K1 16 a decode step of
-   each actor; ``remove_placement_group`` gives the card back. (b) a
+   at a time (the same set for ``map_unordered``), K1 ``CUT_LAYERS`` a
+   decode step of each actor; ``remove_placement_group`` gives the card back. (b) a
    producer GPU actor puts 16 CUDA tensors of 4 MiB into a ``util.Queue``
    while a consumer GPU actor gets them: on the card, the same storage,
    bitwise; ms a put/get pair. (d) three seeded schedules through
@@ -161,11 +164,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
 4g. ``data`` — the data library (``ray_tpu_torch.data``) on the card: (a)
    ``from_items`` of 64 seeded prompts of 64 tokens in 4 blocks, then
    ``map_batches(LLMPredictor, fn_constructor_args=(factory,), batch_size=16,
-   concurrency=2, num_gpus=0.5)`` on the serving decoder in bf16 (32 new
+   concurrency=2, num_gpus=0.5)`` on the serving decoder in bf16 at full
+   width and ``CUT_LAYERS`` (2) of its 16 layers (the script's time; 32 new
    tokens, greedy), float then ``quantize=True``: the two in-process GPU
    actors find one cached engine (the factory is one object), warmed
    before; every row's tokens equal a direct ``LLMEngine`` (the same
-   kwargs) fed all 64 prompts at once; K1 16 a decode step, K6 96 a forward
+   kwargs and depth) fed all 64 prompts at once; K1 2 a decode step, K6 12 a forward
    on the tensor cores; rows/s, tokens/s and the engine's TTFT sketch
    beside the direct burst's. After ``clear_engine_cache()`` and
    ``shutdown``: no engine, engine thread, actor or worker, and
@@ -455,6 +459,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``chip_smoke:reverse_bytes`` with a ref argument) against the same server.
    Then (h)'s ``down`` terminates the agent and the card's memory returns:
    the seconds.
+13e. ``rllib`` — the RL library on the card; it runs no kernel of the
+   repo (MLPs, envs and losses are PyTorch operations), so it adds no
+   launches. (a) CartPole and Pendulum, 4096 envs for 500 steps, each step
+   from the CPU env's state with the same actions: terminated and truncated
+   flags equal, observations, rewards and states within 1e-5; the PPO loss,
+   its gradients and one Learner update at an 8,192-row minibatch on
+   ``cuda:0`` against the CPU (loss 1e-5, gradients, params and Adam
+   ``mu`` within 1e-4 of their leaf's largest). (b) PPO on CartPole, 4096
+   envs x 128 steps (524,288 env steps), 4 epochs of 8,192-row minibatches
+   (256 updates), 10 iterations: the episode return above ``max(60, 1.5 x
+   the first)`` (the JAX test's criterion); env steps/s while sampling, the
+   median ms of a Learner update, the seconds of an iteration. (c) the same
+   with two runners of 2,048 envs, remote (GPU actors holding half a card
+   each) against inline, 2 iterations each of one epoch (64 updates). (d) DQN and SAC at the JAX
+   tests' configurations (``tests/test_rllib.py``): DQN's return above 15
+   after 25 iterations, SAC's critic loss finite after 4. (e) (b)'s
+   algorithm saved, revived on the card and on the CPU
+   (``from_checkpoint(device="cpu")``): greedy actions on 1,024 seeded
+   observations equal (but where the two logits lie within 1e-5: a tie).
 14. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
    replaces, launches in the main-path runs (engine, server, disagg,
    runtime, serve, chaos, data, dag, jobs, cli, multinode, tp_serve, train,
@@ -498,7 +521,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PHASES = ("build", "kernels", "forward_parity", "engine", "server", "disagg", "runtime",
           "serve", "chaos", "data", "dag", "tp_serve", "train_parity",
           "train", "moe_parity", "moe_engine", "vit_train", "dit", "parallel", "trainer",
-          "tune", "jobs", "cli", "multinode")
+          "tune", "jobs", "cli", "multinode", "rllib")
 OPTIONAL_PHASES = ("profile",)
 
 
@@ -3234,9 +3257,13 @@ def run_chaos(torch, cfg, params, kernels_of: dict, card: str) -> dict:
     from ray_tpu_torch import serve, util
     from ray_tpu_torch.runtime import failpoints
 
+    # the serving decoder's widths at CUT_LAYERS layers (the script's time):
+    # its first layers' weights, and every check against a direct run here
+    cfg = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    params = {**params, "layers": {k: v[:CUT_LAYERS] for k, v in params["layers"].items()}}
     baseline = cuda_storages(torch)
     t_phase = time.perf_counter()
-    rep = {"card": card}
+    rep = {"card": card, "layers": CUT_LAYERS}
     rt.init(num_cpus=8)
     try:
         if rt.cluster_resources().get("GPU") != 1:
@@ -3401,6 +3428,10 @@ def run_data_inference(torch, cfg, params, kernels_of: dict, card: str):
 
     import ray_tpu_torch as rt
 
+    # the serving decoder's widths at CUT_LAYERS layers (the script's time):
+    # its first layers' weights, the map held to a direct engine here
+    cfg = dataclasses.replace(cfg, n_layers=CUT_LAYERS)
+    params = {**params, "layers": {k: v[:CUT_LAYERS] for k, v in params["layers"].items()}}
     torch.cuda.synchronize()
     mem0 = torch.cuda.memory_allocated()
     rt.init(num_cpus=8)
@@ -3409,7 +3440,7 @@ def run_data_inference(torch, cfg, params, kernels_of: dict, card: str):
             raise AssertionError(f"init on the card: {rt.cluster_resources()}")
         for quantize in (False, True):
             rep = data_inference(torch, rt, cfg, params, kernels_of, quantize)
-            yield {"part": "a_batch_inference", "card": card, **rep}
+            yield {"part": "a_batch_inference", "card": card, "layers": CUT_LAYERS, **rep}
     finally:
         rt.shutdown()
     from ray_tpu_torch.data import llm_inference
@@ -7777,6 +7808,295 @@ def run_multinode(torch, cfg, params, engine_tokens: dict, engine_nums: dict, da
     yield {"part": "total", "card": card, "seconds": time.perf_counter() - t_phase}
 
 
+# ---------------------------------------------------------------------------
+# rllib
+# ---------------------------------------------------------------------------
+RLLIB_SEED = 0
+RLLIB_ENVS = 4096  # PPO's main path: 4096 envs x 128 steps, 524,288 env steps an iteration
+RLLIB_ROLLOUT = 128
+RLLIB_MINIBATCH = 8192  # 4 epochs of 64 minibatches: 256 learner updates an iteration
+RLLIB_ITERS = 10
+RLLIB_ENV_STEPS = 500
+RLLIB_REMOTE_ITERS = 2
+RLLIB_FWD = (1e-5, 1e-5)  # float32 forwards on the card against the CPU (atol, rtol)
+RLLIB_GRAD_REL = 1e-4  # gradients and an Adam step, relative to their leaf's largest
+RLLIB_TIE = 1e-5  # greedy actions whose two logits are this close are ties
+
+
+def rllib_close(got, want, what: str) -> float:
+    """The card's tensor against the CPU's within ``RLLIB_FWD``."""
+    got, want = got.detach().float().cpu(), want.detach().float()
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    atol, rtol = RLLIB_FWD
+    if not bool(((got - want).abs() <= atol + rtol * want.abs()).all()):
+        raise AssertionError(f"rllib {what}: card against CPU max abs err {err}")
+    return err
+
+
+def rllib_tree_rel(got, want, what: str) -> float:
+    """Leaf by leaf, the largest error over the leaf's largest magnitude."""
+    from ray_tpu_torch.rllib.rl_module import tree_leaves
+
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(tree_leaves(got), tree_leaves(want))):
+        b = b.detach().float().cpu()
+        rel = float((a.detach().float().cpu() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+        if rel > RLLIB_GRAD_REL:
+            raise AssertionError(f"rllib {what}[{i}]: relative error {rel}")
+        worst = max(worst, rel)
+    return worst
+
+
+def rllib_env_parity(torch, rllib) -> dict:
+    """(a) CartPole and Pendulum, 4096 envs for 500 steps: each step the card
+    steps from the CPU env's state with the same actions; flags equal,
+    observations, rewards and states within ``RLLIB_FWD``."""
+    from ray_tpu_torch.rllib.env_runner import _tree_where
+
+    out = {}
+    for name, env in (("cartpole", rllib.CartPole()),
+                      ("pendulum", rllib.Pendulum(max_episode_steps=50))):
+        g = torch.Generator().manual_seed(RLLIB_SEED)
+        state, _ = env.reset(g, RLLIB_ENVS, "cpu")
+        err, ends, flags = 0.0, 0, 0
+        for _ in range(RLLIB_ENV_STEPS):
+            if env.discrete:
+                action = torch.randint(0, 2, (RLLIB_ENVS,), generator=g)
+            else:
+                action = torch.rand((RLLIB_ENVS, 1), generator=g) * 5.0 - 2.5
+            cpu = env.step(state, action)
+            card = env.step({k: v.cuda() for k, v in state.items()}, action.cuda())
+            for c, d in zip(cpu[1:3], card[1:3]):
+                err = max(err, rllib_close(d, c, f"{name} step"))
+            for k in cpu[0]:
+                err = max(err, rllib_close(card[0][k], cpu[0][k].float(), f"{name} {k}"))
+            for c, d in zip(cpu[3:], card[3:]):
+                if not torch.equal(d.cpu(), c):
+                    raise AssertionError(f"rllib {name}: the card's flags differ from the CPU's")
+                flags += int(c.sum())
+            done = cpu[3] | cpu[4]
+            ends += int(done.sum())
+            fresh, _ = env.reset(g, RLLIB_ENVS, "cpu")
+            state = _tree_where(done, fresh, cpu[0])
+        if ends < RLLIB_ENVS:
+            raise AssertionError(f"rllib {name}: only {ends} episode ends in {RLLIB_ENV_STEPS} steps")
+        out[name] = {"envs": RLLIB_ENVS, "steps": RLLIB_ENV_STEPS, "episode_ends": ends,
+                     "max_abs_err": err, "flags_equal": True}
+    return out
+
+
+def rllib_ppo_parity(torch, rllib) -> dict:
+    """(a) The PPO loss, its gradients and one Learner update on ``cuda:0``
+    against the same on the CPU, at the main path's minibatch (8192 rows)
+    and the module's widths."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import learner
+    from ray_tpu_torch.rllib.algorithms.ppo import _ppo_loss
+    from ray_tpu_torch.rllib.rl_module import tree_map
+
+    module = rllib.ActorCriticModule(4, 2)
+    params = module.init(torch.Generator().manual_seed(RLLIB_SEED))
+    rng = np.random.default_rng(RLLIB_SEED)
+    m = RLLIB_MINIBATCH
+    batch = {"obs": rng.normal(size=(m, 4)).astype(np.float32),
+             "actions": rng.integers(0, 2, m).astype(np.int32),
+             "logp": np.log(rng.uniform(0.3, 0.7, m)).astype(np.float32),
+             "advantages": rng.normal(size=m).astype(np.float32),
+             "returns": rng.uniform(0, 50, m).astype(np.float32)}
+    loss = _ppo_loss(module, 0.2, 0.01, 0.5)
+    out = {}
+    grads = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda x: x.to(dev), params)
+        tb = {k: learner.to_tensor(v, dev) for k, v in batch.items()}
+        (value, stats), grads[dev] = learner.value_and_grad(loss, p, tb)
+        out[dev] = {"loss": value, **stats}
+    for k, v in out["cpu"].items():
+        rllib_close(out["cuda"][k].reshape(1), v.reshape(1), f"ppo {k}")
+    grad_rel = rllib_tree_rel(grads["cuda"], grads["cpu"], "ppo grads")
+    learners = {}
+    for dev in ("cpu", "cuda"):
+        lrn = learner.Learner(module, loss, lr=3e-4, seed=RLLIB_SEED, device=dev)
+        lrn.set_state({"params": params, "opt_state": lrn.opt_state})
+        stats = lrn.update(rllib.SampleBatch(batch))
+        learners[dev] = (lrn, stats)
+    update_rel = rllib_tree_rel(learners["cuda"][0].params, learners["cpu"][0].params,
+                                "ppo update params")
+    mu_rel = rllib_tree_rel(learners["cuda"][0].opt_state[1]["mu"],
+                            learners["cpu"][0].opt_state[1]["mu"], "ppo update mu")
+    return {"rows": m, "loss": float(out["cpu"]["loss"]),
+            "loss_card": float(out["cuda"]["loss"]), "grad_rel_err": grad_rel,
+            "update_param_rel_err": update_rel, "update_mu_rel_err": mu_rel,
+            "grad_norm": learners["cuda"][1]["grad_norm"]}
+
+
+def rllib_timed(torch, fn, sink: list):
+    """``fn`` with each call's seconds (synchronized) appended to ``sink``."""
+    def call(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        sink.append(time.perf_counter() - t0)
+        return out
+
+    return call
+
+
+def rllib_ppo_run(torch, rllib, iters: int, num_epochs: int = 4, **runners) -> tuple:
+    """PPO on CartPole at the main path's size on the card: ``iters``
+    iterations; -> (algo, numbers)."""
+    cfg = (rllib.PPOConfig().environment(rllib.CartPole())
+           .env_runners(rollout_length=RLLIB_ROLLOUT, **runners)
+           .training(num_epochs=num_epochs, minibatch_size=RLLIB_MINIBATCH)
+           .debugging(seed=RLLIB_SEED).resources(device="cuda"))
+    algo = cfg.build()
+    sample_s, update_s, iter_s, returns = [], [], [], []
+    algo.runners.sample = rllib_timed(torch, algo.runners.sample, sample_s)
+    algo.learners.update = rllib_timed(torch, algo.learners.update, update_s)
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        result = algo.train()
+        torch.cuda.synchronize()
+        iter_s.append(time.perf_counter() - t0)
+        returns.append(result["episode_return_mean"])
+        for k, v in result["learners"].items():
+            if not math.isfinite(v):
+                raise AssertionError(f"rllib PPO: learner stat {k} = {v}")
+    steps = RLLIB_ROLLOUT * cfg.num_envs_per_runner * max(1, cfg.num_env_runners)
+    if result["num_env_steps_sampled_lifetime"] != iters * steps:
+        raise AssertionError("rllib PPO: env steps miscounted")
+    updates = len(update_s) // iters
+    steady = slice(1, None) if iters > 1 else slice(None)
+    return algo, {
+        "env_steps_per_iter": steps, "updates_per_iter": updates,
+        "env_steps_per_s_sampling": steps / statistics.median(sample_s[steady]),
+        "sample_s_median": statistics.median(sample_s[steady]),
+        "update_ms_median": 1e3 * statistics.median(update_s[updates:] or update_s),
+        "iteration_s_median": statistics.median(iter_s[steady]),
+        "first_iteration_s": iter_s[0],
+        "learner_s_per_iter": sum(update_s[updates:] or update_s) / max(1, iters - 1),
+        "episode_return_mean": returns,
+    }
+
+
+def rllib_greedy_equal(torch, ref, other, obs) -> dict:
+    """Greedy actions of ``other`` against ``ref``'s on ``obs``: equal,
+    but where ``ref``'s two logits lie within ``RLLIB_TIE`` (a tie that the
+    summation order may break either way)."""
+    want, got = ref.compute_actions(obs), other.compute_actions(obs)
+    with torch.no_grad():
+        logits = ref.module.logits(ref.learners.params,
+                                   torch.as_tensor(obs, device=ref.device)).cpu()
+    gap = (logits[:, 0] - logits[:, 1]).abs().numpy()
+    bad = (got != want) & (gap > RLLIB_TIE)
+    if bad.any():
+        raise AssertionError(f"rllib checkpoint: {int(bad.sum())} greedy actions differ")
+    return {"observations": len(obs), "equal": int((got == want).sum()),
+            "ties": int(((got != want) & (gap <= RLLIB_TIE)).sum())}
+
+
+def run_rllib(torch, card: str):
+    """The ``rllib`` phase: (a) card against CPU, (b) PPO's main path, (c)
+    remote runners against inline, (d) DQN and SAC at the JAX tests'
+    configurations, (e) a checkpoint from the card revived on the card and on
+    the CPU."""
+    import numpy as np
+
+    import ray_tpu_torch as rt
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib.algorithm import Algorithm
+
+    t0 = time.perf_counter()
+    envs = rllib_env_parity(torch, rllib)
+    yield {"part": "a_card_against_cpu", "card": card, "envs": envs,
+           "ppo": rllib_ppo_parity(torch, rllib), "seconds": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    algo, nums = rllib_ppo_run(torch, rllib, RLLIB_ITERS, num_envs_per_runner=RLLIB_ENVS)
+    rets = nums["episode_return_mean"]
+    first = next(r for r in rets if not math.isnan(r))
+    want = max(60.0, 1.5 * first)
+    if not rets[-1] > want:
+        raise AssertionError(f"rllib PPO: return {rets[-1]} after {RLLIB_ITERS} iterations, "
+                             f"not above {want}")
+    yield {"part": "b_ppo_cartpole", "card": card, "envs": RLLIB_ENVS,
+           "rollout_length": RLLIB_ROLLOUT, "minibatch": RLLIB_MINIBATCH,
+           "iterations": RLLIB_ITERS, "return_floor": want, **nums,
+           "seconds": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = algo.save(os.path.join(tmp, "ppo.pkl"))
+        obs = np.random.default_rng(RLLIB_SEED).normal(scale=0.1, size=(1024, 4)).astype(
+            np.float32)
+        on_card = Algorithm.from_checkpoint(path)
+        on_cpu = Algorithm.from_checkpoint(path, device="cpu")
+    if on_card.device.type != "cuda" or on_cpu.device.type != "cpu":
+        raise AssertionError("rllib checkpoint: revived on the wrong device")
+    ckpt = {"revived_on_card": rllib_greedy_equal(torch, algo, on_card, obs),
+            "revived_on_cpu": rllib_greedy_equal(torch, algo, on_cpu, obs)}
+    algo.stop()
+    del algo, on_card, on_cpu
+    ckpt_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    rt.init(num_cpus=4)
+    try:
+        runs = {}
+        for mode in ("inline", "remote"):
+            a, nums = rllib_ppo_run(torch, rllib, RLLIB_REMOTE_ITERS, num_epochs=1,
+                                    num_env_runners=2,
+                                    num_envs_per_runner=RLLIB_ENVS // 2,
+                                    remote=mode == "remote")
+            if mode == "remote":
+                gpus = rt.available_resources().get("GPU", 0)
+                if gpus != torch.cuda.device_count() - 1:
+                    raise AssertionError(f"rllib remote runners: {gpus} GPU left, not "
+                                         "two half shares taken")
+            a.stop()
+            runs[mode] = {k: v for k, v in nums.items() if k != "episode_return_mean"}
+    finally:
+        rt.shutdown()
+    yield {"part": "c_remote_runners", "card": card, "runners": 2,
+           "envs_per_runner": RLLIB_ENVS // 2, "iterations": RLLIB_REMOTE_ITERS,
+           "num_epochs": 1, **runs,
+           "remote_over_inline_sampling": runs["remote"]["env_steps_per_s_sampling"]
+           / runs["inline"]["env_steps_per_s_sampling"],
+           "seconds": time.perf_counter() - t0}
+
+    t0 = time.perf_counter()
+    dqn = (rllib.DQNConfig().environment(rllib.CartPole())
+           .env_runners(num_envs_per_runner=8, rollout_length=64)
+           .training(learning_starts=500, num_updates_per_iter=32, epsilon_decay_steps=2500)
+           .debugging(seed=0).resources(device="cuda").build())
+    for _ in range(25):
+        dqn_result = dqn.train()
+    dqn.stop()
+    if "td_error_mean" not in dqn_result["learners"] or not (
+            dqn_result["episode_return_mean"] > 15.0):
+        raise AssertionError(f"rllib DQN: return {dqn_result['episode_return_mean']}")
+    dqn_s = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    sac = (rllib.SACConfig().environment(rllib.Pendulum())
+           .env_runners(num_envs_per_runner=4, rollout_length=64)
+           .training(learning_starts=200, num_updates_per_iter=4)
+           .debugging(seed=0).resources(device="cuda").build())
+    for _ in range(4):
+        sac_result = sac.train()
+    sac.stop()
+    if not math.isfinite(sac_result["learners"].get("critic_loss", math.nan)):
+        raise AssertionError(f"rllib SAC: {sac_result['learners']}")
+    yield {"part": "d_dqn_sac", "card": card,
+           "dqn": {"iterations": 25, "episode_return_mean": dqn_result["episode_return_mean"],
+                   "learners": dqn_result["learners"], "seconds": dqn_s},
+           "sac": {"iterations": 4, "learners": sac_result["learners"],
+                   "seconds": time.perf_counter() - t1},
+           "seconds": time.perf_counter() - t0}
+    yield {"part": "e_checkpoint", "card": card, **ckpt, "seconds": ckpt_s}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -7837,6 +8157,15 @@ def main(argv=None) -> int:
                 kernels[r["name"]] = r
                 emit({"phase": "kernel", "ok": True, "card": card, **r})
             torch.cuda.empty_cache()
+
+    if "rllib" in phases:
+        # first after the kernels: it needs no other phase, and runs in a
+        # process that no runtime phase has loaded with threads yet
+        t0 = time.perf_counter()
+        for rep in run_rllib(torch, card):
+            emit({"phase": "rllib", "ok": True, **rep})
+        emit({"phase": "rllib", "ok": True, "card": card, "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
 
     train_step_ms = None  # the train phase's median step, beside the trainer phase's
     launches = {}  # kernel -> launches over the main-path runs

@@ -128,7 +128,7 @@ __all__ = [
 
 _LAZY_SUBMODULES = (
     "accelerators", "air", "chaos", "data", "experimental", "job", "models", "ops",
-    "parallel", "serve", "state", "train", "tune", "util", "workflow",
+    "parallel", "rllib", "serve", "state", "train", "tune", "util", "workflow",
 )
 
 

@@ -11,6 +11,9 @@ so this module never imports JAX. :func:`train_state_from_numpy` carries a
 JAX train state (params, optax's Adam ``mu``/``nu``/``count``, ``step``)
 across the same way, into the state of
 :func:`ray_tpu_torch.models.transformer.make_train_step`.
+:func:`rllib_params_from_jax` and :func:`adam_state_from_jax` carry an RL
+module's params tree (dicts and lists of layers) and an optax
+``chain(clip_by_global_norm, adam)`` state into ``ray_tpu_torch.rllib``.
 """
 
 from __future__ import annotations
@@ -52,3 +55,32 @@ def train_state_from_numpy(params: Any, mu: Any, nu: Any, count, step, device=No
                 "count": scalar(count)},
         "step": scalar(step),
     }
+
+
+def rllib_params_from_jax(tree: Any, device=None) -> Any:
+    """An ``rllib`` module's params tree, as numpy (dicts, lists of
+    ``{"w", "b"}`` layers, leaves) -> the same tree of float32 tensors."""
+    if isinstance(tree, dict):
+        return {k: rllib_params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(rllib_params_from_jax(v, device) for v in tree)
+    return tensor_from_numpy(np.asarray(tree, np.float32), device)
+
+
+def adam_state_from_jax(opt_state: Any, device=None) -> dict:
+    """The Adam state inside an optax state, as numpy (``optax.adam``'s, or
+    a ``chain`` holding it: the first member with ``count``, ``mu`` and
+    ``nu``) -> ``{"count", "mu", "nu"}``, the state of
+    ``ray_tpu_torch.rllib.learner.adam``."""
+    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+        return {"count": torch.tensor(int(np.asarray(opt_state.count)), dtype=torch.int32,
+                                      device=device),
+                "mu": rllib_params_from_jax(opt_state.mu, device),
+                "nu": rllib_params_from_jax(opt_state.nu, device)}
+    if isinstance(opt_state, (list, tuple)):
+        for member in opt_state:
+            try:
+                return adam_state_from_jax(member, device)
+            except ValueError:
+                pass
+    raise ValueError("no Adam state (count, mu, nu) in this optax state")

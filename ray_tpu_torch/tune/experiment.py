@@ -4,7 +4,7 @@ trainable/env registries, with_parameters / with_resources, and the
 scheduler/searcher string factories.
 
 The port's copy of ``ray_tpu/tune/experiment.py``, whole; the env
-registry waits for ``rllib/`` to read it.
+registry is what ``rllib``'s ``AlgorithmConfig.environment(name)`` reads.
 
 Parity anchors: python/ray/tune/trainable/trainable.py (class API),
 tune/experiment/experiment.py, tune/analysis/experiment_analysis.py,

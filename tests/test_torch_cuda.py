@@ -2190,3 +2190,71 @@ def test_multinode_thin_client_runs_k6_and_gets_cuda_tensors_as_cpu(runtime):
             ctx.get(actor.close.remote(), timeout=60)
     finally:
         server.stop()
+
+
+# --------------------------------------------------------------------------
+# rllib on the card
+# --------------------------------------------------------------------------
+def _rllib_ppo(device, **runners):
+    from ray_tpu_torch.rllib import CartPole, PPOConfig
+
+    return (PPOConfig().environment(CartPole())
+            .env_runners(num_envs_per_runner=64, rollout_length=32, **runners)
+            .training(minibatch_size=512).debugging(seed=0).resources(device=device))
+
+
+def test_rllib_ppo_iteration_runs_on_the_card(cuda):
+    """One PPO iteration: the runner's env state and the learner's params
+    and Adam state live on the card; the result is finite and counts every
+    env step."""
+    from ray_tpu_torch.rllib.rl_module import tree_leaves
+
+    algo = _rllib_ppo("cuda").build()
+    try:
+        result = algo.train()
+        runner = algo.runners._runners[0]
+        assert runner._obs.is_cuda and runner._env_state["s"].is_cuda
+        assert all(p.is_cuda for p in tree_leaves(algo.learners.params))
+        assert all(x.is_cuda for x in tree_leaves(algo.learners.learner.opt_state[1]["mu"]))
+        assert result["num_env_steps_sampled_lifetime"] == 64 * 32
+        assert all(map(lambda v: v == v, result["learners"].values()))  # no NaN
+    finally:
+        algo.stop()
+
+
+def test_rllib_remote_runners_are_gpu_actors_beside_the_card(runtime):
+    """Two remote runners on the card hold half a GPU each: in-process GPU
+    actors that sample with CUDA tensors (a process worker hides the card,
+    where a CUDA runner could not even be built)."""
+    runtime.init(num_cpus=2)
+    algo = _rllib_ppo("cuda", num_env_runners=2, remote=True).build()
+    try:
+        assert runtime.available_resources().get("GPU", 0) == torch.cuda.device_count() - 1
+        result = algo.train()
+        assert result["num_env_steps_sampled_lifetime"] == 2 * 64 * 32
+        assert result["env_runners"]["num_episodes"] > 0
+    finally:
+        algo.stop()
+
+
+def test_rllib_checkpoint_from_the_card_restores_on_the_cpu(cuda, tmp_path):
+    """A checkpoint holds CPU tensors: saved on the card, revived on the
+    CPU (and on the card), its greedy actions on 1,024 observations are the
+    card's."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.algorithm import Algorithm
+
+    algo = _rllib_ppo("cuda").build()
+    try:
+        algo.train()
+        path = algo.save(str(tmp_path / "ppo.pkl"))
+        obs = np.random.default_rng(0).normal(scale=0.2, size=(1024, 4)).astype(np.float32)
+        want = algo.compute_actions(obs)
+    finally:
+        algo.stop()
+    on_cpu = Algorithm.from_checkpoint(path, device="cpu")
+    on_card = Algorithm.from_checkpoint(path)
+    assert on_cpu.device.type == "cpu" and on_card.device.type == "cuda"
+    assert (on_cpu.compute_actions(obs) == want).all()
+    assert (on_card.compute_actions(obs) == want).all()

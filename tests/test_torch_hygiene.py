@@ -8,6 +8,7 @@ import subprocess
 import sys
 import threading
 
+import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
@@ -797,3 +798,165 @@ def test_new_modules_import_no_jax_nor_cloudpickle_at_top():
             assert not any(n.split(".")[0] == "cloudpickle" for n in names), path
         assert not [m for m in _imported_modules(path)
                     if m.split(".")[0] in ("jax", "jaxlib", "ray_tpu")], path
+
+
+# --------------------------------------------------------------------------
+# rllib
+# --------------------------------------------------------------------------
+_RLLIB_MODULES = (
+    "ray_tpu_torch.rllib", "ray_tpu_torch.rllib.sample_batch", "ray_tpu_torch.rllib.envs",
+    "ray_tpu_torch.rllib.rl_module", "ray_tpu_torch.rllib.connectors",
+    "ray_tpu_torch.rllib.replay_buffer", "ray_tpu_torch.rllib.learner",
+    "ray_tpu_torch.rllib.env_runner", "ray_tpu_torch.rllib.offline",
+    "ray_tpu_torch.rllib.external_env", "ray_tpu_torch.rllib.algorithm",
+    "ray_tpu_torch.rllib.algorithms", "ray_tpu_torch.rllib.algorithms.ppo",
+    "ray_tpu_torch.rllib.algorithms.impala", "ray_tpu_torch.rllib.algorithms.dqn",
+    "ray_tpu_torch.rllib.algorithms.sac", "ray_tpu_torch.rllib.algorithms.bc",
+    "ray_tpu_torch.rllib.algorithms.marwil", "ray_tpu_torch.rllib.algorithms.cql",
+    "ray_tpu_torch.rllib.algorithms.registry",
+)
+
+
+def test_importing_rllib_loads_no_jax_optax_or_the_jax_package():
+    """The 19 modules of ``rllib`` part 1 (and its package) import neither
+    JAX nor optax (which imports JAX) nor anything of the JAX package; the
+    AST scan above covers their files too."""
+    rel = {os.path.relpath(p, REPO) for p in _port_files()}
+    assert sum(r.startswith(os.path.join("ray_tpu_torch", "rllib") + os.sep) for r in rel) == 20
+    code = (
+        f"import importlib, sys\nfor m in {_RLLIB_MODULES!r}: importlib.import_module(m)\n"
+        "import ray_tpu_torch as rt\nassert rt.rllib.PPOConfig is not None\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'ray_tpu'))\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=REPO, check=True, timeout=120)
+
+
+def _rllib_entry_points(device):
+    """Each entry point of ``rllib`` that takes a device, called with
+    ``device`` (None: the default)."""
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib import offline
+    from ray_tpu_torch.rllib.algorithm import Algorithm
+    from ray_tpu_torch.rllib.algorithms.ppo import _ppo_loss
+
+    env, penv = rllib.CartPole(), rllib.Pendulum()
+    m = rllib.ActorCriticModule(4, 2, (4,))
+    data = rllib.SampleBatch({
+        "obs": np.zeros((8, 3), np.float32), "next_obs": np.zeros((8, 3), np.float32),
+        "actions": np.zeros((8, 1), np.float32), "rewards": np.zeros(8, np.float32),
+        "dones": np.zeros(8, bool), "returns": np.zeros(8, np.float32)})
+    calls = {
+        "EnvRunner": lambda: rllib.EnvRunner(env, m, device=device),
+        "EnvRunnerGroup": lambda: rllib.EnvRunnerGroup(env, m, device=device),
+        "Learner": lambda: rllib.Learner(m, _ppo_loss(m, 0.2, 0.0, 0.5), device=device),
+        "GymEnvRunner": lambda: rllib.GymEnvRunner([], m, num_actions=2, device=device),
+        "MultiAgentEnvRunner": lambda: rllib.MultiAgentEnvRunner(rllib.MultiAgentEnv(), m,
+                                                                 device=device),
+        "record_rollouts": lambda: offline.record_rollouts(env, m, m.init(
+            torch.Generator().manual_seed(0)), num_iterations=1, num_envs=2, rollout_length=2,
+            device=device),
+    }
+    for name in ("PPO", "IMPALA", "APPO", "DQN", "SAC", "BC", "MARWIL", "CQL"):
+        cfg = getattr(rllib, name + "Config")().environment(
+            penv if name in ("SAC", "CQL") else env).resources(device=device)
+        if name in ("BC", "MARWIL", "CQL"):
+            cfg.offline(data)
+        calls[name] = cfg.build
+    return calls, Algorithm
+
+
+def test_rllib_entry_points_refuse_to_run_without_cuda(monkeypatch, tmp_path):
+    """With no CUDA device and none named, every rllib entry point raises
+    before any work (no ``try`` falls back to the CPU); given ``"cpu"``
+    each runs there, and a checkpoint saved so revives on the CPU only when
+    asked."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls, Algorithm = _rllib_entry_points(None)
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    calls, _ = _rllib_entry_points("cpu")
+    built = {name: call() for name, call in calls.items()}
+    assert built["PPO"].device.type == "cpu" and built["Learner"].device.type == "cpu"
+    algo = built["PPO"]
+    algo.config.device = None  # as a config saved on the card holds it
+    path = algo.save(str(tmp_path / "ppo.pkl"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Algorithm.from_checkpoint(path)
+    assert Algorithm.from_checkpoint(path, device="cpu").device.type == "cpu"
+
+
+def test_rllib_part_two_names_raise_not_ported():
+    """``__all__`` equals the JAX package's (``rllib`` and
+    ``rllib.algorithms``); every name of part 2 raises ``NotPortedError``
+    naming ROADMAP item 12, on attribute access and from the registry."""
+    import ray_tpu.rllib as jrl
+    import ray_tpu.rllib.algorithms as jalgos
+    import ray_tpu_torch.rllib as trl
+    import ray_tpu_torch.rllib.algorithms as talgos
+    from ray_tpu_torch.exceptions import NotPortedError
+    from ray_tpu_torch.rllib.algorithms import registry
+
+    assert trl.__all__ == jrl.__all__ and talgos.__all__ == jalgos.__all__
+    missing = []
+    for mod, names in ((trl, jrl.__all__), (talgos, jalgos.__all__)):
+        for name in names:
+            try:
+                getattr(mod, name)
+            except NotPortedError as exc:
+                assert "ROADMAP item 12" in str(exc), exc
+                missing.append(name)
+    assert set(missing) == set(registry.NOT_PORTED_NAMES) and len(missing) == 61
+    for name in ("PPO", "IMPALA", "APPO", "DQN", "SAC", "BC", "MARWIL", "CQL"):
+        assert trl.get_algorithm_class(name) is getattr(trl, name)
+    assert trl.list_algorithms() == jrl.list_algorithms()
+    for name in registry.NOT_PORTED:
+        for lookup in (trl.get_algorithm_class, trl.get_algorithm_config):
+            with pytest.raises(NotPortedError, match="ROADMAP item 12"):
+                lookup(name)
+    with pytest.raises(ValueError, match="unknown algorithm"):
+        trl.get_algorithm_class("nope")
+
+
+class _RecordedActorClass:
+    """Stands for ``remote(cls)``: records the options and the constructor's
+    ``device`` of each actor made."""
+
+    made = []
+
+    def __init__(self, cls, opts=None):
+        self.cls, self.opts = cls, dict(opts or {})
+
+    def options(self, **kw):
+        return _RecordedActorClass(self.cls, {**self.opts, **kw})
+
+    def remote(self, *args, **kw):
+        _RecordedActorClass.made.append((self.cls.__name__, self.opts, kw.get("device")))
+        return object()
+
+
+def test_remote_env_runners_take_a_gpu_share_only_on_the_card(monkeypatch):
+    """D3 (ROADMAP Queue 3): a remote runner of the port on CUDA holds
+    ``1/num_runners`` of a GPU (an in-process GPU actor beside the card);
+    given the CPU it is a plain actor, as every JAX package runner is."""
+    import ray_tpu
+    import ray_tpu.rllib as jrl
+    import ray_tpu_torch
+    import ray_tpu_torch.rllib as trl
+
+    monkeypatch.setattr(ray_tpu_torch, "remote", _RecordedActorClass)
+    monkeypatch.setattr(ray_tpu, "remote", _RecordedActorClass)
+    made = _RecordedActorClass.made
+    made.clear()
+    m = trl.ActorCriticModule(4, 2, (4,))
+    trl.EnvRunnerGroup(trl.CartPole(), m, num_runners=2, remote=True, device="cuda")
+    assert made == [("EnvRunner", {"num_gpus": 0.5}, "cuda")] * 2
+    made.clear()
+    trl.EnvRunnerGroup(trl.CartPole(), m, num_runners=4, remote=True, device="cpu")
+    assert made == [("EnvRunner", {}, "cpu")] * 4
+    made.clear()
+    jm = jrl.rl_module.ActorCriticModule(4, 2, (4,))
+    jrl.EnvRunnerGroup(jrl.CartPole(), jm, num_runners=2, remote=True)
+    assert made == [("EnvRunner", {}, None)] * 2

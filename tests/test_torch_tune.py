@@ -10,8 +10,9 @@ timing compare the properties the JAX tests assert.  Train-on-Tune runs a
 2-layer, d_model 32 decoder's train step through ``JaxTrainer`` and
 through ``DeviceTrainer(device="cpu")`` from the same initial state (the
 JAX side's flash attention in Pallas interpret mode, f32): losses within
-1e-4 relative.  ``test_register_env_reaches_rllib`` waits for the port's
-``rllib/``: here the env registry is held alone.
+1e-4 relative.  Here the env registry is held alone;
+``test_register_env_reaches_rllib`` itself runs against the port's
+``rllib`` in ``tests/test_torch_rllib_algos.py``.
 """
 
 import contextlib
