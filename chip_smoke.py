@@ -20,6 +20,7 @@
     python3 chip_smoke.py --phases build,cli       # the rt CLI, scripts/, the autoscaler, rt lint
     python3 chip_smoke.py --phases build,multinode # the head service and a node agent with the card
     python3 chip_smoke.py --phases build,rllib     # rllib: PPO at 4096 envs, runners, DQN, SAC
+    python3 chip_smoke.py --phases build,rllib_contrib  # rllib part 2: DreamerV3, DT, ES, the rest
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -356,10 +357,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``init(num_cpus=8, include_dashboard=True)``: (a) ``JobSubmissionClient``
    submits a driver (``job_driver``) by ``runtime_env={"working_dir": ...,
    "env_vars": {seed, mode}}``; in its own process it builds the serving
-   decoder from the serving phases' seed, serves the engine phase's burst
-   through a GPU actor of its own runtime, float and int8, and prints each
-   run's token digest and K1/K6 launches: the job ``SUCCEEDED``, the digests
-   equal this process's own burst, K1 16 a decode step, K6 96 a forward on
+   decoder at full width and ``CUT_LAYERS`` (2) of its 16 layers (the
+   script's time) from the serving phases' seed, serves the engine phase's
+   burst through a GPU actor of its own runtime, float and int8, and prints
+   each run's token digest and K1/K6 launches: the job ``SUCCEEDED``, the
+   digests equal this process's own burst on the same decoder, K1
+   ``CUT_LAYERS`` a decode step, K6 ``6 x CUT_LAYERS`` a forward on
    ``mma_bf16``, the kernels loaded from the build phase's libraries (none
    rebuilt); job start to first token. (b) a second GPU job decodes in a
    loop; ``stop_job`` while it runs gives ``STOPPED``, its process group is
@@ -368,7 +371,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    engine's refusal. (d) a durable workflow: a step waiting on
    ``wait_for_event`` (released over the head's HTTP event route), float and
    int8 generation of the burst in GPU steps through two GPU engine actors,
-   and a comparison that fails once (a marker file); ``workflow.resume``
+   (the same 2-layer decoder) and a comparison that fails once (a marker
+   file); ``workflow.resume``
    reruns only the comparison, with no new K1 or K6 launch, and its output
    equals the direct tokens. (e) ``/api/cluster_status`` and
    ``state.list_nodes`` show the node's GPU, ``list_actors`` the engine
@@ -478,6 +482,32 @@ Phases, each printing one JSON line; any failure exits non-zero:
    algorithm saved, revived on the card and on the CPU
    (``from_checkpoint(device="cpu")``): greedy actions on 1,024 seeded
    observations equal (but where the two logits lie within 1e-5: a tie).
+13f. ``rllib_contrib`` — ``rllib`` part 2 on the card (no kernel of the
+   repo: DT's attention is two ``einsum``s and a softmax, as the JAX
+   package's). (a) SimpleSpread, DiscreteSpread (3 agents) and
+   LinearBanditEnv, 4096 envs for 200 steps, each step from the CPU env's
+   state with the same actions: flags equal, values within 1e-5; the PG,
+   A2C, SimpleQ, Ape-X and R2D2 losses and gradients; DDPG, TD3 (with and
+   without the policy step), CRR (warm-up and actor), MADDPG, QMIX, DT,
+   DreamerV3 (half widths), ES and ARS updates from one state and the same
+   draws; 200 LinUCB and LinTS pulls: all on ``cuda:0`` against the CPU
+   (losses 1e-5, gradients and params within 1e-4 of their leaf's largest,
+   arms and ES ranks equal). (b) DreamerV3 at the JAX package's widths
+   (deter 256, units 256, 16 x 16 latents) and the published batch (16
+   sequences x 64 steps, horizon 15; 16 CartPole envs, 4 updates an
+   iteration), 10 iterations: the world-model loss on a fixed probe batch
+   and fixed draws falls (the JAX test's criterion); ms an update, its
+   device launches (``torch.profiler``), env steps/s collecting. (c) DT at
+   the published gym setting (3 layers, 1 head, embedding 128, context 20,
+   batch 64) on the JAX test's mixed offline CartPole data, 5 iterations of
+   60 updates: ``bc_loss`` falls and the return at target 200 is above 60;
+   ms an update. (d) ES at its JAX test's configuration for 10 iterations
+   to that test's criterion (above ``max(1.5 x the first, 40)``); every
+   other part-2 algorithm 2 iterations at its JAX test's configuration with
+   finite statistics. (e) (b)'s and (c)'s algorithms saved on the card and
+   revived with ``from_checkpoint(device="cpu")`` (DT with its config, which
+   carries the data): greedy actions on 1,024 seeded observations equal, but
+   where two logits lie within 1e-5.
 14. ``{"kernels": [...]}`` — per kernel: route, source, the TPU kernel it
    replaces, launches in the main-path runs (engine, server, disagg,
    runtime, serve, chaos, data, dag, jobs, cli, multinode, tp_serve, train,
@@ -521,7 +551,7 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PHASES = ("build", "kernels", "forward_parity", "engine", "server", "disagg", "runtime",
           "serve", "chaos", "data", "dag", "tp_serve", "train_parity",
           "train", "moe_parity", "moe_engine", "vit_train", "dit", "parallel", "trainer",
-          "tune", "jobs", "cli", "multinode", "rllib")
+          "tune", "jobs", "cli", "multinode", "rllib", "rllib_contrib")
 OPTIONAL_PHASES = ("profile",)
 
 
@@ -6011,6 +6041,12 @@ def job_reports(logs: str) -> list:
             if line.startswith("JOBREPORT ")]
 
 
+def jobs_config(torch):
+    """The serving decoder's widths at ``CUT_LAYERS`` layers (the script's
+    time): what a jobs-phase job and its direct runs serve."""
+    return dataclasses.replace(serving_config(torch), n_layers=CUT_LAYERS)
+
+
 def job_driver() -> int:
     """What a jobs-phase job runs (``driver.py`` of its working dir calls
     it). ``JOB_MODE=serve``: the serving decoder from ``JOB_SEED`` serves the
@@ -6027,7 +6063,7 @@ def job_driver() -> int:
     from ray_tpu_torch.serve.llm import LLMEngine
 
     mode = os.environ["JOB_MODE"]
-    cfg = serving_config(torch)
+    cfg = jobs_config(torch)
     if mode == "hidden":
         rt.init(num_cpus=1)
         try:
@@ -6367,7 +6403,7 @@ def jobs_state(torch, rt, url: str, workdir: str) -> dict:
             "profile_calls": calls, "profiled_task_device": got["device"]}
 
 
-def run_jobs(torch, cfg, params, kernels_of: dict, engine_tokens: dict, card: str):
+def run_jobs(torch, kernels_of: dict, card: str):
     """The jobs phase: (a)-(e) under one ``init(num_cpus=8,
     include_dashboard=True)``, then ``shutdown`` with the usage report
     written and no job's process left. Yields one report per part."""
@@ -6376,12 +6412,15 @@ def run_jobs(torch, cfg, params, kernels_of: dict, engine_tokens: dict, card: st
     import ray_tpu_torch as rt
     from ray_tpu_torch.job.manager import group_members
     from ray_tpu_torch.job_submission import JobSubmissionClient
+    from ray_tpu_torch.models.transformer import init_params
 
     t_phase = time.perf_counter()
-    want = {}  # quantize -> this process's own burst: the engine phase's, or run now
-    for q in (False, True):
-        want[q] = engine_tokens.get(("paged", q)) or run_engine(
-            torch, cfg, params, "paged", 8, 64, 32, {}, quantize=q)["request_tokens"]
+    # the jobs' decoder (CUT_LAYERS layers) as they build it, and this
+    # process's own burst on it: what each job's digests are held to
+    cfg = jobs_config(torch)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(JOBS_SEED))
+    want = {q: run_engine(torch, cfg, params, "paged", 8, 64, 32, {}, quantize=q)[
+        "request_tokens"] for q in (False, True)}
     torch.cuda.empty_cache()
     libs = lib_stamps()
     workdir = tempfile.mkdtemp(prefix="chip_smoke_jobs_")
@@ -6421,7 +6460,8 @@ def run_jobs(torch, cfg, params, kernels_of: dict, engine_tokens: dict, card: st
         report = json.load(f)
     if left or report.get("source") != "ray_tpu_torch":
         raise AssertionError(f"jobs: after shutdown job groups {left} remain, usage {report}")
-    yield {"part": "shutdown", "card": card, "jobs": sorted(j["status"] for j in jobs),
+    yield {"part": "shutdown", "card": card, "layers": CUT_LAYERS,
+           "jobs": sorted(j["status"] for j in jobs),
            "job_groups_left": 0, "usage_stats": {k: report[k] for k in ("source", "version")},
            "seconds": time.perf_counter() - t_phase}
 
@@ -8097,6 +8137,638 @@ def run_rllib(torch, card: str):
     yield {"part": "e_checkpoint", "card": card, **ckpt, "seconds": ckpt_s}
 
 
+
+# ---------------------------------------------------------------------------
+# rllib_contrib: rllib part 2 (PG/A2C/A3C, SimpleQ/Ape-X, DDPG/TD3, ES/ARS,
+# the bandits, CRR, R2D2, MADDPG, QMIX, DT, DreamerV3)
+# ---------------------------------------------------------------------------
+RC_SEED = 0
+RC_ENVS = 4096  # (a): the multi-agent and bandit envs, stepped card against CPU
+RC_ENV_STEPS = 200
+RC_PULLS = 200  # (a): bandit pulls, card against CPU
+RC_DREAMER_ITERS = 10  # (b)
+RC_DT_ITERS = 5  # (c): the JAX test's first iteration and four more, 60 updates each
+RC_ES_ITERS = 10  # (d)
+RC_OTHER_ITERS = 2  # (d): every other algorithm
+
+
+def rc_dreamer_config(rllib, device: str, **widths):
+    """DreamerV3 at the JAX package's widths (deter 256, units 256, 16 x 16
+    latents, 63 bins) and the published training batch (Hafner et al. 2023:
+    16 sequences x 64 steps, imagination horizon 15): 16 CartPole envs, one
+    replay chunk of 16 sequences an update, 4 updates an iteration."""
+    from ray_tpu_torch.rllib.algorithms import DreamerV3Config
+
+    cfg = DreamerV3Config().environment(rllib.CartPole()).debugging(seed=RC_SEED).resources(
+        device=device)
+    cfg.num_envs, cfg.seq_len, cfg.batch_size_seqs, cfg.horizon = 16, 64, 1, 15
+    cfg.updates_per_iter = 4
+    for k, v in widths.items():
+        setattr(cfg, k, v)
+    return cfg
+
+
+def rc_dt_config(rllib, device: str, data):
+    """DT at the published gym setting (Chen et al. 2021: 3 layers, 1 head,
+    embedding 128, context 20, batch 64; no dropout: ``DTModule`` has none),
+    lr 1e-3, 60 updates an iteration, target return 200 (the JAX test's)."""
+    return (rllib.DTConfig().environment(rllib.CartPole())
+            .training(context_length=20, d_model=128, n_layers=3, n_heads=1,
+                      train_batch_size=64, updates_per_iter=60, target_return=200.0)
+            .debugging(seed=RC_SEED).offline_data(data).resources(device=device))
+
+
+def rc_cartpole_offline_data(torch, rllib, T: int = 200, n_good: int = 5, n_random: int = 5):
+    """The JAX test's mixed-quality offline data (``tests/test_rllib_contrib.py:514``)
+    from the port's CartPole on the CPU: time-major [T, B] columns of 5
+    lean-following episodes' streams and 5 random ones."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.env_runner import _tree_where
+
+    env, B = rllib.CartPole(), n_good + n_random
+    g = torch.Generator().manual_seed(RC_SEED)
+    rng = np.random.default_rng(RC_SEED)
+    state, obs = env.reset(g, B, "cpu")
+    cols = {k: [] for k in ("obs", "actions", "rewards", "dones", "truncateds")}
+    for _ in range(T):
+        o = obs.numpy()
+        act = np.where(np.arange(B) < n_good, (o[:, 2] + 0.5 * o[:, 3] > 0).astype(np.int64),
+                       rng.integers(0, 2, B))
+        state, nxt, r, term, trunc = env.step(state, torch.as_tensor(act))
+        for k, v in zip(cols, (o, act.astype(np.int32), r.numpy(), term.numpy(),
+                               trunc.numpy())):
+            cols[k].append(v)
+        done = term | trunc
+        fresh, fresh_obs = env.reset(g, B, "cpu")
+        state = _tree_where(done, fresh, state)
+        obs = torch.where(done[:, None], fresh_obs, nxt)
+    return rllib.SampleBatch({k: np.stack(v) for k, v in cols.items()})
+
+
+def rc_env_parity(torch, rllib) -> dict:
+    """(a) SimpleSpread, DiscreteSpread (3 agents) and LinearBanditEnv at
+    4096 envs for 200 steps: each step the card steps from the CPU env's
+    state with the same actions; flags equal, observations, rewards and
+    states within ``RLLIB_FWD``."""
+    from ray_tpu_torch.rllib.env_runner import _tree_where
+
+    out = {}
+    for name, env in (("simple_spread", rllib.SimpleSpread(n_agents=3)),
+                      ("discrete_spread", rllib.DiscreteSpread(n_agents=3)),
+                      ("linear_bandit", rllib.LinearBanditEnv())):
+        g = torch.Generator().manual_seed(RC_SEED)
+        state, _ = env.reset(g, RC_ENVS, "cpu")
+        err, ends = 0.0, 0
+        for _ in range(RC_ENV_STEPS):
+            if name == "simple_spread":
+                action = torch.rand((RC_ENVS, 3, 2), generator=g) * 3.0 - 1.5
+            else:
+                n = 5 if name == "discrete_spread" else env.num_arms
+                shape = (RC_ENVS, 3) if name == "discrete_spread" else (RC_ENVS,)
+                action = torch.randint(0, n, shape, generator=g)
+            cpu = env.step(state, action)
+            card = env.step({k: v.cuda() for k, v in state.items()}, action.cuda())
+            for c, d in zip(cpu[1:3], card[1:3]):
+                err = max(err, rllib_close(d, c, f"{name} step"))
+            for k in cpu[0]:
+                if cpu[0][k].is_floating_point():
+                    err = max(err, rllib_close(card[0][k], cpu[0][k], f"{name} {k}"))
+                elif not torch.equal(card[0][k].cpu(), cpu[0][k]):
+                    raise AssertionError(f"rllib_contrib {name}: the card's {k} differs")
+            for c, d in zip(cpu[3:], card[3:]):
+                if not torch.equal(d.cpu(), c):
+                    raise AssertionError(f"rllib_contrib {name}: the card's flags differ")
+            done = cpu[3] | cpu[4]
+            ends += int(done.sum())
+            if name == "linear_bandit":
+                state = cpu[0]  # horizon 1: the step's state is the next pull's
+            else:
+                fresh, _ = env.reset(g, RC_ENVS, "cpu")
+                state = _tree_where(done, fresh, cpu[0])
+        out[name] = {"envs": RC_ENVS, "steps": RC_ENV_STEPS, "episode_ends": ends,
+                     "max_abs_err": err, "flags_equal": True}
+    return out
+
+
+def rc_loss_pairs(torch, rllib) -> dict:
+    """(a) PG, A2C, SimpleQ, Ape-X and R2D2: each loss and its gradients on
+    the card against the CPU from the same params and batch."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import learner
+    from ray_tpu_torch.rllib.algorithms import pg, r2d2, simple_q
+    from ray_tpu_torch.rllib.rl_module import tree_map
+
+    rng = np.random.default_rng(RC_SEED)
+    m = 8192
+    flat = {"obs": rng.normal(size=(m, 4)).astype(np.float32),
+            "next_obs": rng.normal(size=(m, 4)).astype(np.float32),
+            "actions": rng.integers(0, 2, m).astype(np.int32),
+            "rewards": rng.normal(size=m).astype(np.float32),
+            "dones": rng.random(m) < 0.05,
+            "advantages": rng.normal(size=m).astype(np.float32),
+            "returns": rng.uniform(0, 50, m).astype(np.float32),
+            "weights": rng.uniform(0.2, 1.0, m).astype(np.float32)}
+    B, T = 64, 16
+    seq = {"obs": rng.normal(size=(B, T, 4)).astype(np.float32),
+           "next_obs": rng.normal(size=(B, T, 4)).astype(np.float32),
+           "actions": rng.integers(0, 2, (B, T)).astype(np.int32),
+           "rewards": rng.normal(size=(B, T)).astype(np.float32),
+           "dones": rng.random((B, T)) < 0.05, "truncateds": rng.random((B, T)) < 0.05}
+    ac, q, gru = (rllib.ActorCriticModule(4, 2), rllib.QModule(4, 2),
+                  rllib.GRUQModule(4, 2, 64))
+    cases = {"pg": (ac, pg._pg_loss(ac), flat, False),
+             "a2c": (ac, pg._a2c_loss(ac, 0.01, 0.5), flat, False),
+             "simple_q": (q, simple_q._simple_q_loss(q, 0.99), flat, True),
+             "apex": (q, simple_q._apex_loss(q, 0.99), flat, True),
+             "r2d2": (gru, r2d2._r2d2_loss(gru, 0.99, 4), seq, True)}
+    out = {}
+    for name, (module, loss, batch, target) in cases.items():
+        params = module.init(torch.Generator().manual_seed(RC_SEED))
+        tparams = tree_map(lambda x: 0.9 * x, params)
+        got = {}
+        for dev in ("cpu", "cuda"):
+            aux = {"target_params": tree_map(lambda x: x.to(dev), tparams)} if target else {}
+            (value, stats), grads = learner.value_and_grad(
+                loss, tree_map(lambda x: x.to(dev), params),
+                {k: learner.to_tensor(v, dev) for k, v in batch.items()}, **aux)
+            got[dev] = (value, stats, grads)
+        rllib_close(got["cuda"][0].reshape(1), got["cpu"][0].reshape(1), f"{name} loss")
+        for k, v in got["cpu"][1].items():
+            rllib_close(got["cuda"][1][k], v, f"{name} {k}")
+        out[name] = {"loss": float(got["cpu"][0]),
+                     "grad_rel_err": rllib_tree_rel(got["cuda"][2], got["cpu"][2],
+                                                    f"{name} grads")}
+    return out
+
+
+def rc_same_state(algo_cpu, algo_card) -> None:
+    """``algo_card`` takes ``algo_cpu``'s state (every tensor to the card)."""
+    from ray_tpu_torch.rllib.learner import to_device
+
+    algo_card.set_state(to_device(algo_cpu.get_state(), algo_card.device))
+
+
+def rc_peaked_heads(torch, algo) -> None:
+    """Give DreamerV3's reward head and critics a last-layer bias peaked at
+    one bin. They start at zero (as the JAX package's), where
+    ``twohot_mean`` is the rounding of the bins' sum (+-22025 cancelling)
+    and the actor's advantages are that rounding, which differs between
+    devices; peaked, the imagined rewards and values are O(1)."""
+    from ray_tpu_torch.rllib.algorithms.dreamerv3 import _linspace_bins
+
+    lin = _linspace_bins().to(algo.device)
+    for head, c in ((algo.state["wm"]["reward"], 1.0), (algo.state["critic"], 0.5),
+                    (algo.state["critic_slow"], 0.6)):
+        head[-1]["b"] = -2.0 * (lin - c) ** 2
+
+
+def rc_update_pairs(torch, rllib) -> dict:
+    """(a) DDPG, TD3, CRR, MADDPG, QMIX, DT, DreamerV3, ES and ARS: updates
+    on the card against the same on the CPU, from one state and the same
+    draws (drawn on the CPU): losses within ``RLLIB_FWD``, params within
+    ``RLLIB_GRAD_REL`` of their leaf's largest."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib import learner
+    from ray_tpu_torch.rllib.algorithms import ddpg, es, maddpg, qmix
+    from ray_tpu_torch.rllib.learner import to_device, to_tensor
+    from ray_tpu_torch.rllib.rl_module import DDPGModule, tree_leaves
+
+    rng = np.random.default_rng(RC_SEED + 1)
+    g = torch.Generator().manual_seed(RC_SEED + 1)
+    out = {}
+
+    def stats_close(name, got, want):
+        for k, v in want.items():
+            rllib_close(torch.as_tensor(float(got[k])).reshape(1),
+                        torch.as_tensor(float(v)).reshape(1), f"{name} {k}")
+
+    # DDPG and TD3: two updates (TD3: the critic alone, then the policy step)
+    cont = {"obs": 0.1 * rng.normal(size=(256, 3)).astype(np.float32),
+            "next_obs": 0.1 * rng.normal(size=(256, 3)).astype(np.float32),
+            "actions": rng.uniform(-1.9, 1.9, (256, 1)).astype(np.float32),
+            "rewards": rng.normal(size=256).astype(np.float32),
+            "dones": rng.random(256) < 0.1}
+    for name, cfg in (("ddpg", rllib.DDPGConfig()), ("td3", rllib.TD3Config())):
+        mod = DDPGModule(3, 1, -2.0, 2.0)
+        pair = {dev: ddpg._DDPGLearner(mod, cfg, dev) for dev in ("cpu", "cuda")}
+        pair["cuda"].set_state(pair["cpu"].get_state())
+        for step in range(2):
+            noise = torch.randn((256, 1), generator=g)
+            want = pair["cpu"].update(rllib.SampleBatch(cont), noise)
+            got = pair["cuda"].update(rllib.SampleBatch(cont), noise.cuda())
+            stats_close(name, got, want)
+        out[name] = {"param_rel_err": rllib_tree_rel(pair["cuda"].params, pair["cpu"].params,
+                                                     f"{name} params"), **want}
+    # CRR: a critic warm-up update, then one with the actor step
+    crr = {dev: (rllib.CRRConfig().environment(rllib.Pendulum()).offline_data(
+        rllib.SampleBatch(cont)).debugging(seed=RC_SEED).resources(device=dev).build())
+        for dev in ("cpu", "cuda")}
+    rc_same_state(crr["cpu"], crr["cuda"])
+    for do_actor in (False, True):
+        noise = {"next": torch.randn((256, 1), generator=g),
+                 "adv": torch.randn((4, 256, 1), generator=g)}
+        want = crr["cpu"]._update({k: to_tensor(v, "cpu") for k, v in cont.items()}, noise,
+                                  do_actor)
+        got = crr["cuda"]._update({k: to_tensor(v, "cuda") for k, v in cont.items()},
+                                  to_device(noise, "cuda"), do_actor)
+        stats_close("crr", got, want)
+    out["crr"] = {"param_rel_err": rllib_tree_rel(crr["cuda"].params, crr["cpu"].params,
+                                                  "crr params"), **learner.floats(want)}
+    # MADDPG and QMIX: three agents, one update
+    for name, env, update in (("maddpg", rllib.SimpleSpread(n_agents=3), maddpg._maddpg_update),
+                              ("qmix", rllib.DiscreteSpread(n_agents=3), qmix._qmix_update)):
+        cfg_of = rllib.MADDPGConfig if name == "maddpg" else rllib.QMIXConfig
+        algos = {dev: cfg_of().environment(env).debugging(seed=RC_SEED).resources(
+            device=dev).build() for dev in ("cpu", "cuda")}
+        N, O = 3, env.observation_size
+        batch = {"obs": rng.normal(size=(512, N, O)).astype(np.float32),
+                 "next_obs": rng.normal(size=(512, N, O)).astype(np.float32)}
+        if name == "maddpg":
+            batch.update(actions=rng.uniform(-1, 1, (512, N, 2)).astype(np.float32),
+                         rewards=np.repeat(rng.normal(size=(512, 1)), N, 1).astype(np.float32),
+                         dones=np.zeros((512, N), bool))
+        else:
+            batch.update(actions=rng.integers(0, 5, (512, N)).astype(np.int32),
+                         rewards=rng.normal(size=512).astype(np.float32),
+                         dones=rng.random(512) < 0.05,
+                         global_state=rng.normal(size=(512, 18)).astype(np.float32),
+                         next_global_state=rng.normal(size=(512, 18)).astype(np.float32))
+        res = {}
+        for dev, a in algos.items():
+            tx = (a.actor_tx, a.critic_tx) if name == "maddpg" else a.tx
+            res[dev] = update(a.config, a.nets, tx, to_device(algos["cpu"]._state(), dev),
+                              {k: to_tensor(v, dev) for k, v in batch.items()})
+        stats_close(name, learner.floats(res["cuda"][1]), learner.floats(res["cpu"][1]))
+        out[name] = {"param_rel_err": rllib_tree_rel(res["cuda"][0]["params"],
+                                                     res["cpu"][0]["params"], f"{name} params"),
+                     **learner.floats(res["cpu"][1])}
+    # DT: one AdamW step at the (c) widths, from a state three steps in (a
+    # first Adam step is g / (|g| + eps): where a gradient is near 0, its
+    # rounding moves the step by up to lr, so the state has seen gradients)
+    data = rc_cartpole_offline_data(torch, rllib)
+    dts = {dev: rc_dt_config(rllib, dev, data).build() for dev in ("cpu", "cuda")}
+    n_windows = len(dts["cpu"]._window_index)
+    for _ in range(3):
+        dts["cpu"]._update(*(to_tensor(w, "cpu") for w in dts["cpu"]._gather_windows(
+            rng.integers(0, n_windows, 64))))
+    rc_same_state(dts["cpu"], dts["cuda"])
+    windows = dts["cpu"]._gather_windows(rng.integers(0, n_windows, 64))
+    losses = {dev: a._update(*(to_tensor(w, dev) for w in windows)) for dev, a in dts.items()}
+    rllib_close(losses["cuda"].reshape(1), losses["cpu"].reshape(1), "dt loss")
+    out["dt"] = {"loss": float(losses["cpu"]),
+                 "param_rel_err": rllib_tree_rel(dts["cuda"].params, dts["cpu"].params,
+                                                 "dt params")}
+    # DreamerV3: one update at half the (b) widths, from one replay chunk
+    small = dict(deter_size=128, units=128, latent_cats=8, latent_classes=8, seq_len=32,
+                 num_envs=8, updates_per_iter=1)
+    drs = {dev: rc_dreamer_config(rllib, dev, **small).build() for dev in ("cpu", "cuda")}
+    for _ in range(3):  # replay chunks, and a state three updates in (as DT's)
+        drs["cpu"].train()
+    rc_peaked_heads(torch, drs["cpu"])
+    rc_same_state(drs["cpu"], drs["cuda"])
+    batch = drs["cpu"]._replay[0]
+    noise = drs["cpu"].draw_noise(32, 8)
+    res = {dev: a._update(a.state, a._tensors(batch), to_device(noise, dev))
+           for dev, a in drs.items()}
+    stats_close("dreamerv3", learner.floats(res["cuda"][1]), learner.floats(res["cpu"][1]))
+    out["dreamerv3"] = {
+        "param_rel_err": max(rllib_tree_rel(res["cuda"][0][p], res["cpu"][0][p],
+                                            f"dreamerv3 {p}")
+                             for p in ("wm", "actor", "critic", "critic_slow")),
+        **learner.floats(res["cpu"][1])}
+    # ES and ARS: an update from the same perturbations and (tied) returns
+    for name, cfg in (("es", rllib.ESConfig().training(population_size=64, hidden=(16,))),
+                      ("ars", rllib.ARSConfig().training(population_size=32))):
+        cfg = cfg.environment(rllib.CartPole()).debugging(seed=RC_SEED)
+        a = cfg.copy().resources(device="cpu").build()
+        half = cfg.population_size // 2
+        eps = [torch.randn((half,) + tuple(x.shape), generator=g) for x in tree_leaves(a.theta)]
+        returns = torch.randint(8, 40, (cfg.population_size,), generator=g).float()
+        res = {}
+        for dev in ("cpu", "cuda"):
+            theta, e = to_device(a.theta, dev), [x.to(dev) for x in eps]
+            if name == "es":
+                res[dev] = es._es_update(cfg, a.tx, theta, to_device(a.opt_state, dev), e,
+                                         returns.to(dev))[0]
+            else:
+                res[dev] = es._ars_update(cfg, theta, e, returns.to(dev))
+        if not torch.equal(es._stable_argsort(returns.cuda()).cpu(), es._stable_argsort(returns)):
+            raise AssertionError(f"rllib_contrib {name}: the card's ranks differ")
+        rllib_close(es._centered_ranks(returns.cuda()), es._centered_ranks(returns),
+                    f"{name} shaped ranks")
+        out[name] = {"theta_rel_err": rllib_tree_rel(res["cuda"], res["cpu"], f"{name} theta"),
+                     "distinct_returns": len(set(returns.tolist()))}
+    return out
+
+
+def rc_bandit_pulls(torch, rllib) -> dict:
+    """(a) LinUCB and LinTS: 200 pulls on the card and on the CPU from the
+    same contexts, rewards and posterior noise: arms equal, the statistics
+    within ``RLLIB_GRAD_REL`` of their largest."""
+    from ray_tpu_torch.rllib.algorithms import bandit
+
+    out = {}
+    for name in ("LinUCB", "LinTS"):
+        env = rllib.LinearBanditEnv(num_arms=4, context_dim=6, noise=0.05, env_seed=3)
+        cfg = getattr(rllib, name + "Config")().environment(env)
+        g = torch.Generator().manual_seed(RC_SEED)
+        st = {dev: (cfg.copy().resources(device=dev).build()) for dev in ("cpu", "cuda")}
+        stats = {dev: (a.A, a.b) for dev, a in st.items()}
+        state, ctx = env.reset(g, RC_PULLS, "cpu")
+        noise = torch.randn((RC_PULLS, 4), generator=g)
+        arms = []
+        for i in range(RC_PULLS):
+            arm = {}
+            for dev in ("cpu", "cuda"):
+                A, b = stats[dev]
+                arm[dev] = bandit._select(cfg, A, b, ctx[i].to(dev), noise[i].to(dev))
+            if int(arm["cuda"]) != int(arm["cpu"]):
+                raise AssertionError(f"rllib_contrib {name}: pull {i} arms differ")
+            reward = env.step({"ctx": ctx[i:i + 1], "key": state["key"][i:i + 1]},
+                              arm["cpu"][None])[2][0]
+            for dev in ("cpu", "cuda"):
+                A, b = stats[dev]
+                stats[dev] = bandit._update(A, b, arm[dev], ctx[i].to(dev), reward.to(dev))
+            arms.append(int(arm["cpu"]))
+        out[name] = {"pulls": RC_PULLS, "arms_equal": True, "arms_used": len(set(arms)),
+                     "A_rel_err": rllib_tree_rel([stats["cuda"][0]], [stats["cpu"][0]],
+                                                 f"{name} A"),
+                     "b_rel_err": rllib_tree_rel([stats["cuda"][1]], [stats["cpu"][1]],
+                                                 f"{name} b")}
+    return out
+
+
+def rc_device_launches(torch, fn) -> dict:
+    """The device launches of one ``fn()`` (kernels, copies and sets in a
+    ``torch.profiler`` trace of the CUDA activity) and the host's
+    kernel-launch calls, counted on the trace's raw events (building the
+    profiler's event tree for ~10^4 events takes seconds)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.profiler.kineto_results.events()
+    device = sum(1 for e in events if e.device_type() == DeviceType.CUDA)
+    calls = sum(1 for e in events if e.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                                                  "cuLaunchKernel", "cuLaunchKernelEx"))
+    return {"device_events": device or None, "host_launch_calls": calls or None}
+
+
+def rc_dreamer_greedy(torch, algo, obs):
+    """Greedy actions of a DreamerV3 policy from a fresh recurrent state:
+    the posterior's mode as the latent, the actor's argmax; -> (actions,
+    the smallest top-two gap of the latents' and the actor's logits)."""
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.rllib.algorithms import dreamerv3 as dv3
+
+    cfg, wm = algo.config, algo.state["wm"]
+    with torch.no_grad():
+        x = torch.as_tensor(obs, device=algo.device)
+        h = torch.zeros((x.shape[0], cfg.deter_size), device=algo.device)
+        post = dv3._mlp(wm["post"], torch.cat([h, dv3._mlp(wm["encoder"], dv3.symlog(x))], -1))
+        probs = algo._logits_to_probs(post)
+        z = F.one_hot(probs.argmax(-1), cfg.latent_classes).float().reshape(x.shape[0], -1)
+        logits = dv3._mlp(algo.state["actor"], torch.cat([h, z], -1))
+        top2 = torch.cat([probs.log().topk(2, -1).values.reshape(x.shape[0], -1, 2),
+                          logits.topk(2, -1).values[:, None]], 1)
+        gap = (top2[..., 0] - top2[..., 1]).amin(-1)
+    return logits.argmax(-1).cpu().numpy(), gap.cpu().numpy()
+
+
+def rc_dt_greedy(torch, algo, obs):
+    """Greedy first actions of a DT policy at its target return; -> (actions,
+    the top-two gap of the logits)."""
+    cfg = algo.config
+    with torch.no_grad():
+        n, K = obs.shape[0], cfg.context_length
+        rtg = torch.zeros((n, K), device=algo.device)
+        rtg[:, 0] = cfg.target_return
+        o = torch.zeros((n, K, obs.shape[1]), device=algo.device)
+        o[:, 0] = torch.as_tensor(obs, device=algo.device)
+        act = torch.full((n, K), algo.module.num_actions, device=algo.device, dtype=torch.long)
+        logits = algo.module.action_logits(algo.params, rtg, o, act)[:, 0]
+        top2 = logits.topk(2, -1).values
+    return logits.argmax(-1).cpu().numpy(), (top2[:, 0] - top2[:, 1]).cpu().numpy()
+
+
+def rc_greedy_equal(torch, greedy, ref, other, obs) -> dict:
+    want, gap = greedy(torch, ref, obs)
+    got, _ = greedy(torch, other, obs)
+    bad = (got != want) & (gap > RLLIB_TIE)
+    if bad.any():
+        raise AssertionError(f"rllib_contrib checkpoint: {int(bad.sum())} greedy actions differ")
+    return {"observations": len(obs), "equal": int((got == want).sum()),
+            "ties": int(((got != want) & (gap <= RLLIB_TIE)).sum())}
+
+
+def rc_finite(name: str, stats: dict) -> dict:
+    bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
+    if bad or not stats:
+        raise AssertionError(f"rllib_contrib {name}: learner statistics {stats}")
+    return stats
+
+
+def rc_others(torch, rllib) -> dict:
+    """(d) every other part-2 algorithm, 2 iterations at its JAX test's
+    configuration (``tests/test_rllib_contrib.py``): finite statistics."""
+    import numpy as np
+
+    cp, pend = rllib.CartPole(), rllib.Pendulum()
+    rng = np.random.default_rng(RC_SEED)
+    n = 4000
+    acts = rng.uniform(-0.95, 0.95, (n, 1)).astype(np.float32)
+    obs = (rng.normal(size=(n, 3)) * 0.1).astype(np.float32)
+    crr_data = rllib.SampleBatch({"obs": obs, "actions": acts,
+                                  "rewards": (-(acts[:, 0] - 0.5) ** 2).astype(np.float32),
+                                  "dones": np.ones(n, bool), "next_obs": obs})
+    configs = {
+        "PG": rllib.PGConfig().environment(cp).env_runners(num_envs_per_runner=16,
+                                                            rollout_length=128),
+        "A2C": rllib.A2CConfig().environment(cp).env_runners(
+            num_envs_per_runner=16, rollout_length=128).training(lr=2e-3, gae_lambda=0.95),
+        "A3C": rllib.A3CConfig().environment(cp).env_runners(
+            num_env_runners=2, num_envs_per_runner=4, rollout_length=32),
+        "DDPG": rllib.DDPGConfig().environment(pend).env_runners(
+            num_envs_per_runner=4, rollout_length=64).training(learning_starts=200,
+                                                               num_updates_per_iter=4),
+        "TD3": rllib.TD3Config().environment(pend).env_runners(
+            num_envs_per_runner=2, rollout_length=32).training(learning_starts=50,
+                                                               num_updates_per_iter=2),
+        "SimpleQ": rllib.SimpleQConfig().environment(cp).env_runners(
+            num_envs_per_runner=8, rollout_length=64).training(
+            learning_starts=100, num_updates_per_iter=8, target_update_freq=8),
+        "APEX": rllib.ApexDQNConfig().environment(cp).env_runners(
+            num_env_runners=4, num_envs_per_runner=4, rollout_length=32).training(
+            learning_starts=200, num_updates_per_iter=4),
+        "ARS": rllib.ARSConfig().environment(cp).training(
+            population_size=32, noise_std=0.1, lr=0.1, top_directions=8, eval_length=200),
+        "BanditLinUCB": rllib.LinUCBConfig().environment(rllib.LinearBanditEnv(
+            num_arms=4, context_dim=6, noise=0.05, env_seed=3)).training(steps_per_iter=64),
+        "BanditLinTS": rllib.LinTSConfig().environment(rllib.LinearBanditEnv(
+            num_arms=3, context_dim=4, env_seed=1)).training(steps_per_iter=32),
+        "R2D2": rllib.R2D2Config().environment(rllib.CartPole(max_episode_steps=50)).env_runners(
+            num_envs_per_runner=4, rollout_length=40).training(
+            sequence_length=20, burn_in=4, learning_starts=8, num_updates_per_iter=2,
+            train_batch_size=8, hidden_size=32),
+        "MADDPG": rllib.MADDPGConfig().environment(rllib.SimpleSpread(n_agents=2)).training(
+            learning_starts=200, num_updates_per_iter=8, train_batch_size=128,
+            exploration_noise=0.3, hidden=(64, 64)),
+        "QMIX": rllib.QMIXConfig().environment(rllib.DiscreteSpread(n_agents=2)).training(
+            learning_starts=200, num_updates_per_iter=8, train_batch_size=128,
+            hidden=(64, 64)),
+        "CRR": rllib.CRRConfig().environment(pend).offline_data(crr_data).training(
+            updates_per_iter=100, train_batch_size=256, hidden=(64, 64),
+            critic_warmup_updates=400),
+    }
+    out = {}
+    for name, cfg in configs.items():
+        t0 = time.perf_counter()
+        algo = cfg.debugging(seed=RC_SEED).resources(device="cuda").build()
+        for _ in range(RC_OTHER_ITERS):
+            result = algo.train()
+        torch.cuda.synchronize()
+        algo.stop()
+        out[name] = {"learners": rc_finite(name, result["learners"]),
+                     "episode_return_mean": result["episode_return_mean"],
+                     "seconds": time.perf_counter() - t0}
+    return out
+
+
+def run_rllib_contrib(torch, card: str):
+    """The ``rllib_contrib`` phase: (a) card against CPU, (b) DreamerV3 at
+    its widths and the published batch, (c) DT at the published gym
+    setting, (d) ES to its JAX test's criterion and every other part-2
+    algorithm for 2 iterations, (e) (b)'s and (c)'s algorithms saved on
+    the card and revived on the CPU."""
+    import numpy as np
+
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib.algorithm import Algorithm
+    from ray_tpu_torch.rllib.learner import value_and_grad
+
+    t0 = time.perf_counter()
+    yield {"part": "a_card_against_cpu", "card": card, "envs": rc_env_parity(torch, rllib),
+           "losses": rc_loss_pairs(torch, rllib), "updates": rc_update_pairs(torch, rllib),
+           "bandits": rc_bandit_pulls(torch, rllib), "seconds": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+
+    # (b) DreamerV3
+    t0 = time.perf_counter()
+    dream = rc_dreamer_config(rllib, "cuda").build()
+    update_s, collect_s = [], []
+    dream._update = rllib_timed(torch, dream._update, update_s)
+    dream._collect = rllib_timed(torch, dream._collect, collect_s)
+    first = dream.train()["learners"]
+    probe = dream._replay[0]
+    T, B = probe["action"].shape
+    gz = dream.draw_noise(T, B, torch.Generator(device="cuda").manual_seed(RC_SEED + 123))["obs_z"]
+    before = float(dream._observe_loss(dream.state["wm"], gz, probe))
+    for _ in range(RC_DREAMER_ITERS - 1):
+        last = dream.train()["learners"]
+    after = float(dream._observe_loss(dream.state["wm"], gz, probe))
+    rc_finite("dreamerv3", last)
+    if not after < before:
+        raise AssertionError(f"rllib_contrib dreamerv3: probe loss {before} -> {after}")
+    batch = dream._tensors(probe)
+    launches = rc_device_launches(torch, lambda: dream._update(
+        dream.state, batch, dream.draw_noise(T, B)))
+    # where an update's time goes: the world model's step (the posterior
+    # pass over 64 steps, its heads, their backward) against the whole
+    wm_s = []
+    wm_step = rllib_timed(torch, lambda: value_and_grad(
+        lambda wm: dream._observe(wm, batch, dream.draw_noise(T, B)["obs_z"]), dream.state["wm"]),
+        wm_s)
+    for _ in range(3):
+        wm_step()
+    collect_launches = rc_device_launches(torch, dream._collect)
+    steps = dream.config.seq_len * dream.config.num_envs
+    yield {"part": "b_dreamerv3", "card": card, "iterations": RC_DREAMER_ITERS,
+           "widths": {k: getattr(dream.config, k) for k in (
+               "deter_size", "units", "latent_cats", "latent_classes")},
+           "batch": [T, B], "horizon": dream.config.horizon,
+           "updates_per_iter": dream.config.updates_per_iter,
+           "probe_world_model_loss": [before, after], "first": first, "last": last,
+           "update_ms_median": 1e3 * statistics.median(update_s[4:]),
+           "first_update_ms": 1e3 * update_s[0], "launches_per_update": launches,
+           "world_model_grad_ms_median": 1e3 * statistics.median(wm_s),
+           "world_model_grad_launches": rc_device_launches(torch, wm_step),
+           "env_steps_per_s_collecting": steps / statistics.median(collect_s[1:-1]),
+           "launches_per_collect": collect_launches, "env_steps_per_collect": steps,
+           "seconds": time.perf_counter() - t0}
+    torch.cuda.empty_cache()
+
+    # (c) DT
+    t0 = time.perf_counter()
+    dt_cfg = rc_dt_config(rllib, "cuda", rc_cartpole_offline_data(torch, rllib))
+    dt = dt_cfg.build()
+    dt_update_s = []
+    dt._update = rllib_timed(torch, dt._update, dt_update_s)
+    losses = [dt.train()["learners"]["bc_loss"] for _ in range(RC_DT_ITERS)]
+    t_eval = time.perf_counter()
+    ev = dt.evaluate(num_episodes=5)["evaluation"]
+    eval_s = time.perf_counter() - t_eval
+    if not (losses[-1] < losses[0] and ev["episode_return_mean"] > 60.0):
+        raise AssertionError(f"rllib_contrib dt: bc_loss {losses}, evaluation {ev}")
+    yield {"part": "c_dt", "card": card, "iterations": RC_DT_ITERS,
+           "updates": len(dt_update_s), "bc_loss": losses, "evaluation": ev,
+           "evaluation_s": eval_s,
+           "update_ms_median": 1e3 * statistics.median(dt_update_s[10:]),
+           "launches_per_update": rc_device_launches(torch, lambda: dt._update(
+               *rc_dt_windows(dt))),
+           "seconds": time.perf_counter() - t0}
+
+    # (d) ES to its JAX test's criterion, the others for 2 iterations
+    t0 = time.perf_counter()
+    es = (rllib.ESConfig().environment(rllib.CartPole())
+          .training(population_size=64, noise_std=0.1, lr=0.05, eval_length=200, hidden=(16,))
+          .debugging(seed=RC_SEED).resources(device="cuda").build())
+    es_iter_s, fitness = [], []
+    for _ in range(RC_ES_ITERS):
+        t1 = time.perf_counter()
+        fitness.append(es.train()["learners"]["fitness_mean"])
+        es_iter_s.append(time.perf_counter() - t1)
+    want = max(fitness[0] * 1.5, 40.0)
+    if not fitness[-1] > want:
+        raise AssertionError(f"rllib_contrib es: fitness {fitness}, not above {want} at the end")
+    yield {"part": "d_es_and_others", "card": card,
+           "es": {"iterations": RC_ES_ITERS, "fitness_mean": fitness, "criterion": want,
+                  "iteration_s_median": statistics.median(es_iter_s[1:]),
+                  "first_iteration_s": es_iter_s[0]},
+           "others": rc_others(torch, rllib), "seconds": time.perf_counter() - t0}
+
+    # (e) checkpoints from the card revived on the CPU
+    t0 = time.perf_counter()
+    obs = np.random.default_rng(RC_SEED).normal(scale=0.1, size=(1024, 4)).astype(np.float32)
+    with tempfile.TemporaryDirectory() as tmp:
+        d_cpu = Algorithm.from_checkpoint(dream.save(os.path.join(tmp, "dreamer.pkl")),
+                                          device="cpu")
+        t_cpu = Algorithm.from_checkpoint(dt.save(os.path.join(tmp, "dt.pkl")), config=dt_cfg,
+                                          device="cpu")
+    if d_cpu.device.type != "cpu" or t_cpu.device.type != "cpu":
+        raise AssertionError("rllib_contrib checkpoint: revived on the wrong device")
+    yield {"part": "e_checkpoint", "card": card,
+           "dreamerv3": rc_greedy_equal(torch, rc_dreamer_greedy, dream, d_cpu, obs),
+           "dt": rc_greedy_equal(torch, rc_dt_greedy, dt, t_cpu, obs),
+           "seconds": time.perf_counter() - t0}
+
+
+def rc_dt_windows(dt):
+    """One minibatch of DT windows on its device."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.learner import to_tensor
+
+    idx = np.random.default_rng(RC_SEED).integers(0, len(dt._window_index),
+                                                  dt.config.train_batch_size)
+    return [to_tensor(w, dt.device) for w in dt._gather_windows(idx)]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phases", default=",".join(PHASES),
@@ -8165,6 +8837,13 @@ def main(argv=None) -> int:
         for rep in run_rllib(torch, card):
             emit({"phase": "rllib", "ok": True, **rep})
         emit({"phase": "rllib", "ok": True, "card": card, "seconds": time.perf_counter() - t0})
+        torch.cuda.empty_cache()
+    if "rllib_contrib" in phases:
+        t0 = time.perf_counter()
+        for rep in run_rllib_contrib(torch, card):
+            emit({"phase": "rllib_contrib", "ok": True, **rep})
+        emit({"phase": "rllib_contrib", "ok": True, "card": card,
+              "seconds": time.perf_counter() - t0})
         torch.cuda.empty_cache()
 
     train_step_ms = None  # the train phase's median step, beside the trainer phase's
@@ -8262,7 +8941,7 @@ def main(argv=None) -> int:
                                 "ms_per_request": rep["ms_per_request"]}
         if "jobs" in phases:
             torch.cuda.empty_cache()
-            for rep in run_jobs(torch, cfg, params, kernels_of, engine_tokens, card):
+            for rep in run_jobs(torch, kernels_of, card):
                 emit({"phase": "jobs", "ok": True, **rep})
                 if "launches" in rep:
                     count("jobs", rep["launches"], rep["launches_by_route"])

@@ -12,8 +12,10 @@ JAX train state (params, optax's Adam ``mu``/``nu``/``count``, ``step``)
 across the same way, into the state of
 :func:`ray_tpu_torch.models.transformer.make_train_step`.
 :func:`rllib_params_from_jax` and :func:`adam_state_from_jax` carry an RL
-module's params tree (dicts and lists of layers) and an optax
-``chain(clip_by_global_norm, adam)`` state into ``ray_tpu_torch.rllib``.
+module's params tree (dicts and lists of layers, stacked per-agent leaves),
+a whole algorithm state with its optax states (DreamerV3's), and an optax
+``adam``, ``adamw`` or ``chain(clip_by_global_norm, adam)`` state into
+``ray_tpu_torch.rllib``.
 """
 
 from __future__ import annotations
@@ -57,22 +59,34 @@ def train_state_from_numpy(params: Any, mu: Any, nu: Any, count, step, device=No
     }
 
 
+def _is_adam(node) -> bool:
+    return all(hasattr(node, f) for f in ("count", "mu", "nu"))
+
+
 def rllib_params_from_jax(tree: Any, device=None) -> Any:
-    """An ``rllib`` module's params tree, as numpy (dicts, lists of
-    ``{"w", "b"}`` layers, leaves) -> the same tree of float32 tensors."""
+    """An ``rllib`` params tree or algorithm state, as numpy (dicts, lists
+    of ``{"w", "b"}`` layers, leaves, stacked per-agent leaves) -> the same
+    tree of float32 tensors. An optax state inside it (DreamerV3's
+    ``wm_opt``, ...) becomes the port's Adam state
+    (:func:`adam_state_from_jax`); a Python number stays as it is (ARS's
+    normalizer count)."""
+    if _is_adam(tree) or (isinstance(tree, tuple) and any(_is_adam(m) for m in tree)):
+        return adam_state_from_jax(tree, device)
     if isinstance(tree, dict):
         return {k: rllib_params_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(rllib_params_from_jax(v, device) for v in tree)
+    if isinstance(tree, (bool, int, float)):
+        return tree
     return tensor_from_numpy(np.asarray(tree, np.float32), device)
 
 
 def adam_state_from_jax(opt_state: Any, device=None) -> dict:
-    """The Adam state inside an optax state, as numpy (``optax.adam``'s, or
-    a ``chain`` holding it: the first member with ``count``, ``mu`` and
-    ``nu``) -> ``{"count", "mu", "nu"}``, the state of
-    ``ray_tpu_torch.rllib.learner.adam``."""
-    if all(hasattr(opt_state, f) for f in ("count", "mu", "nu")):
+    """The Adam state inside an optax state, as numpy (``optax.adam``'s or
+    ``optax.adamw``'s, or a ``chain`` holding it: the first member with
+    ``count``, ``mu`` and ``nu``) -> ``{"count", "mu", "nu"}``, the state of
+    ``ray_tpu_torch.rllib.learner.adam`` and ``adamw``."""
+    if _is_adam(opt_state):
         return {"count": torch.tensor(int(np.asarray(opt_state.count)), dtype=torch.int32,
                                       device=device),
                 "mu": rllib_params_from_jax(opt_state.mu, device),

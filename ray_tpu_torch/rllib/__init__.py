@@ -12,8 +12,7 @@ Python: one set of launches an env step for thousands of envs (the JAX
 package scans a whole rollout as one XLA program). Modules are plain
 functions over params trees; learners take ``torch.autograd`` gradients and
 step the port's own optax counterparts. Everything runs on CUDA unless
-given ``device="cpu"`` (``AlgorithmConfig.resources``). The algorithms of
-ROADMAP item 12 are not ported yet: their names raise ``NotPortedError``.
+given ``device="cpu"`` (``AlgorithmConfig.resources``).
 """
 
 from ray_tpu_torch.rllib.envs import CartPole, Pendulum, JaxEnv
@@ -40,12 +39,38 @@ from ray_tpu_torch.rllib.algorithms.bc import BC, BCConfig
 from ray_tpu_torch.rllib.algorithms.impala import APPO, APPOConfig, IMPALA, IMPALAConfig
 from ray_tpu_torch.rllib.algorithms.marwil import MARWIL, MARWILConfig
 from ray_tpu_torch.rllib.algorithms.cql import CQL, CQLConfig
+from ray_tpu_torch.rllib.algorithms.pg import (
+    A2C,
+    A2CConfig,
+    A3C,
+    A3CConfig,
+    PG,
+    PGConfig,
+)
+from ray_tpu_torch.rllib.algorithms.ddpg import DDPG, DDPGConfig, TD3, TD3Config
+from ray_tpu_torch.rllib.algorithms.simple_q import (
+    ApexDQN,
+    ApexDQNConfig,
+    SimpleQ,
+    SimpleQConfig,
+)
+from ray_tpu_torch.rllib.algorithms.es import ARS, ARSConfig, ES, ESConfig
+from ray_tpu_torch.rllib.algorithms.r2d2 import GRUQModule, R2D2, R2D2Config
+from ray_tpu_torch.rllib.algorithms.maddpg import MADDPG, MADDPGConfig, SimpleSpread
+from ray_tpu_torch.rllib.algorithms.dt import DT, DTConfig, DTModule
+from ray_tpu_torch.rllib.algorithms.qmix import DiscreteSpread, QMIX, QMIXConfig
+from ray_tpu_torch.rllib.algorithms.crr import CRR, CRRConfig
+from ray_tpu_torch.rllib.algorithms.bandit import (
+    LinearBanditEnv,
+    LinTS,
+    LinTSConfig,
+    LinUCB,
+    LinUCBConfig,
+)
 from ray_tpu_torch.rllib.algorithms.registry import (
-    NOT_PORTED_NAMES,
     get_algorithm_class,
     get_algorithm_config,
     list_algorithms,
-    not_ported,
 )
 from ray_tpu_torch.rllib.replay_buffer import PrioritizedReplayBuffer
 from ray_tpu_torch.rllib import offline
@@ -126,9 +151,3 @@ __all__ = [
     "offline",
 ]
 
-
-def __getattr__(name: str):
-    # the JAX package's algorithms that are not ported yet (ROADMAP item 12)
-    if name in NOT_PORTED_NAMES:
-        raise not_ported(name, NOT_PORTED_NAMES[name])
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -89,6 +89,23 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
     return GradientTransformation(init, update)
 
 
+def adamw(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
+          eps_root: float = 0.0, weight_decay: float = 1e-4) -> GradientTransformation:
+    """``optax.adamw``: Adam's update, then ``+ weight_decay * params`` (every
+    leaf: no mask), then ``* -lr``. The state is Adam's ``{"count", "mu",
+    "nu"}`` (optax's is a chain holding Adam's state first)."""
+    inner = adam(1.0, b1, b2, eps, eps_root)  # scaled by -1: undone below
+
+    def update(grads, state, params):
+        updates, state = inner.update(grads, state, params)
+        u, p = tree_leaves(updates), tree_leaves(params)
+        # -(-u) is u exactly; optax adds the decay before the rate's scaling
+        u = torch._foreach_add(torch._foreach_neg(u), p, alpha=weight_decay)
+        return tree_unflatten(grads, torch._foreach_mul(u, -lr)), state
+
+    return GradientTransformation(inner.init, update)
+
+
 def clip_by_global_norm(max_norm: float) -> GradientTransformation:
     """``optax.clip_by_global_norm``: scaled by ``max_norm / norm`` where the
     global norm is not below ``max_norm``. Stateless (state ``()``)."""

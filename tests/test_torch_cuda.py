@@ -2258,3 +2258,121 @@ def test_rllib_checkpoint_from_the_card_restores_on_the_cpu(cuda, tmp_path):
     assert on_cpu.device.type == "cpu" and on_card.device.type == "cuda"
     assert (on_cpu.compute_actions(obs) == want).all()
     assert (on_card.compute_actions(obs) == want).all()
+
+
+# --------------------------------------------------------------------------
+# rllib part 2 on the card: DreamerV3 and the Decision Transformer
+# --------------------------------------------------------------------------
+def _rllib_tree_rel(got, want) -> float:
+    """The largest error of a leaf over its largest magnitude."""
+    from ray_tpu_torch.rllib.rl_module import tree_leaves
+
+    worst = 0.0
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        b = b.detach().float().cpu()
+        err = float((a.detach().float().cpu() - b).abs().max())
+        worst = max(worst, err / max(float(b.abs().max()), 1e-30))
+    return worst
+
+
+def _rllib_dreamer(device):
+    from ray_tpu_torch.rllib import CartPole
+    from ray_tpu_torch.rllib.algorithms import DreamerV3Config
+
+    cfg = DreamerV3Config().environment(CartPole()).debugging(seed=0).resources(device=device)
+    cfg.num_envs, cfg.seq_len, cfg.batch_size_seqs, cfg.updates_per_iter = 8, 16, 1, 1
+    return cfg
+
+
+def _rllib_dt(device):
+    import numpy as np
+
+    from ray_tpu_torch.rllib import CartPole, DTConfig, SampleBatch
+
+    rng = np.random.default_rng(0)
+    data = SampleBatch({"obs": rng.normal(size=(200, 4, 4)).astype(np.float32),
+                        "actions": rng.integers(0, 2, (200, 4)).astype(np.int32),
+                        "rewards": np.ones((200, 4), np.float32),
+                        "dones": rng.random((200, 4)) < 0.03})
+    return (DTConfig().environment(CartPole()).offline_data(data)
+            .training(n_layers=3, n_heads=1, d_model=128, updates_per_iter=2)
+            .debugging(seed=0).resources(device=device))
+
+
+def test_rllib_dreamerv3_update_on_the_card_matches_the_cpu(cuda):
+    """A DreamerV3 iteration at the default widths runs on the card (state,
+    replay batch and draws there); one update from the card's state (its
+    reward head and critics given O(1) outputs) and the same Gumbel draws
+    on the CPU gives the same losses (1e-4) and a new state within 1e-4 of
+    each leaf's largest."""
+    from ray_tpu_torch.rllib.learner import floats, to_device
+
+    from ray_tpu_torch.rllib.algorithms.dreamerv3 import _linspace_bins
+
+    algo = _rllib_dreamer("cuda").build()
+    stats = algo.train()["learners"]
+    assert all(v == v for v in stats.values())
+    assert algo.state["wm"]["gru"]["wh"].is_cuda and algo.state["wm_opt"]["mu"]["gru"]["wh"].is_cuda
+    # the reward head and the critics start at zero, where twohot_mean is
+    # the rounding of the bins' sum, which differs between devices (and so
+    # do the actor's advantages): peak their last biases at one bin
+    lin = _linspace_bins().cuda()
+    for head, c in ((algo.state["wm"]["reward"], 1.0), (algo.state["critic"], 0.5),
+                    (algo.state["critic_slow"], 0.6)):
+        head[-1]["b"] = -2.0 * (lin - c) ** 2
+    cpu = _rllib_dreamer("cpu").build()
+    state = to_device(algo.state, "cpu")
+    cpu.set_state({"params": state, "iteration": 0})
+    batch = algo._replay[0]
+    noise = algo.draw_noise(16, 8)
+    got_state, got = algo._update(algo.state, algo._tensors(batch), noise)
+    want_state, want = cpu._update(cpu.state, cpu._tensors(batch), to_device(noise, "cpu"))
+    got, want = floats(got), floats(want)
+    for k in want:
+        assert abs(got[k] - want[k]) <= 1e-4 * max(abs(want[k]), 1e-1), k
+    for part in ("wm", "actor", "critic", "critic_slow"):
+        assert _rllib_tree_rel(got_state[part], want_state[part]) <= 1e-4, part
+
+
+def test_rllib_dt_update_on_the_card_matches_the_cpu(cuda):
+    """Two DT updates on the card (3 layers, 1 head, embedding 128, K 20)
+    against the same windows on the CPU from the same state, three steps
+    in (a first Adam step is g / (|g| + eps), ill-conditioned where a
+    gradient is near 0): losses 1e-5, params within 1e-4 of each leaf's
+    largest."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.learner import to_device, to_tensor
+
+    card, cpu = _rllib_dt("cuda").build(), _rllib_dt("cpu").build()
+    rng = np.random.default_rng(1)
+    for _ in range(3):
+        cpu._update(*(to_tensor(w, "cpu") for w in cpu._gather_windows(
+            rng.integers(0, len(cpu._window_index), 64))))
+    card.set_state(to_device(cpu.get_state(), "cuda"))
+    for _ in range(2):
+        windows = card._gather_windows(rng.integers(0, len(card._window_index), 64))
+        a = float(card._update(*(to_tensor(w, "cuda") for w in windows)))
+        b = float(cpu._update(*(to_tensor(w, "cpu") for w in windows)))
+        assert abs(a - b) <= 1e-5 * max(1.0, abs(b))
+    assert card.params["blocks"][0]["wq"].is_cuda
+    assert _rllib_tree_rel(card.params, cpu.params) <= 1e-4
+
+
+def test_rllib_part_two_checkpoints_from_the_card_restore_on_the_cpu(cuda, tmp_path):
+    """DreamerV3 and DT saved on the card revive on the CPU
+    (``from_checkpoint(device="cpu")``; DT's offline data comes with its
+    config) with every leaf equal."""
+    from ray_tpu_torch.rllib.algorithm import Algorithm
+    from ray_tpu_torch.rllib.rl_module import tree_leaves
+
+    for name, cfg in (("dreamer", _rllib_dreamer("cuda")), ("dt", _rllib_dt("cuda"))):
+        algo = cfg.build()
+        algo.train()
+        path = algo.save(str(tmp_path / f"{name}.pkl"))
+        kw = {"config": _rllib_dt("cuda")} if name == "dt" else {}
+        revived = Algorithm.from_checkpoint(path, device="cpu", **kw)
+        assert revived.device.type == "cpu" and revived.iteration == 1
+        tree = (lambda a: a.state) if name == "dreamer" else (lambda a: a.params)
+        for a, b in zip(tree_leaves(tree(algo)), tree_leaves(tree(revived))):
+            assert b.device.type == "cpu" and torch.equal(a.cpu(), b)

@@ -814,15 +814,22 @@ _RLLIB_MODULES = (
     "ray_tpu_torch.rllib.algorithms.sac", "ray_tpu_torch.rllib.algorithms.bc",
     "ray_tpu_torch.rllib.algorithms.marwil", "ray_tpu_torch.rllib.algorithms.cql",
     "ray_tpu_torch.rllib.algorithms.registry",
+    # part 2
+    "ray_tpu_torch.rllib.algorithms.pg", "ray_tpu_torch.rllib.algorithms.simple_q",
+    "ray_tpu_torch.rllib.algorithms.ddpg", "ray_tpu_torch.rllib.algorithms.es",
+    "ray_tpu_torch.rllib.algorithms.bandit", "ray_tpu_torch.rllib.algorithms.crr",
+    "ray_tpu_torch.rllib.algorithms.r2d2", "ray_tpu_torch.rllib.algorithms.maddpg",
+    "ray_tpu_torch.rllib.algorithms.qmix", "ray_tpu_torch.rllib.algorithms.dt",
+    "ray_tpu_torch.rllib.algorithms.dreamerv3",
 )
 
 
 def test_importing_rllib_loads_no_jax_optax_or_the_jax_package():
-    """The 19 modules of ``rllib`` part 1 (and its package) import neither
-    JAX nor optax (which imports JAX) nor anything of the JAX package; the
-    AST scan above covers their files too."""
+    """The 30 modules of ``rllib`` (and its package) import neither JAX nor
+    optax (which imports JAX) nor anything of the JAX package; the AST scan
+    above covers their files too."""
     rel = {os.path.relpath(p, REPO) for p in _port_files()}
-    assert sum(r.startswith(os.path.join("ray_tpu_torch", "rllib") + os.sep) for r in rel) == 20
+    assert sum(r.startswith(os.path.join("ray_tpu_torch", "rllib") + os.sep) for r in rel) == 31
     code = (
         f"import importlib, sys\nfor m in {_RLLIB_MODULES!r}: importlib.import_module(m)\n"
         "import ray_tpu_torch as rt\nassert rt.rllib.PPOConfig is not None\n"
@@ -864,6 +871,23 @@ def _rllib_entry_points(device):
         if name in ("BC", "MARWIL", "CQL"):
             cfg.offline(data)
         calls[name] = cfg.build
+    # part 2: every algorithm of the registry, and the envs' reset
+    seq = rllib.SampleBatch({"obs": np.zeros((8, 2, 4), np.float32),
+                             "actions": np.zeros((8, 2), np.int32),
+                             "rewards": np.ones((8, 2), np.float32),
+                             "dones": np.zeros((8, 2), bool)})
+    part2 = {"PG": env, "A2C": env, "A3C": env, "SimpleQ": env, "APEX": env, "DDPG": penv,
+             "TD3": penv, "ES": env, "ARS": env, "R2D2": env, "CRR": penv, "DT": env,
+             "DreamerV3": env, "BanditLinUCB": rllib.LinearBanditEnv(),
+             "BanditLinTS": rllib.LinearBanditEnv(),
+             "MADDPG": rllib.SimpleSpread(n_agents=2), "QMIX": rllib.DiscreteSpread(n_agents=2)}
+    for name, e in part2.items():
+        cfg = rllib.get_algorithm_config(name).environment(e).resources(device=device)
+        if name == "CRR":
+            cfg.offline_data(data)
+        if name == "DT":
+            cfg.offline_data(seq)
+        calls[name] = cfg.build
     return calls, Algorithm
 
 
@@ -880,6 +904,7 @@ def test_rllib_entry_points_refuse_to_run_without_cuda(monkeypatch, tmp_path):
     calls, _ = _rllib_entry_points("cpu")
     built = {name: call() for name, call in calls.items()}
     assert built["PPO"].device.type == "cpu" and built["Learner"].device.type == "cpu"
+    assert all(a.device.type == "cpu" for a in built.values() if hasattr(a, "train"))
     algo = built["PPO"]
     algo.config.device = None  # as a config saved on the card holds it
     path = algo.save(str(tmp_path / "ppo.pkl"))
@@ -888,36 +913,69 @@ def test_rllib_entry_points_refuse_to_run_without_cuda(monkeypatch, tmp_path):
     assert Algorithm.from_checkpoint(path, device="cpu").device.type == "cpu"
 
 
-def test_rllib_part_two_names_raise_not_ported():
+def test_rllib_names_resolve_and_the_registry_is_the_jax_packages():
     """``__all__`` equals the JAX package's (``rllib`` and
-    ``rllib.algorithms``); every name of part 2 raises ``NotPortedError``
-    naming ROADMAP item 12, on attribute access and from the registry."""
+    ``rllib.algorithms``) and every name of both resolves (none raises
+    ``NotPortedError`` since part 2, ROADMAP item 12); the registry lists the
+    JAX package's names, each with the port's class of the same name and its
+    config, case-insensitively."""
     import ray_tpu.rllib as jrl
     import ray_tpu.rllib.algorithms as jalgos
     import ray_tpu_torch.rllib as trl
     import ray_tpu_torch.rllib.algorithms as talgos
-    from ray_tpu_torch.exceptions import NotPortedError
     from ray_tpu_torch.rllib.algorithms import registry
 
     assert trl.__all__ == jrl.__all__ and talgos.__all__ == jalgos.__all__
-    missing = []
     for mod, names in ((trl, jrl.__all__), (talgos, jalgos.__all__)):
         for name in names:
-            try:
-                getattr(mod, name)
-            except NotPortedError as exc:
-                assert "ROADMAP item 12" in str(exc), exc
-                missing.append(name)
-    assert set(missing) == set(registry.NOT_PORTED_NAMES) and len(missing) == 61
-    for name in ("PPO", "IMPALA", "APPO", "DQN", "SAC", "BC", "MARWIL", "CQL"):
-        assert trl.get_algorithm_class(name) is getattr(trl, name)
-    assert trl.list_algorithms() == jrl.list_algorithms()
-    for name in registry.NOT_PORTED:
-        for lookup in (trl.get_algorithm_class, trl.get_algorithm_config):
-            with pytest.raises(NotPortedError, match="ROADMAP item 12"):
-                lookup(name)
+            assert getattr(mod, name) is not None, name
+    assert not hasattr(registry, "NOT_PORTED") and not hasattr(registry, "NOT_PORTED_NAMES")
+    assert trl.list_algorithms() == jrl.list_algorithms() and len(trl.list_algorithms()) == 25
+    for name in jrl.list_algorithms():
+        jcls, tcls = jrl.get_algorithm_class(name), trl.get_algorithm_class(name.lower())
+        assert tcls.__name__ == jcls.__name__, name
+        assert tcls.__module__ == jcls.__module__.replace("ray_tpu.", "ray_tpu_torch.", 1)
+        cfg = trl.get_algorithm_config(name)
+        assert cfg.algo_class is tcls and type(cfg).__name__ == type(
+            jrl.get_algorithm_config(name)).__name__
+        assert set(vars(cfg)) - {"device"} == set(vars(jrl.get_algorithm_config(name))), name
     with pytest.raises(ValueError, match="unknown algorithm"):
         trl.get_algorithm_class("nope")
+
+
+def test_bandit_env_draws_its_problem_from_each_packages_generator():
+    """D5 (ROADMAP Queue 3): the JAX package's ``LinearBanditEnv`` draws its
+    arm weights from ``jax.random.key(env_seed)`` and its step draws from the
+    per-env JAX key in its state; the port's draws the weights from a
+    ``torch.Generator`` seeded with ``env_seed`` and its step draws from a
+    per-env integer key in its state (MINSTD), drawn at reset from the
+    caller's generator. The same seed is another draw of the same problem;
+    a state steps to the same draws wherever it is stepped."""
+    import jax
+
+    import ray_tpu.rllib as jrl
+    import ray_tpu_torch.rllib as trl
+
+    jenv = jrl.LinearBanditEnv(num_arms=4, context_dim=6, env_seed=3)
+    tenv = trl.LinearBanditEnv(num_arms=4, context_dim=6, env_seed=3)
+    jw = np.asarray(jenv._weights())
+    np.testing.assert_array_equal(jw, np.asarray(jax.random.normal(jax.random.key(3), (4, 6))))
+    tw = tenv._weights("cpu")
+    assert torch.equal(tw, torch.randn((4, 6), generator=torch.Generator().manual_seed(3)))
+    assert not np.allclose(tw.numpy(), jw)
+    jstate, _ = jenv.reset(jax.random.key(0))
+    assert jax.dtypes.issubdtype(jstate["key"].dtype, jax.dtypes.prng_key)
+    state, ctx = tenv.reset(torch.Generator().manual_seed(0), 4096, "cpu")
+    assert state["key"].dtype == torch.int64 and len(set(state["key"].tolist())) > 4000
+    arms = torch.randint(0, 4, (4096,), generator=torch.Generator().manual_seed(1))
+    a, b = tenv.step(state, arms), tenv.step(state, arms)
+    for x, y in zip(a[1:], b[1:]):
+        assert torch.equal(x, y)
+    assert not torch.equal(a[0]["key"], state["key"])
+    # the step's draws are standard normals: the noise and the next contexts
+    noise = (a[2] - torch.sum(tw[arms] * ctx, -1)) / tenv.noise
+    for z in (noise, a[1].reshape(-1)):
+        assert abs(float(z.mean())) < 0.05 and abs(float(z.std()) - 1.0) < 0.05
 
 
 class _RecordedActorClass:
